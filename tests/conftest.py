@@ -64,6 +64,9 @@ def pytest_configure(config):
         'by default to keep iteration fast — run with GENDR_EXHAUSTIVE=1 '
         '(a stratified subset of every code path stays in the default '
         'suite)')
+    config.addinivalue_line(
+        'markers', 'cuda: needs an NVIDIA GPU and nvcc (the CUDA kernels of '
+        'gendr_tpu_torch); skipped where torch.cuda.is_available() is False')
 
 
 def pytest_collection_modifyitems(config, items):
