@@ -4,8 +4,9 @@ A generalized differentiable renderer (Felix-Petersen/gendr, CVPR 2022):
 soft mesh rasterization whose per-pixel occlusion test is the CDF of any of
 18 distributions and whose per-pixel coverage is aggregated by a t-conorm.
 This package is the port of the JAX package ``gendr_tpu`` to PyTorch, with
-a hand-written CUDA kernel for NVIDIA Hopper; ``gendr_tpu`` stays the
-reference it is tested against.  It covers the forward render so far; see
+hand-written CUDA kernels for NVIDIA Hopper; ``gendr_tpu`` stays the
+reference it is tested against.  It covers the render, its gradient and
+the silhouette shape optimizer (``experiments.opt_shape``) so far; see
 ROADMAP.md for what is still to come.
 """
 

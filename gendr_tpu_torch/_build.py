@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``_build_cache/lib<name>_<hash>.so``,
-where the hash covers the source and the flags, so an edited source builds
-anew and an unchanged one loads at once.  The library is loaded with
+where the hash covers the source, every header of ``csrc/`` (the kernels
+share their device code through ``csrc/*.cuh``) and the flags, so an
+edited source or header builds anew and an unchanged one loads at once.
+The library is loaded with
 ctypes; its functions take raw device pointers and the CUDA stream as
 ``c_void_p`` and ints as ``c_int``.  Nothing here runs at import time: the
 CPU tests import every module on machines with neither nvcc nor a card.
@@ -23,8 +25,19 @@ PKG = Path(__file__).resolve().parent
 CSRC = PKG / 'csrc'
 CACHE = PKG / '_build_cache'
 
+# --fmad=false: no multiply-add contraction, so each product and sum rounds
+# on its own as in the plain PyTorch versions, and the pair math the forward
+# and backward kernels share (csrc/pairmath.cuh) rounds the same in both
+# whatever each kernel's surroundings (the max t-conorm's gradient finds its
+# winner by exact float equality with the forward's coverage).  Measured on
+# an NVIDIA H100 80GB HBM3 at 700 W, flagship scene: with contraction the
+# max case's gradient agrees with its plain version on 97.8 % of entries,
+# below the 99 % gate, and the other cases on 99.95-99.98 %; without, on
+# 100 % everywhere, for about 0.01 ms on the forward kernel's 0.19 ms and
+# 0.1 ms on the backward's 3 ms
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
+              '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +48,13 @@ SIGNATURES = {
         # image_size dist_func dist_squared alpha_func hard_rgb double_side
         # device stream
         'gendr_rasterize_fwd': ((_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _P), _I),
+        'gendr_error_string': ((_I,), ctypes.c_char_p),
+    },
+    'rasterize_bwd': {
+        # chunk_counts chunk_ids T par packed perm pix out B NI Fp FC
+        # image_size dist_func dist_squared alpha_func hard_rgb device stream
+        'gendr_rasterize_bwd': ((_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _P), _I),
         'gendr_error_string': ((_I,), ctypes.c_char_p),
     },
@@ -59,33 +79,47 @@ def _nvcc():
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
-    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()) \
-        .hexdigest()[:16]
-    return CACHE / f'lib{name}_{digest}.so'
+    """The cached library of csrc/<name>.cu: its name hashes the source,
+    every csrc/*.cuh header (any of them may be included) and the flags."""
+    h = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.name.encode() + b'\0' + header.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    return CACHE / f'lib{name}_{h.hexdigest()[:16]}.so'
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its library is already cached."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    CACHE.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}) building '
-                           f'{name}:\n{proc.stdout}\n{proc.stderr}')
-    BUILD_LOG[name] = proc.stderr
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return out
+def build(*names: str) -> list:
+    """Compile csrc/<name>.cu for each name whose library is not cached yet,
+    one nvcc process per source, all started together; returns the library
+    paths."""
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        CACHE.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f'nvcc failed ({proc.returncode}) building '
+                          f'{name}:\n{stdout}\n{stderr}')
+            continue
+        BUILD_LOG[name] = stderr
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return [library_path(name) for name in names]
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The built library csrc/<name>.cu with its argtypes set."""
-    lib = ctypes.CDLL(str(build(name)))
+    lib = ctypes.CDLL(str(build(name)[0]))
     for fn, (argtypes, restype) in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype

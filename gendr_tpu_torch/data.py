@@ -110,3 +110,18 @@ def camera_grid():
         for k in range(24):
             poses.append((2.732, elev, -15.0 * k))
     return np.array(poses, np.float32)
+
+
+def test_meshes(name: str = 'cube'):
+    """Simple procedural stand-ins for the reference's OBJ assets."""
+    if name == 'cube':
+        v = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                      for z in (-1, 1)], np.float32) * 0.6
+        f = np.array([
+            (0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5),
+            (0, 4, 5), (0, 5, 1), (2, 3, 7), (2, 7, 6),
+            (0, 2, 6), (0, 6, 4), (1, 5, 7), (1, 7, 3)], np.int32)
+        return v, f
+    if name == 'sphere':
+        return icosphere(2)
+    raise ValueError(name)

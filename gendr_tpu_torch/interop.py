@@ -1,10 +1,12 @@
 """Carrying state across from the JAX package.
 
 The renderer has no learned weights: its state is the mesh, its textures
-and the render parameters.  These helpers take them as the JAX package
-holds them, converted to numpy (``np.asarray`` of a ``gendr_tpu.Mesh``'s
-arrays or of a JAX render-params dict), and build the port's counterparts,
-so both packages render the same thing.  Nothing here imports jax.
+and the render parameters; the shape experiment adds its model's
+parameters.  These helpers take them as the JAX package holds them,
+converted to numpy (``np.asarray`` of a ``gendr_tpu.Mesh``'s arrays, of a
+JAX render-params dict, or of a params pytree), and build the port's
+counterparts, so both packages compute the same thing.  Nothing here
+imports jax.
 """
 
 from __future__ import annotations
@@ -35,3 +37,12 @@ def params_from_jax(params: Dict) -> Dict:
     take (config.RenderParams.as_dict)."""
     return {k: torch.tensor(np.asarray(v, np.float32))
             for k, v in params.items()}
+
+
+def shape_params_from_jax(params: Dict) -> Dict:
+    """The JAX ``experiments/opt_shape.ShapeModel`` params (``displace``
+    [1, nv, 3], ``center`` [1, 1, 3], as numpy) -> a state dict for
+    ``gendr_tpu_torch.experiments.opt_shape.ShapeModel.load_state_dict``
+    (``strict=False``: the template's buffers stay the model's own)."""
+    return {name: torch.tensor(np.asarray(params[name], np.float32))
+            for name in ('displace', 'center')}

@@ -1,12 +1,12 @@
-"""Per-(pixel, face) pair math of the forward pass.
+"""Per-(pixel, face) pair math of the forward and backward passes.
 
-Port of ``gendr_tpu/raster/pairmath.py`` (the forward branch): barycentrics
-from the packed affine rows, the packed-constant signed distance (pack.py
-identities), the CDF, the bbox gate and the probability cull.  The plain
-backend evaluates it on [B, P, CF] broadcast blocks; the CUDA kernel
-(``csrc/rasterize_fwd.cu``, ``pair_math``) runs the same operation
-sequence per thread.  The closest-feature branch the gradient needs comes
-with the backward kernel.
+Port of ``gendr_tpu/raster/pairmath.py``: barycentrics from the packed
+affine rows, the packed-constant signed distance (pack.py identities), the
+CDF, the bbox gate and the probability cull; for the gradient also the
+closest feature (the selected edge, its parameter and the distance
+vector).  The plain backends evaluate it on [B, P, CF] broadcast blocks;
+the CUDA kernels (``csrc/pairmath.cuh``) run the same operation sequence
+per thread.
 
 All inputs arrive through a ``row(i)`` accessor over the packed per-face
 constant rows plus broadcastable pixel coordinates, so the code is
@@ -85,13 +85,31 @@ def _dis_from_dis2(dis2, cfg):
     return dis2 * rdis, torch.clamp(rdis, max=1e6)
 
 
+def sel3(idx, c):
+    """Pick c[idx] per element for a 3-tuple of candidate arrays."""
+    return torch.where(idx == 0, c[0], torch.where(idx == 1, c[1], c[2]))
+
+
+def tw_from_ksel(ksel, tv):
+    """Closest-point barycentric weights from the selected edge and its
+    (inside-folded) edge parameter: edge k runs vertex k -> k+1, the
+    opposite vertex k+2 gets weight 0 (the reference backward's ``t + w0``
+    combination, cu:1044-1052)."""
+    one_m = 1.0 - tv
+    zero = torch.zeros_like(tv)
+    return (sel3(ksel, (tv, zero, one_m)), sel3(ksel, (one_m, tv, zero)),
+            sel3(ksel, (zero, one_m, tv)))
+
+
 def _pair_math(row, xp, yp, par, cfg: C.RenderConfig, need_wcn=True,
-               need_depth=True):
-    """Forward per-(pixel, face) math.
+               fwd_only=False, need_depth=True):
+    """Per-(pixel, face) math.
 
     row(i): the i-th packed per-face constant, broadcastable against the
     pixel coordinates xp, yp.  Returns a dict of broadcast arrays; each
     field mirrors the reference per-thread quantity cited inline.
+    fwd_only=False adds the closest-feature fields the gradient needs
+    (ksel, tv, dis_x, dis_y, rdis); frag is bitwise the same either way.
     """
     thr = par[P_THR]
 
@@ -122,10 +140,17 @@ def _pair_math(row, xp, yp, par, cfg: C.RenderConfig, need_wcn=True,
     if cfg.dist_func == C.HEAVISIDE:
         frag = torch.where(in_loose, 1.0, 0.0)
         cull = ~bb
-    else:
+        if not fwd_only:
+            zero = torch.zeros_like(w0)
+            q.update(sign=torch.where(inside, 1.0, -1.0), dis=zero,
+                     dis_x=zero, dis_y=zero, tv=zero,
+                     ksel=torch.zeros_like(w0, dtype=torch.int32),
+                     rdis=zero)
+    elif fwd_only:
         # The forward needs only dis^2: the region decision tree
-        # (cu:127-139) exists to FIND the minimizing clamped edge, so a plain
-        # min over the three clamped edge distances gives the same value.
+        # (cu:127-139) exists to FIND the minimizing clamped edge, so a
+        # plain min over the three clamped edge distances gives the same
+        # value.
         ws = (w0, w1, w2)
         d2u_min = None
         d2c_min = None
@@ -146,6 +171,60 @@ def _pair_math(row, xp, yp, par, cfg: C.RenderConfig, need_wcn=True,
         frag = D.cdf(cfg.dist_func, sign, dis, par[P_SCALE], par[P_SHAPE],
                      par[P_SHIFT], gamma_inv1=par[P_GINV1])
         q.update(sign=sign, dis=dis)
+    else:
+        # Per edge, fold the inside/outside cases up front: inside pairs
+        # rank edges by the unclamped foot distance (cu:91-120), outside
+        # pairs by the clamped-segment distance (cu:127-139); a first-min
+        # argmin selects the closest feature.  At a corner two edges tie,
+        # but both clamp to the same corner point (same dis_x/dis_y, tv in
+        # {0, 1}), so the gradient does not depend on which tie wins.
+        ws = (w0, w1, w2)
+        tvs, dds, d2sel = [], [], []
+        for k in range(3):
+            tv = row(pack.R_TV + 3 * k) * xp \
+                + row(pack.R_TV + 3 * k + 1) * yp \
+                + row(pack.R_TV + 3 * k + 2)
+            wj = ws[(k + 2) % 3]
+            tvc = torch.clamp(tv, 0.0, 1.0)
+            dd = tvc - tv
+            u2 = wj * wj * row(pack.R_MM + k)
+            c2 = u2 + dd * dd * row(pack.R_E2 + k)
+            tvs.append(torch.where(inside, tv, tvc))
+            dds.append(dd)
+            d2sel.append(torch.where(inside, u2, c2))
+
+        sel0 = (d2sel[0] <= d2sel[1]) & (d2sel[0] <= d2sel[2])
+        sel1 = (~sel0) & (d2sel[1] <= d2sel[2])
+        ksel = torch.where(sel0, 0, torch.where(sel1, 1, 2)) \
+            .to(torch.int32)
+
+        # distance vector of the selected feature: u = w_j m_k for the
+        # unclamped foot, plus dd * e_k where the edge parameter clamps
+        wj_sel = sel3(ksel, (w2, w0, w1))
+        dis_x = wj_sel * sel3(ksel, tuple(row(pack.R_M + 2 * k)
+                                          for k in range(3)))
+        dis_y = wj_sel * sel3(ksel, tuple(row(pack.R_M + 2 * k + 1)
+                                          for k in range(3)))
+        out_dd = torch.where(inside, 0.0, sel3(ksel, dds))
+        dis_x = dis_x + out_dd * sel3(
+            ksel, tuple(row(pack.R_E + 2 * k) for k in range(3)))
+        dis_y = dis_y + out_dd * sel3(
+            ksel, tuple(row(pack.R_E + 2 * k + 1) for k in range(3)))
+
+        # the same min as the forward branch, so a recomputed coverage
+        # equals the forward's bitwise (the max t-conorm's backward finds
+        # its winner by exact equality, cu:574-575)
+        dis2 = torch.minimum(torch.minimum(d2sel[0], d2sel[1]), d2sel[2])
+        cull = ((~inside) & (dis2 >= thr)) | ~bb
+        dis, rdis = _dis_from_dis2(dis2, cfg)
+        sign = torch.where(inside, 1.0, -1.0)
+        frag = D.cdf(cfg.dist_func, sign, dis, par[P_SCALE], par[P_SHAPE],
+                     par[P_SHIFT], gamma_inv1=par[P_GINV1])
+        q.update(sign=sign, dis=dis, dis_x=dis_x, dis_y=dis_y,
+                 tv=sel3(ksel, tvs), ksel=ksel)
+        if rdis is not None:
+            q['rdis'] = rdis
+    q['cull'] = cull
 
     valid = (~cull) & (frag > 1e-6) & (row(pack.R_FVALID) > 0)
     q['frag'] = torch.where(valid, frag, 0.0)

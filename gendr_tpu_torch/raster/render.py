@@ -4,9 +4,12 @@ Port of ``gendr_tpu/raster/render.py``: the same keywords and defaults as
 the reference's functional ``render`` (functional/renderer.py:239-288),
 and the same eager checks of ``dist_scale``, ``dist_eps`` and the
 t-conorm parameter.  The render runs through a ``torch.autograd.Function``
-whose backward will launch the backward kernel; until that kernel is
-ported the backward raises, so no plain-torch gradient ever stands in for
-it on the card.
+(the JAX package's ``custom_vjp``): gradients flow to ``face_vertices``
+and ``textures`` only, and the backward recomputes from the reference's
+residuals (inputs, soft_colors, aggrs_info, functional/renderer.py:183)
+plus the backend's prepass products, so it never re-sorts or re-packs.
+With ``backend='cuda'`` the gradient comes from the backward kernel and
+from nothing else.
 """
 
 from __future__ import annotations
@@ -27,21 +30,28 @@ def _get_backend(cfg: C.RenderConfig, face_vertices):
 
 
 class _Render(torch.autograd.Function):
-    """soft_colors = render(face_vertices, textures); gradients would flow
-    to face_vertices and textures only."""
+    """soft_colors = render(face_vertices, textures); gradients flow to
+    face_vertices and textures only."""
 
     @staticmethod
     def forward(ctx, face_vertices, textures, cfg, params):
-        soft_colors, _ = _get_backend(cfg, face_vertices).forward(
+        backend = _get_backend(cfg, face_vertices)
+        soft_colors, aggrs_info, aux = backend.forward_with_aux(
             face_vertices, textures, cfg, params)
+        ctx.save_for_backward(face_vertices, textures, soft_colors,
+                              aggrs_info)
+        ctx.backend, ctx.aux, ctx.cfg, ctx.params = backend, aux, cfg, \
+            params
         return soft_colors
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad_soft_colors):
-        raise NotImplementedError(
-            'gendr_tpu_torch renders forward only: the backward kernel '
-            '(gendr_tpu/raster/pallas_backend.py:_bwd_kernel, sub-kernel '
-            'K2a in ROADMAP.md) is not ported yet')
+        face_vertices, textures, soft_colors, aggrs_info = ctx.saved_tensors
+        grad_faces, grad_textures = ctx.backend.backward_from_aux(
+            face_vertices, textures, ctx.aux, soft_colors, aggrs_info,
+            grad_soft_colors, ctx.cfg, ctx.params)
+        return grad_faces, grad_textures, None, None
 
 
 def _check_t_conorm_p(tid, p_val):
@@ -96,6 +106,33 @@ def render(
     outside its envelope), 'torch' (the plain streaming backend), or None
     ('cuda' for CUDA tensors, 'torch' for CPU tensors).
     """
+    cfg, params = render_config(
+        image_size=image_size, background_color=background_color,
+        dist_func=dist_func, dist_scale=dist_scale, dist_squared=dist_squared,
+        dist_shape=dist_shape, dist_shift=dist_shift, dist_eps=dist_eps,
+        aggr_alpha_func=aggr_alpha_func,
+        aggr_alpha_t_conorm_p=aggr_alpha_t_conorm_p,
+        aggr_rgb_func=aggr_rgb_func, aggr_rgb_eps=aggr_rgb_eps,
+        aggr_rgb_gamma=aggr_rgb_gamma, near=near, far=far,
+        double_side=double_side, texture_type=texture_type, backend=backend,
+        face_chunk=face_chunk, channels=channels)
+
+    face_vertices = torch.as_tensor(face_vertices, dtype=torch.float32)
+    if face_vertices.ndim == 4:
+        face_vertices = face_vertices.reshape(
+            face_vertices.shape[0], face_vertices.shape[1], 9)
+    textures = torch.as_tensor(textures, dtype=torch.float32,
+                               device=face_vertices.device)
+    return _Render.apply(face_vertices, textures, cfg, params)
+
+
+def render_config(*, image_size, background_color, dist_func, dist_scale,
+                  dist_squared, dist_shape, dist_shift, dist_eps,
+                  aggr_alpha_func, aggr_alpha_t_conorm_p, aggr_rgb_func,
+                  aggr_rgb_eps, aggr_rgb_gamma, near, far, double_side,
+                  texture_type, backend, face_chunk, channels):
+    """(RenderConfig, params dict) of ``render``'s keywords, after its
+    eager checks; what the backends' kernels and plain versions take."""
     cfg = C.RenderConfig.create(
         image_size=image_size, dist_func=dist_func, dist_squared=dist_squared,
         aggr_alpha_func=aggr_alpha_func, aggr_rgb_func=aggr_rgb_func,
@@ -113,16 +150,9 @@ def render(
         _check_t_conorm_p(cfg.aggr_alpha_func,
                           float(aggr_alpha_t_conorm_p or 0.0))
 
-    face_vertices = torch.as_tensor(face_vertices, dtype=torch.float32)
-    if face_vertices.ndim == 4:
-        face_vertices = face_vertices.reshape(
-            face_vertices.shape[0], face_vertices.shape[1], 9)
-    textures = torch.as_tensor(textures, dtype=torch.float32,
-                               device=face_vertices.device)
-
     params = C.RenderParams(
         dist_scale=dist_scale, dist_shape=dist_shape, dist_shift=dist_shift,
         dist_eps=dist_eps, aggr_alpha_t_conorm_p=aggr_alpha_t_conorm_p,
         aggr_rgb_eps=aggr_rgb_eps, aggr_rgb_gamma=aggr_rgb_gamma, near=near,
         far=far, background_color=background_color).as_dict()
-    return _Render.apply(face_vertices, textures, cfg, params)
+    return cfg, params

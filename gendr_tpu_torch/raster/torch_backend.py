@@ -1,12 +1,14 @@
 """Plain PyTorch streaming rasterizer: a loop over face chunks with
 associative folds (``backend='torch'``).
 
-Port of the forward half of ``gendr_tpu/raster/xla_backend.py``.  Each
-step evaluates a [B, P, CF] pixel x face-chunk block of the shared pair
-math, and the per-pixel aggregation state (alpha t-conorm fold, streaming
-softmax-depth RGB, or hard z-argmin) is carried across chunks: the
-t-conorm is associative and the softmax is a streaming logsumexp.  The
-``lax.scan`` of the JAX package is a Python loop here.
+Port of ``gendr_tpu/raster/xla_backend.py``.  Each step evaluates a
+[B, P, CF] pixel x face-chunk block of the shared pair math.  Forward: the
+per-pixel aggregation state (alpha t-conorm fold, streaming softmax-depth
+RGB, or hard z-argmin) is carried across chunks: the t-conorm is
+associative and the softmax is a streaming logsumexp.  Backward: each
+chunk recomputes its pairs and reduces its gradient over the pixels
+(deterministic: no atomics).  The ``lax.scan`` of the JAX package is a
+Python loop here.
 
 It covers every alpha family, both RGB modes and both texture types: it is
 the oracle the CUDA kernel (``cuda_backend``) is held against, and the
@@ -21,6 +23,7 @@ from typing import Dict
 import torch
 
 from gendr_tpu_torch import config as C
+from gendr_tpu_torch.ops import distributions as D
 from gendr_tpu_torch.ops import tconorms as T
 from gendr_tpu_torch.raster import geometry as G
 from gendr_tpu_torch.raster import pack
@@ -63,7 +66,7 @@ def tconorm_chunk_reduce(tid: int, frags, p):
     return frags[..., 0]
 
 
-def _pair_quantities(pk, xp, yp, cfg: C.RenderConfig, par):
+def _pair_quantities(pk, xp, yp, cfg: C.RenderConfig, par, fwd_only=False):
     """All per-(pixel, face) quantities for one chunk.
 
     pk: [B, NI, CF] packed per-face constants; xp, yp: [P]; par:
@@ -72,7 +75,7 @@ def _pair_quantities(pk, xp, yp, cfg: C.RenderConfig, par):
     def row(i):
         return pk[:, i, None, :]       # [B, 1, CF]
     return PM._pair_math(row, xp[None, :, None], yp[None, :, None], par,
-                         cfg, need_wcn=True,
+                         cfg, need_wcn=True, fwd_only=fwd_only,
                          need_depth=cfg.channels != 'alpha')
 
 
@@ -167,7 +170,7 @@ def forward_carry(face_vertices, textures, fvalid, carry0,
     for k in range(nc):
         pk = packed[:, :, k * cf:(k + 1) * cf]
         tex = textures[:, k * cf:(k + 1) * cf]
-        q = _pair_quantities(pk, xp, yp, cfg, par)
+        q = _pair_quantities(pk, xp, yp, cfg, par, fwd_only=True)
         frag, valid = q['frag'], q['valid']
 
         # -- alpha aggregation (cu:791-801)
@@ -252,3 +255,144 @@ def forward(face_vertices, textures, cfg: C.RenderConfig, params: Dict):
     carry = forward_carry(face_vertices, textures, fvalid, carry0, cfg,
                           params)
     return finalize(carry, cfg)
+
+
+def forward_with_aux(face_vertices, textures, cfg: C.RenderConfig,
+                     params: Dict):
+    """forward plus the residual the backward needs beyond its inputs:
+    none, the packed constants are recomputed bitwise in the backward."""
+    soft_colors, aggrs_info = forward(face_vertices, textures, cfg, params)
+    return soft_colors, aggrs_info, None
+
+
+def backward(face_vertices, textures, soft_colors, aggrs_info,
+             grad_soft_colors, cfg: C.RenderConfig, params: Dict):
+    """Returns (grad_face_vertices [B,F,9], grad_textures [B,F,TS,3]).
+
+    Semantics of ``backward_render_cuda_kernel`` (cu:866-1065): recompute
+    the per-pair coverage, apply the aggregate-inverse t-conorm rule, the
+    softmax RGB chain and the closest-point distance chain, and reduce
+    each chunk's pairs over the pixels.
+    """
+    B, F = face_vertices.shape[:2]
+    TS = textures.shape[2]
+    dev = face_vertices.device
+    P = soft_colors.shape[2] * soft_colors.shape[3]
+    xp, yp = pixel_grid(cfg.image_size, dev)
+    cf = min(cfg.face_chunk, max(F, 1))
+    gamma = params['aggr_rgb_gamma']
+    near, far = params['near'], params['far']
+
+    fv_p, tex_p, fvalid, nc, Fp = _pad_faces(face_vertices, textures, cf)
+    par = PM._params_vec(params, cfg, dev)
+    packed = pack.pack_faces(fv_p, tex_p, fvalid, cfg, with_tex=False)
+
+    # pixel-space tensors as [B, P, .]
+    g = grad_soft_colors.permute(0, 2, 3, 1).reshape(B, P, 4)
+    final = soft_colors.permute(0, 2, 3, 1).reshape(B, P, 4)
+    aggr = aggrs_info.reshape(B, 2, P)
+    aggr0, aggr1 = aggr[:, 0], aggr[:, 1]  # (ssum, smax) or (depth, idx)
+    gA = g[..., 3]
+
+    gfaces, gtexs = [], []
+    for k in range(nc):
+        pk = packed[:, :, k * cf:(k + 1) * cf]
+        tex = tex_p[:, k * cf:(k + 1) * cf]
+        q = _pair_quantities(pk, xp, yp, cfg, par)
+        frag, valid = q['frag'], q['valid']
+        w_clip = q.get('wcn')
+
+        # alpha path (cu:973-987)
+        if cfg.aggr_alpha_func == C.ALPHA_HARD:
+            # reference quirk: the incoming alpha grad flows into the
+            # coverage chain un-multiplied (cu:975-976 only skips the
+            # t-conorm factor)
+            c_grad_xy = gA[..., None].expand(frag.shape)
+        else:
+            c_grad_xy = gA[..., None] * T.aggregate_backward(
+                cfg.aggr_alpha_func, final[..., 3:4], frag, par[PM.P_TCP])
+        c_grad_xy = torch.where(valid, c_grad_xy, 0.0)
+
+        gz = None
+        gtex_coef = None  # [B,P,CF,3] per-channel texture-grad coefficient
+        if cfg.channels == 'alpha':
+            pass
+        elif cfg.aggr_rgb_func == C.RGB_HARD:
+            # texture grad only to the winning face (cu:997-1004); winner
+            # ids are input face ids
+            zmask = valid & q['zvalid']
+            cf_ids = k * cf + torch.arange(cf, device=dev)[None, None, :]
+            win = zmask & (aggr1[..., None].to(torch.int32) == cf_ids)
+            gtex_coef = torch.where(win[..., None], g[:, :, None, :3], 0.0)
+        else:
+            zp = q['zp']
+            cmask = valid & q['zvalid'] & q['front_ok']
+            zp_norm = (far - zp) / (far - near)
+            # aggr0 = softmax_sum, aggr1 = softmax_max (cu:916-917, 1010)
+            zp_softmax = torch.where(
+                cmask,
+                frag * torch.exp((torch.where(cmask, zp_norm, NEG_INF)
+                                  - aggr1[..., None]) / gamma)
+                / aggr0[..., None], 0.0)
+            colors = _sample_colors(tex, w_clip, cfg)
+            diff = colors - final[:, :, None, :3]  # color_k - final_k
+            c_xyz = torch.einsum('bpk,bpck->bpc', g[..., :3], diff) \
+                * zp_softmax  # cu:1012-1023
+            gtex_coef = zp_softmax[..., None] * g[:, :, None, :3]
+            c_grad_xy = c_grad_xy + torch.where(
+                cmask, c_xyz / torch.where(cmask, frag, 1.0), 0.0)  # cu:1024
+            c_z = c_xyz / gamma / (near - far) * zp * zp  # cu:1026
+            # w_clip_j / z_j^2 == wcn_j * iz_j^2 (cu:1027-1029)
+            iz = tuple(pk[:, pack.R_IZ + j, None, :] for j in range(3))
+            gz = tuple(torch.where(cmask, c_z * w_clip[j] * (iz[j] * iz[j]),
+                                   0.0) for j in range(3))
+
+        # distance chain (cu:1034-1052)
+        pdf_v = D.pdf(cfg.dist_func, q['sign'], q['dis'], par[PM.P_SCALE],
+                      par[PM.P_SHAPE], par[PM.P_SHIFT],
+                      gamma_inv=par[PM.P_GINV])
+        c_grad_xy = torch.where(valid, c_grad_xy * pdf_v, 0.0)
+
+        tw = PM.tw_from_ksel(q['ksel'], q['tv'])
+        if cfg.dist_squared:
+            base_coef = 2.0 * q['sign'] * c_grad_xy
+        else:
+            # |(dis_x, dis_y)| == dis by construction, so the direction
+            # normalization reuses the rsqrt that produced dis
+            # (cu:1046-1050)
+            base_coef = q['sign'] * c_grad_xy * q['rdis']
+
+        gface = []
+        for j in range(3):
+            gx = (base_coef * tw[j] * q['dis_x']).sum(1)  # [B, CF]
+            gy = (base_coef * tw[j] * q['dis_y']).sum(1)
+            gzj = gz[j].sum(1) if gz is not None else torch.zeros_like(gx)
+            gface.extend([gx, gy, gzj])
+        gfaces.append(torch.stack(gface, dim=-1))  # [B, CF, 9]
+
+        # texture gradients (backward_sample_texture, cu:194-214)
+        if gtex_coef is None:
+            gtex = torch.zeros((B, cf) + textures.shape[2:], device=dev)
+        elif cfg.texture_type == C.TEXTURE_VERTEX:
+            gtex = torch.stack([torch.einsum('bpc,bpck->bck', w_clip[j],
+                                             gtex_coef) for j in range(3)],
+                               dim=2)  # [B, CF, 3, 3]
+        elif TS == 1:
+            gtex = gtex_coef.sum(1)[:, :, None, :]
+        else:
+            ti = G.surface_texel_index(w_clip, int(round(TS ** 0.5)))
+            gtex = torch.stack([
+                torch.einsum('bpc,bpck->bck', (ti == t).to(gtex_coef.dtype),
+                             gtex_coef) for t in range(TS)], dim=2)
+        gtexs.append(gtex)
+
+    grad_faces = torch.cat(gfaces, dim=1)[:, :F]
+    grad_tex = torch.cat(gtexs, dim=1)[:, :F]
+    return grad_faces, grad_tex
+
+
+def backward_from_aux(face_vertices, textures, aux, soft_colors, aggrs_info,
+                      grad_soft_colors, cfg: C.RenderConfig, params: Dict):
+    del aux  # None: see forward_with_aux
+    return backward(face_vertices, textures, soft_colors, aggrs_info,
+                    grad_soft_colors, cfg, params)

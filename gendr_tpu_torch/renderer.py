@@ -89,11 +89,15 @@ class GenDR(nn.Module):
         return self.forward_tensors(mesh.face_vertices, mesh.face_textures)
 
     def forward_tensors(self, face_vertices, face_textures):
-        image_size = self.image_size * (2 if self.anti_aliasing else 1)
-        images = render(
-            face_vertices=face_vertices,
-            textures=face_textures,
-            image_size=image_size,
+        images = render(face_vertices, face_textures, **self.render_kwargs())
+        if self.anti_aliasing:
+            images = _avg_pool2(images)
+        return images
+
+    def render_kwargs(self):
+        """The keywords this module passes to ``render``."""
+        return dict(
+            image_size=self.image_size * (2 if self.anti_aliasing else 1),
             background_color=self.background_color,
             dist_func=self.dist_func,
             dist_scale=self.dist_scale,
@@ -114,6 +118,3 @@ class GenDR(nn.Module):
             face_chunk=self.face_chunk,
             channels=self.channels,
         )
-        if self.anti_aliasing:
-            images = _avg_pool2(images)
-        return images

@@ -1,4 +1,4 @@
-"""The CUDA forward kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without one.  The
 file imports no jax, so it also runs where the JAX package is not
@@ -7,26 +7,46 @@ installed; from the repo root on a machine with a card:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerance: image max-abs 1e-4 and winner ids equal on >= 99.9 % of covered
-pixels.  nvcc contracts multiply-adds into FMAs, which moves the affine
-barycentric and distance values by an ulp, so a pixel within an ulp of a
-shared edge can change its winner; the probabilistic product and the
-einstein fold run in the same order in both.
+pixels.  The kernels are built without multiply-add contraction
+(``_build.NVCC_FLAGS``) and run the probabilistic product and the einstein
+fold in the plain versions' order, but the CUDA and torch transcendentals
+may differ by an ulp, which can move a pixel on a shared edge to the
+other face.  Gradients: entries within
+np.isclose(atol 5e-4, rtol 5e-3) on > 99 % of them
+(tools/tpu_selfcheck.py:407-409), each side through its own forward; the
+backward kernel has no atomics, so two runs are bitwise equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import CASES, flagship_cfg, flagship_scene
+from chip_smoke import (CASES, GRAD_AGREE, GRAD_ATOL, agreement,
+                        check_kernels, flagship_cfg, flagship_scene,
+                        grads_through, training_inputs)
 from gendr_tpu_torch import config as C, render
 from gendr_tpu_torch.raster import cuda_backend as CB
 
 IMG_ATOL = 1e-4
 WINNER_AGREE = 0.999
 
-# (shape, shift) of the distributions that take them
-DIST_PARAMS = {14: (2.0, 0.1), 15: (2.0, 0.1), 16: (0.0, 0.1),
-               17: (0.0, 0.1), 12: (0.0, 0.05), 13: (0.0, 0.05)}
+# (shape, shift, scale) of the CDF zoo's scenes (64x64, the icosphere):
+# scale 3e-2 where not named; chosen so that alpha is not saturated, where
+# the probabilistic gradient would be 0 on both sides (levy_rev at scale
+# 3e-2, cauchy and reciprocal with their heavy tails)
+DIST_PARAMS = {8: (0.0, 0.0, 3e-3), 9: (0.0, 0.0, 3e-3),
+               12: (0.0, 0.05, 3e-2), 13: (0.0, 0.05, 3e-2),
+               14: (2.0, 1.0, 3e-2), 15: (2.0, 0.1, 3e-2),
+               16: (0.0, 1.0, 3e-2), 17: (0.0, 0.1, 1e-4)}
+
+
+def _zoo_cfg_params(fid, squared):
+    shape, shift, scale = DIST_PARAMS.get(fid, (0.0, 0.0, 3e-2))
+    cfg = flagship_cfg(64, dist_func=fid, dist_squared=squared,
+                       double_side=False)
+    params = C.RenderParams(dist_scale=scale, dist_shape=shape,
+                            dist_shift=shift, dist_eps=1e3).as_dict()
+    return cfg, params
 
 
 @pytest.fixture
@@ -67,12 +87,8 @@ def test_kernel_matches_plain(cuda, name, kw, B, size):
 @pytest.mark.cuda
 @pytest.mark.parametrize('fid', range(18))
 def test_kernel_cdf_zoo_matches_plain(cuda, fid):
-    shape, shift = DIST_PARAMS.get(fid, (0.0, 0.0))
     for squared in (False, True):
-        cfg = flagship_cfg(64, dist_func=fid, dist_squared=squared,
-                           double_side=False)
-        params = C.RenderParams(dist_scale=3e-2, dist_shape=shape,
-                                dist_shift=shift, dist_eps=1e3).as_dict()
+        cfg, params = _zoo_cfg_params(fid, squared)
         _kernel_vs_plain(cfg, params, 1, cuda, seed=fid)
 
 
@@ -99,3 +115,77 @@ def test_render_on_cuda_launches_the_kernel_or_raises(cuda):
                  backend='torch')
     assert CB.LAUNCHES['rasterize_fwd'] == launches + 1
     assert float((img - ref).abs().max()) <= IMG_ATOL
+
+
+def _bwd_kernel_vs_plain(cfg, params, B, device, seed=0):
+    fv, tex = flagship_scene(device, B, seed)
+    aux = CB.prepass(fv, tex, cfg, params)
+    launches = CB.LAUNCHES['rasterize_bwd']
+    got = grads_through(cfg, params, fv, tex, True, aux)
+    again = grads_through(cfg, params, fv, tex, True, aux)
+    assert CB.LAUNCHES['rasterize_bwd'] == launches + 2
+    want = grads_through(cfg, params, fv, tex, False, aux)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert agreement(got[0], want[0]) > GRAD_AGREE
+    assert agreement(got[1], want[1]) > GRAD_AGREE
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name,kw,B,size', CASES, ids=[c[0] for c in CASES])
+def test_bwd_kernel_matches_plain(cuda, name, kw, B, size):
+    want = _bwd_kernel_vs_plain(flagship_cfg(size, **kw),
+                                C.RenderParams(dist_scale=1e-2).as_dict(), B,
+                                cuda)
+    assert float(want[0].abs().max()) > 100 * GRAD_ATOL
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_opt_shape_inputs(cuda):
+    # the shape optimizer's soft and hard renderers at B=24, 64x64, on the
+    # template, and its goal renderer at B=120 on the cube
+    names = []
+    for name, cfg, params, fv, tex in training_inputs(cuda):
+        check_kernels(name, cfg, params, fv, tex)
+        names.append(name)
+    assert names == ['opt soft', 'opt hard', 'opt goal']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('fid', range(18))
+def test_bwd_kernel_cdf_zoo_matches_plain(cuda, fid):
+    for squared in (False, True):
+        cfg, params = _zoo_cfg_params(fid, squared)
+        want = _bwd_kernel_vs_plain(cfg, params, 1, cuda, seed=fid)
+        # a step's PDF is 0, so heaviside has no geometry gradient; the
+        # others' must lie well above the absolute tolerance
+        if fid != C.HEAVISIDE:
+            assert float(want[0].abs().max()) > 100 * GRAD_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('size,face_chunk', [(17, 32), (40, 64), (64, 16)])
+def test_bwd_kernel_small_and_ragged_sizes(cuda, size, face_chunk):
+    for channels in ('rgba', 'alpha'):
+        cfg = flagship_cfg(size, face_chunk=face_chunk, channels=channels,
+                           dist_func='logistic')
+        _bwd_kernel_vs_plain(cfg, C.RenderParams(dist_scale=3e-2).as_dict(),
+                             2, cuda)
+
+
+@pytest.mark.cuda
+def test_render_backward_on_cuda_launches_the_kernel(cuda):
+    fv, tex = flagship_scene(cuda)
+    fv.requires_grad_(True)
+    kw = dict(image_size=64, aggr_rgb_func='hard', dist_func='logistic',
+              dist_scale=3e-2)
+    grads = {}
+    for backend in ('cuda', 'torch'):
+        launches = CB.LAUNCHES['rasterize_bwd']
+        img = render(fv, tex, backend=backend, **kw)
+        loss = 0.5 * (img[:, 3] ** 2).sum() + 0.1 * img[:, :3].sum()
+        grads[backend] = torch.autograd.grad(loss, fv)[0]
+        assert CB.LAUNCHES['rasterize_bwd'] == launches \
+            + (backend == 'cuda')
+    assert agreement(grads['cuda'], grads['torch']) > GRAD_AGREE

@@ -5,7 +5,9 @@
 * the CUDA backend (on the CPU its kernel wrapper runs the kernel's plain
   version) against ``xla`` across the kernel's envelope, and against the
   Pallas kernel in interpret mode;
-* the envelope, the eager checks and the missing backward raise.
+* the envelope and the eager checks raise, and the gradient runs through
+  both backends (tests/test_torch_backward.py holds it against
+  gendr_tpu).
 
 Tolerances: image max-abs 1e-4, and winner face ids equal on >= 99.9 % of
 covered pixels.  The two libraries round transcendentals differently
@@ -259,15 +261,55 @@ def test_render_default_backend_on_cpu_is_torch():
         render(fv.reshape(1, 5, 3, 3), tex, **kw).numpy(), img.numpy())
 
 
-def test_backward_raises_not_implemented():
+def test_backward_runs_on_both_backends():
+    """The gradient reaches face_vertices and textures on both backends
+    (on the CPU the cuda backend runs its kernels' plain versions, and
+    never the torch backend); outside the kernels' envelope
+    backend='cuda' still raises."""
     fv, tex = _tiny()
     fv.requires_grad_(True)
+    tex.requires_grad_(True)
+    kw = dict(image_size=16, aggr_rgb_func='hard', dist_func='logistic',
+              dist_scale=5e-2, face_chunk=8)
+    grads = {}
     for backend in ('torch', 'cuda'):
-        out = render(fv, tex, image_size=16, aggr_rgb_func='hard',
-                     backend=backend)
+        launches = dict(CB.LAUNCHES)
+        out = render(fv, tex, backend=backend, **kw)
         assert out.requires_grad
-        with pytest.raises(NotImplementedError, match='_bwd_kernel'):
-            out.sum().backward()
+        loss = 0.5 * (out[:, 3] ** 2).sum() + 0.1 * out[:, :3].sum()
+        grads[backend] = torch.autograd.grad(loss, (fv, tex))
+        assert CB.LAUNCHES == launches  # CPU: never a kernel launch
+        gf, gt = grads[backend]
+        assert gf.shape == fv.shape and gt.shape == tex.shape
+        assert bool(torch.isfinite(gf).all()) and float(gf.abs().max()) > 0
+        assert float(gt.abs().max()) > 0
+        # hard RGB and alpha have no z gradient
+        assert float(gf.reshape(1, 5, 3, 3)[..., 2].abs().max()) == 0.0
+    for a, b in zip(grads['torch'], grads['cuda']):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_backward_raises_not_implemented():
+    """A configuration whose kernels are not implemented yet raises
+    ValueError on backend='cuda', in the forward and in the backward
+    alike; the plain backend differentiates it."""
+    fv, tex = _tiny()
+    fv.requires_grad_(True)
+    kw = dict(image_size=16, aggr_rgb_func='softmax', dist_func='logistic',
+              dist_scale=5e-2, face_chunk=8)
+    with pytest.raises(ValueError, match='K1b'):
+        render(fv, tex, backend='cuda', **kw)
+    out = render(fv, tex, backend='torch', **kw)
+    soft = out.detach()
+    cfg = C.RenderConfig.create(backend='cuda', **{
+        k: v for k, v in kw.items() if k != 'dist_scale'})
+    with pytest.raises(ValueError, match='K1b'):
+        CB.backward_from_aux(fv, tex, None, soft, torch.zeros(1, 2, 16, 16),
+                             torch.ones_like(soft), cfg,
+                             C.RenderParams(dist_scale=5e-2).as_dict())
+    grad, = torch.autograd.grad(out.sum(), fv)
+    assert bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
 
 
 @pytest.mark.parametrize('kw', [
