@@ -9,37 +9,55 @@ CUDA toolkit:
 It builds the CUDA kernels from ``gendr_tpu_torch/csrc`` (one nvcc per
 source, started together, into ``gendr_tpu_torch/_build_cache/``), then
 
-1. holds each kernel against its plain PyTorch version on the card, on the
+1. holds each kernel against its plain PyTorch version on the card: on the
    flagship scene (642-vertex icosphere, 256x256, uniform CDF, tau 1e-2,
    probabilistic alpha, hard RGB, random per-face colours) and on
    alpha-only, the max/hard/einstein alpha families, a 100x100 render
-   (ragged edge tiles) and a batch of 4 views: the forward image, and the
+   (ragged edge tiles) and a batch of 4 views; on softmax RGB with 1, 25
+   and 36 texels per face and with vertex colours, hard RGB with 25 texels
+   and with vertex colours, and 4 single-sided views with 25 texels; on the
+   panda_dist renderer's scene and configuration (gaussian, tau 1e-2) at
+   256x256; on the default GenDR's inputs of phase 4 (4 views at 512x512,
+   surface and vertex textures); and on the inputs the shape optimizer of
+   phase 3 gives the kernels (its soft and hard renderers on its template
+   from 24 views at 64x64, the hard renderer on its 120 goal views).  Each
+   case compares the forward image (and, for hard RGB, every winner), the
    gradient of 0.5 sum(alpha^2) + 0.1 sum(rgb), each side through its own
-   forward; the backward kernel twice, bitwise equal; and the same on the
-   inputs the shape optimizer of phase 3 gives the kernels: its soft
-   renderer (logistic sigma 1e-2, probabilistic, alpha) and its hard
-   renderer (heaviside, hard alpha, squared distance) on its template from
-   24 views at 64x64, and the hard renderer on its 120 goal views;
+   forward, and two backward runs, bitwise;
 2. drives the render path, Mesh -> Lighting -> LookAt -> GenDR at 256x256
-   and its gradient to the mesh vertices, against the plain backend, and
-   checks that both kernels' launch counters rose;
+   (hard RGB) and its gradient to the mesh vertices, against the plain
+   backend, and checks that both kernels' launch counters rose;
 3. drives the training path, the shape optimizer of
    ``gendr_tpu_torch.experiments.opt_shape`` at its default width
    (642-vertex template, 64x64, 24 views, logistic sigma 1e-2,
    probabilistic, lr 10^-1.5, procedural cube target), and checks that the
    hard IoU loss fell, every gradient was finite and both kernels ran;
-4. times the kernels against their plain versions, the forward render and
-   the forward + backward through both backends, and the median training
-   step through both backends.
+4. drives the textured paths: (a) ``gendr_tpu_torch.animations.panda_dist
+   --quick`` at its defaults (1280-face textured stand-in, 25 texels per
+   face, 768x768 with 2x anti-aliasing: 1536x1536 renders, 2 distributions
+   x 7 taus), checking one forward launch per frame, none backward, and
+   every frame finite with alpha in [0, 1]; one full-width frame (uniform,
+   tau 1e-2) against backend='torch'; (b) the default GenDR
+   (anti-aliased 256x256, softmax RGB) on 4 views with surface and then
+   vertex textures, forward and loss.backward() to vertices and textures,
+   one launch of each kernel per run, against backend='torch';
+5. times the kernels against their plain versions beside their bounds, at
+   the flagship (hard RGB, and softmax RGB with one texel), at the panda
+   frame and at the default GenDR's shapes (surface and vertex textures),
+   the panda frames' render alone, the forward render and the forward +
+   backward through both backends, and the median training step through
+   both backends.
 
 Every failure raises, and the script then exits non-zero.  It exits
 non-zero with no result where there is no CUDA device.  The last line of
-its output is one JSON object naming the device.
+its output is one JSON object naming the device; the one before it the
+card's name and power limit; the one before that the kernels.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -53,6 +71,22 @@ WINNER_AGREE = 0.999  # share of covered pixels whose winner face agrees
 GRAD_ATOL, GRAD_RTOL, GRAD_AGREE = 5e-4, 5e-3, 0.99
 TRAIN_STEPS = 30
 TRAIN_LR, TRAIN_SIGMA = 10 ** -1.5, 1e-2
+# the panda_dist sweep as its users run it on the card: its defaults
+# (--resolution 768 with 2x anti-aliasing: a 1536x1536 render, texture_res 5)
+PANDA_ARGS = ['--quick', '--device', 'cuda']
+PANDA_FRAMES = 14  # --quick: 2 distributions x 7 taus
+GENDR_VIEWS = 4
+# the card's peaks (NVIDIA's H100 SXM data sheet, at a 700 W power limit):
+# float32 outside the tensor cores and HBM bandwidth
+H100_FP32_FLOPS, H100_HBM_BYTES = 67e12, 3.35e12
+# float operations per (pixel, face) pair inside the bbox gate, counted in
+# csrc/rasterize_{fwd,bwd}.cu with the uniform CDF (one per add, multiply,
+# divide, compare, min/max or transcendental): the pair math and alpha
+# fold, plus the hard-RGB depth key or the softmax depth, exponentials,
+# texel gather and blend; the backward adds the closest feature, the PDF
+# chain and, for softmax, the colour, z and texture chain
+FWD_FLOPS_PER_PAIR = (73, 81, 121)   # by cuda_backend.MODE_*
+BWD_FLOPS_PER_PAIR = (110, 120, 190)
 
 
 def smi_line():
@@ -62,10 +96,11 @@ def smi_line():
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def flagship_scene(device, B=1, seed=0):
+def flagship_scene(device, B=1, seed=0, TS=1, texture_type='surface'):
     """Face vertices [B, 1280, 9] of the 642-vertex icosphere (x0.9) seen
     from distance 2.732, elevation 30 deg, azimuths 45 + 90*i, perspective
-    30 deg, and random per-face colours [B, 1280, 1, 3]."""
+    30 deg, and random textures: TS texels per face [B, 1280, TS, 3], or
+    three vertex colours per face [B, 1280, 3, 3]."""
     import torch
     from gendr_tpu_torch import data
     from gendr_tpu_torch.geometry import core, transforms as T
@@ -77,7 +112,8 @@ def flagship_scene(device, B=1, seed=0):
     verts = T.perspective(T.look_at(verts, eyes.to(device)), 30.0)
     faces = torch.as_tensor(f, device=device)[None].expand(B, -1, -1)
     fv = core.face_vertices(verts, faces).reshape(B, -1, 9).contiguous()
-    tex = np.random.RandomState(seed).rand(B, fv.shape[1], 1, 3)
+    ts = 3 if texture_type == 'vertex' else TS
+    tex = np.random.RandomState(seed).rand(B, fv.shape[1], ts, 3)
     return fv, torch.as_tensor(tex, dtype=torch.float32, device=device)
 
 
@@ -90,6 +126,19 @@ CASES = [
     ('einstein', dict(aggr_alpha_func='einstein'), 1, 256),
     ('ragged100', {}, 1, 100),
     ('batch4', {}, 4, 256),
+]
+# K1b/K2b: softmax RGB and textures on the same scene; name, RenderConfig
+# keywords, batch, image size, texels per face
+TEXTURE_CASES = [
+    ('softmax1', dict(aggr_rgb_func='softmax'), 1, 256, 1),
+    ('softmax25', dict(aggr_rgb_func='softmax'), 1, 256, 25),
+    ('softmax36', dict(aggr_rgb_func='softmax'), 1, 256, 36),
+    ('softmaxvtx', dict(aggr_rgb_func='softmax', texture_type='vertex'), 1,
+     256, 1),
+    ('hard25', {}, 1, 256, 25),
+    ('hardvtx', dict(texture_type='vertex'), 1, 256, 1),
+    ('softmax25b4', dict(aggr_rgb_func='softmax', double_side=False), 4, 256,
+     25),
 ]
 
 
@@ -110,16 +159,17 @@ def grads_through(cfg, params, fv, tex, kernel, aux=None):
     import torch
     from gendr_tpu_torch.raster import cuda_backend as CB
     aux = aux or CB.prepass(fv, tex, cfg, params)
+    TS = tex.shape[2]
     fwd = CB.rasterize_fwd if kernel else CB.rasterize_fwd_plain
     bwd = CB.rasterize_bwd if kernel else CB.rasterize_bwd_plain
     out = fwd(aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
-              aux['perm'], cfg)
+              aux['perm'], cfg, TS)
     soft, aggrs = CB._finalize_soa(out, cfg, params)
     # d loss / d soft_colors
     g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]], dim=1)
     pix = CB.pixel_columns(soft, aggrs, g, cfg)
     rows = bwd(aux['chunk_counts'], aux['chunk_ids'], aux['par'],
-               aux['packed'], aux['perm'], pix, cfg)
+               aux['packed'], aux['perm'], pix, cfg, TS)
     return CB.unpermute_grads(rows, aux['perm'], tex, cfg)
 
 
@@ -133,15 +183,16 @@ def agreement(got, want):
 
 def check_kernels(name, cfg, params, fv, tex, aux=None):
     """Each kernel against its plain version on one input: the image, the
-    winner ids, the gradient of each side through its own forward, and the
-    backward kernel twice, bitwise equal.  Prints one line and raises on a
-    failed gate; returns (img_err, grad_err)."""
+    winner ids (hard RGB: none may differ), the gradient of each side
+    through its own forward, and the backward kernel twice, bitwise equal.
+    Prints one line and raises on a failed gate; returns (img_err,
+    grad_err)."""
     import torch
     from gendr_tpu_torch import config as C
     from gendr_tpu_torch.raster import cuda_backend as CB
     aux = aux or CB.prepass(fv, tex, cfg, params)
     args = (aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
-            aux['perm'], cfg)
+            aux['perm'], cfg, tex.shape[2])
     got_k = CB.rasterize_fwd(*args)
     got_p = CB.rasterize_fwd_plain(*args)
     torch.cuda.synchronize()
@@ -151,20 +202,20 @@ def check_kernels(name, cfg, params, fv, tex, aux=None):
     alpha = soft_p[:, 3]
     partial = float(((alpha > 0) & (alpha < 1)).float().mean())
     B, size = fv.shape[0], cfg.image_size
-    line = (f'[kernel vs plain] {name:10s} B={B} {size}x{size}: '
-            f'img_err={img_err:.3g} '
+    line = (f'[kernel vs plain] {name:11s} B={B} {size}x{size} '
+            f'TS={tex.shape[2]}: img_err={img_err:.3g} '
             f'alpha_err={float((soft_k[:, 3] - alpha).abs().max()):.3g} '
             f'alpha_partial={partial:.4f}')
-    if cfg.channels != 'alpha':
+    if CB.render_mode(cfg) == CB.MODE_HARD:
         ids_k, ids_p = ag_k[:, 1], ag_p[:, 1]
         covered = (ids_k >= 0) | (ids_p >= 0)
         flips = int((covered & (ids_k != ids_p)).sum())
-        n_cov = int(covered.sum())
-        agree = 1.0 - flips / max(n_cov, 1)
-        line += (f' winner_agree={agree:.6f} flips={flips} of '
-                 f'{n_cov} covered')
-        if agree < WINNER_AGREE:
-            raise AssertionError(f'{name}: winner agreement {agree}')
+        line += f' flips={flips} of {int(covered.sum())} covered'
+        if flips:
+            raise AssertionError(f'{name}: {flips} winner flips')
+    elif CB.render_mode(cfg) == CB.MODE_SOFTMAX:
+        rel = ((ag_k - ag_p).abs() / ag_p.abs().clamp(min=1e-6)).amax()
+        line += f' softmax_aggr_rel_err={float(rel):.3g}'
 
     gk = grads_through(cfg, params, fv, tex, True, aux)
     gk2 = grads_through(cfg, params, fv, tex, True, aux)
@@ -177,7 +228,9 @@ def check_kernels(name, cfg, params, fv, tex, aux=None):
     bitwise = all(torch.equal(a, b) for a, b in zip(gk, gk2))
     line += (f' | grad_agree={grad_agree:.6f} '
              f'texgrad_agree={tex_agree:.6f} grad_err={grad_err:.3g} '
-             f'grad_scale={grad_scale:.3g} bitwise_repeat={bitwise}')
+             f'grad_scale={grad_scale:.3g} '
+             f'texgrad_scale={float(gp[1].abs().max()):.3g} '
+             f'bitwise_repeat={bitwise}')
     print(line, flush=True)
     if not img_err < IMG_TOL:
         raise AssertionError(f'{name}: img_err {img_err} >= {IMG_TOL}')
@@ -217,16 +270,89 @@ def training_inputs(device='cuda'):
         yield name, cfg, params, fv, mesh.face_textures.contiguous()
 
 
+def panda_inputs(device='cuda', size=256, dist_func='gaussian', tau=1e-2):
+    """The panda_dist sweep's renderer at a render size of size x size
+    (its GenDR renders at twice --resolution) on its scene, the TS=25
+    textured stand-in: (cfg, params, face vertices, textures)."""
+    from gendr_tpu_torch.animations import panda_dist as PD
+    from gendr_tpu_torch.raster.render import render_config
+    args = PD.parse_args(['--resolution', str(size // 2), '--device',
+                          device])
+    fv, tex = PD.scene(args.texture_res, device)
+    r = PD.renderer(args, dist_func, 0)
+    r.dist_scale = tau
+    cfg, params = render_config(**r.render_kwargs())
+    return cfg, params, fv.reshape(1, -1, 9).contiguous(), tex.contiguous()
+
+
+def gendr_path(texture_type, backend=None):
+    """Mesh -> Lighting -> LookAt -> GenDR(anti_aliasing=True) with the
+    renderer's defaults (256x256 rendered at 512x512, softmax RGB, uniform
+    tau 1e-2, probabilistic, single-sided) on the textured stand-in
+    (texture_res 5, TS=25; or random vertex colours) from GENDR_VIEWS
+    views, and loss.backward() of 0.5 sum(alpha^2) + 0.1 sum(rgb) to the
+    vertices and textures.  Returns (image, face vertices [B, F, 9] and
+    textures as the renderer took them, the gradients of the face
+    vertices, vertices and textures)."""
+    import torch
+    import gendr_tpu_torch as G
+    from gendr_tpu_torch import data
+    v, f, tex = data.textured_scene(5)
+    if texture_type == 'vertex':
+        tex = np.random.RandomState(0).rand(v.shape[0], 3)
+    verts = torch.tensor(v, device='cuda', requires_grad=True)
+    tex = torch.tensor(tex, dtype=torch.float32, device='cuda',
+                       requires_grad=True)
+    mesh = G.Mesh.create(verts, f, tex, 5 if texture_type == 'surface'
+                         else 1, texture_type).repeat(GENDR_VIEWS)
+    look = G.LookAt().to('cuda')
+    views = torch.full((GENDR_VIEWS,), 1.0)
+    look.set_eyes_from_angles(2.732 * views, 30.0 * views,
+                              90.0 * torch.arange(GENDR_VIEWS))
+    mesh = look(G.Lighting().to('cuda')(mesh))
+    fv = mesh.face_vertices
+    fv.retain_grad()
+    ftex = mesh.face_textures
+    img = G.GenDR(anti_aliasing=True, texture_type=texture_type,
+                  backend=backend).forward_tensors(fv, ftex)
+    loss = 0.5 * (img[:, 3] ** 2).sum() + 0.1 * img[:, :3].sum()
+    loss.backward()
+    B = fv.shape[0]
+    return (img.detach(), fv.detach().reshape(B, -1, 9).contiguous(),
+            ftex.detach().contiguous(), fv.grad.reshape(B, -1, 9),
+            verts.grad, tex.grad)
+
+
+def gendr_inputs():
+    """The kernels' inputs on path (b), the default GenDR: yields (name,
+    cfg, params, face vertices, textures) for surface and vertex
+    textures."""
+    import gendr_tpu_torch as G
+    from gendr_tpu_torch.raster.render import render_config
+    for texture_type in ('surface', 'vertex'):
+        _, fv, tex, *_ = gendr_path(texture_type)
+        cfg, params = render_config(**G.GenDR(
+            anti_aliasing=True, texture_type=texture_type).render_kwargs())
+        yield f'gendr {texture_type[:4]}', cfg, params, fv, tex
+
+
 def compare_kernels():
-    """Phase 1: each kernel vs its plain version on each case and on the
-    shape optimizer's inputs.  Returns the largest image error and the
-    largest gradient error."""
+    """Phase 1: each kernel vs its plain version on each case, on the
+    shape optimizer's inputs and on the panda_dist renderer's.  Returns the
+    largest image error and the largest gradient error."""
     from gendr_tpu_torch import config as C
     params = C.RenderParams(dist_scale=1e-2).as_dict()
     worst_img = worst_grad = 0.0
     cases = [(name, flagship_cfg(size, **kw), params,
               *flagship_scene('cuda', B)) for name, kw, B, size in CASES]
-    for name, cfg, params, fv, tex in [*cases, *training_inputs()]:
+    cases += [(name, flagship_cfg(size, **kw), params,
+               *flagship_scene('cuda', B, TS=ts,
+                               texture_type=kw.get('texture_type',
+                                                   'surface')))
+              for name, kw, B, size, ts in TEXTURE_CASES]
+    cases.append(('panda', *panda_inputs()))
+    for name, cfg, params, fv, tex in [*cases, *gendr_inputs(),
+                                       *training_inputs()]:
         img_err, grad_err = check_kernels(name, cfg, params, fv, tex)
         worst_img = max(worst_img, img_err)
         worst_grad = max(worst_grad, grad_err)
@@ -334,6 +460,128 @@ def training_path():
     return launches, rec['step_s']
 
 
+def panda_path():
+    """Phase 4a: the panda_dist sweep through its command line (--quick at
+    its defaults, PNGs into a temporary directory), forward only.  Checks
+    one forward launch per frame and none backward, and every frame
+    finite with alpha in [0, 1].  Returns the launches and ms/frame."""
+    import tempfile
+    import torch
+    from gendr_tpu_torch.animations import panda_dist as PD
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    with tempfile.TemporaryDirectory() as out_dir:
+        for k in CB.LAUNCHES:
+            CB.LAUNCHES[k] = 0
+        ms, stats = PD.main(PANDA_ARGS + ['--out-dir', out_dir])
+        torch.cuda.synchronize()
+        launches = dict(CB.LAUNCHES)
+        pngs = [p for p in os.listdir(out_dir) if p.endswith('.png')]
+    ok = all(fin and 0.0 <= lo and hi <= 1.0 for fin, lo, hi in stats)
+    print(f'[panda path] panda_dist {" ".join(PANDA_ARGS)}: 1280 faces, '
+          f'TS=25, 1536x1536 render (768x768 with 2x AA): {len(stats)} '
+          f'frames, {len(pngs)} PNGs, ms/frame (render+fetch+png, host '
+          f'clock) {[round(x, 3) for x in ms]}; frames finite with alpha '
+          f'in [0, 1]: {ok}; launches={launches}', flush=True)
+    if len(stats) != PANDA_FRAMES or len(pngs) != PANDA_FRAMES:
+        raise AssertionError(f'{len(stats)} frames, {len(pngs)} PNGs')
+    if not ok:
+        raise AssertionError(f'a frame is not finite or alpha leaves '
+                             f'[0, 1]: {stats}')
+    if launches != {'rasterize_fwd': PANDA_FRAMES, 'rasterize_bwd': 0}:
+        raise AssertionError(f'panda path launches {launches}')
+    return launches, ms
+
+
+def panda_frame_vs_torch():
+    """Phase 4b: one full-width frame of the sweep (uniform, tau 1e-2,
+    1536x1536) through backend='cuda' and backend='torch'."""
+    import torch
+    from gendr_tpu_torch.animations import panda_dist as PD
+    args = PD.parse_args(PANDA_ARGS)
+    fv, tex = PD.scene(args.texture_res, 'cuda')
+    imgs = {}
+    for backend in ('cuda', 'torch'):
+        args.backend = backend
+        r = PD.renderer(args, 'uniform', 0)
+        r.dist_scale = 1e-2
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            imgs[backend] = r.forward_tensors(fv, tex)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        imgs[backend + '_peak'] = peak
+    err = float((imgs['cuda'] - imgs['torch']).abs().max())
+    alpha = imgs['cuda'][0, 3]
+    print(f'[panda frame] uniform tau 1e-2, 1536x1536 render: img_err vs '
+          f'backend=torch {err:.3g}, coverage '
+          f'{float((alpha > 0.5).float().mean()):.4f}, peak device memory '
+          f'cuda {imgs["cuda_peak"]:.2f} GiB, torch '
+          f'{imgs["torch_peak"]:.2f} GiB', flush=True)
+    del imgs
+    torch.cuda.empty_cache()
+    if not err < IMG_TOL:
+        raise AssertionError(f'panda frame vs torch backend: {err}')
+
+
+def gendr_default_path():
+    """Phase 4c: the default GenDR forward and backward (path (b)) with
+    surface and vertex textures.  Checks one launch of each kernel per
+    call, finite outputs and gradients, and the image and the gradients
+    against backend='torch'.  Returns the launches of each run."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    launches = {}
+    for texture_type in ('surface', 'vertex'):
+        for k in CB.LAUNCHES:
+            CB.LAUNCHES[k] = 0
+        img, _, _, gfv, gv, gt = gendr_path(texture_type)
+        torch.cuda.synchronize()
+        launches[texture_type] = dict(CB.LAUNCHES)
+        t0 = time.perf_counter()
+        ref, _, _, rfv, rv, rt = gendr_path(texture_type, 'torch')
+        torch.cuda.synchronize()
+        torch_ms = 1e3 * (time.perf_counter() - t0)
+        cuda_ms = _median_ms(lambda: gendr_path(texture_type), 10)
+        err = float((img - ref).abs().max())
+        alpha = img[:, 3]
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (img, gfv, gv, gt))
+        agree = [agreement(a, b) for a, b in ((gfv, rfv), (gv, rv),
+                                              (gt, rt))]
+        print(f'[gendr path] {texture_type} textures, {GENDR_VIEWS} views, '
+              f'GenDR(anti_aliasing=True) {tuple(img.shape)}: '
+              f'launches={launches[texture_type]} finite={finite} alpha in '
+              f'[{float(alpha.min()):.3g}, {float(alpha.max()):.3g}] | vs '
+              f'backend=torch: img_err={err:.3g} '
+              f'face_grad_agree={agree[0]:.6f} '
+              f'vertex_grad_agree={agree[1]:.6f} '
+              f'texture_grad_agree={agree[2]:.6f} '
+              f'face_grad_scale={float(rfv.abs().max()):.3g} '
+              f'vertex_grad_err={float((gv - rv).abs().max()):.3g} '
+              f'vertex_grad_scale={float(rv.abs().max()):.3g} | forward + '
+              f'backward: backend=cuda {cuda_ms:.3f} ms (median of 10, CUDA '
+              f'events), backend=torch {torch_ms:.1f} ms (one run, host '
+              f'clock)',
+              flush=True)
+        del ref, rfv, rv, rt
+        torch.cuda.empty_cache()
+        if launches[texture_type] != {'rasterize_fwd': 1,
+                                      'rasterize_bwd': 1}:
+            raise AssertionError(f'gendr path launches {launches}')
+        if not finite or not (0.0 <= float(alpha.min())
+                              and float(alpha.max()) <= 1.0):
+            raise AssertionError('gendr path: non-finite output or alpha '
+                                 'outside [0, 1]')
+        if not err < IMG_TOL:
+            raise AssertionError(f'gendr path vs torch backend: {err}')
+        if not (agree[0] > GRAD_AGREE and agree[2] > GRAD_AGREE):
+            raise AssertionError(f'gendr path gradients vs torch backend: '
+                                 f'{agree}')
+        if not (float(gv.abs().max()) > 0 and float(gt.abs().max()) > 0):
+            raise AssertionError('gendr path: a zero gradient')
+    return launches
+
+
 def _median_ms(fn, reps, warmup=3):
     import torch
     for _ in range(warmup):
@@ -351,11 +599,88 @@ def _median_ms(fn, reps, warmup=3):
     return float(np.median(times))
 
 
+def gated_pairs(aux, cfg):
+    """(pixel, face) pairs inside each valid face's bbox + cull margin,
+    the pairs both kernels run the pair math on, counted from the packed
+    bbox rows: per face, the pixel centres in its x range times those in
+    its y range."""
+    import torch
+    from gendr_tpu_torch.raster import pack, pairmath as PM
+    pk = aux['packed'].double()
+    m = float(aux['par'][PM.P_MARGIN])
+    is_ = cfg.image_size
+
+    def centres(lo, hi):  # pixel centres (2c + 1 - is) / is in [lo, hi]
+        a = torch.ceil(((lo - m) * is_ + is_ - 1) / 2).clamp(0, is_)
+        b = torch.floor(((hi + m) * is_ + is_ - 1) / 2).clamp(-1, is_ - 1)
+        return (b - a + 1).clamp(min=0)
+    nx = centres(pk[:, pack.R_BBOX + 0], pk[:, pack.R_BBOX + 1])
+    ny = centres(pk[:, pack.R_BBOX + 2], pk[:, pack.R_BBOX + 3])
+    return float((nx * ny * (pk[:, pack.R_FVALID] > 0)).sum())
+
+
+def bound(nbytes, flops):
+    """(ms, 'bytes' or 'operations'): the least time the card could take,
+    the larger of the bytes over HBM bandwidth and the operations over
+    the float32 peak."""
+    t_bytes = nbytes / H100_HBM_BYTES * 1e3
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
+                 plain=(3, 1)):
+    """Medians of each kernel (CUDA events, reps launches) and of its plain
+    version (plain = (calls, warm-up calls)), beside its bound.  Prints one
+    line; returns {kernel: dict}."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    aux = CB.prepass(fv, tex, cfg, params)
+    TS = tex.shape[2]
+    mode = CB.render_mode(cfg)
+    pairs = gated_pairs(aux, cfg)
+    args = (aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
+            aux['perm'], cfg, TS)
+    out = CB.rasterize_fwd(*args)
+    res = {'rasterize_fwd': dict(
+        ms=_median_ms(lambda: CB.rasterize_fwd(*args), reps),
+        plain_ms=_median_ms(lambda: CB.rasterize_fwd_plain(*args), *plain),
+        bound=bound(_nbytes(*args[:5], out),
+                    pairs * FWD_FLOPS_PER_PAIR[mode]))}
+    if bwd:
+        soft, aggrs = CB._finalize_soa(out, cfg, params)
+        g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]], 1)
+        pix = CB.pixel_columns(soft, aggrs, g, cfg)
+        bargs = (aux['chunk_counts'], aux['chunk_ids'], aux['par'],
+                 aux['packed'], aux['perm'], pix, cfg, TS)
+        rows = CB.rasterize_bwd(*bargs)
+        res['rasterize_bwd'] = dict(
+            ms=_median_ms(lambda: CB.rasterize_bwd(*bargs), reps),
+            plain_ms=_median_ms(lambda: CB.rasterize_bwd_plain(*bargs),
+                                *plain),
+            bound=bound(_nbytes(*bargs[:6], rows),
+                        pairs * BWD_FLOPS_PER_PAIR[mode]))
+    torch.cuda.empty_cache()
+    parts = [f'{k} {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, '
+             f'bound {r["bound"][0]:.4f} ms ({r["bound"][1]})'
+             for k, r in res.items()]
+    B = fv.shape[0]
+    print(f'[timing] {smi}: {name} (B={B}, {cfg.image_size}x'
+          f'{cfg.image_size}, TS={TS}, {pairs:.6g} gated pairs, medians of '
+          f'{reps}): ' + '; '.join(parts), flush=True)
+    return res
+
+
 def timings(smi, cuda_steps, reps=50):
-    """Phase 4: medians of CUDA-event timings after warm-up."""
+    """Phase 5: medians of CUDA-event timings after warm-up, and host-clock
+    frame and step times.  Returns time_kernels' results by shape."""
     import torch
     from gendr_tpu_torch import config as C, render
-    from gendr_tpu_torch.raster import cuda_backend as CB
+    from gendr_tpu_torch.animations import panda_dist as PD
     fv, tex = flagship_scene('cuda')
     kw = dict(image_size=256, dist_func='uniform', dist_scale=1e-2,
               aggr_alpha_func='probabilistic', aggr_rgb_func='hard')
@@ -384,25 +709,43 @@ def timings(smi, cuda_steps, reps=50):
           f'{tb["torch"]} ms (median of 10) (order cuda, torch, torch, '
           f'cuda)', flush=True)
 
-    cfg = flagship_cfg()
-    params = C.RenderParams(dist_scale=1e-2).as_dict()
-    aux = CB.prepass(fv, tex, cfg, params)
-    args = (aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
-            aux['perm'], cfg)
-    fwd_ms = _median_ms(lambda: CB.rasterize_fwd(*args), reps)
-    fwd_plain_ms = _median_ms(lambda: CB.rasterize_fwd_plain(*args), 5, 1)
-    soft, aggrs = CB._finalize_soa(CB.rasterize_fwd(*args), cfg, params)
-    g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]], dim=1)
-    pix = CB.pixel_columns(soft, aggrs, g, cfg)
-    bargs = (aux['chunk_counts'], aux['chunk_ids'], aux['par'],
-             aux['packed'], aux['perm'], pix, cfg)
-    bwd_ms = _median_ms(lambda: CB.rasterize_bwd(*bargs), reps)
-    bwd_plain_ms = _median_ms(lambda: CB.rasterize_bwd_plain(*bargs), 5, 1)
-    print(f'[timing] {smi}: rasterize_fwd kernel {fwd_ms:.4f} ms, its plain '
-          f'version {fwd_plain_ms:.4f} ms; rasterize_bwd kernel '
-          f'{bwd_ms:.4f} ms, its plain version {bwd_plain_ms:.4f} ms '
-          f'(flagship, medians of {reps} and 5)', flush=True)
+    args = PD.parse_args(PANDA_ARGS)
+    pfv, ptex = PD.scene(args.texture_res, 'cuda')
+    frames = PD.frames(args, pfv, ptex)
+    frame_ms = {}
+    while True:
+        t0 = time.perf_counter()
+        try:
+            dist_id, _, _ = next(frames)
+        except StopIteration:
+            break
+        torch.cuda.synchronize()
+        frame_ms.setdefault(dist_id, []).append(
+            1e3 * (time.perf_counter() - t0))
+    print(f'[timing] {smi}: panda_dist --quick frames, the render alone '
+          f'(host clock, synchronized; 1536x1536, TS=25, anti-aliased), ms '
+          f'by distribution in tau order: '
+          f'{[[round(x, 3) for x in v] for v in frame_ms.values()]}',
+          flush=True)
 
+    params = C.RenderParams(dist_scale=1e-2).as_dict()
+    shapes = [('flagship', flagship_cfg(), params, fv, tex),
+              ('flagship softmax', flagship_cfg(aggr_rgb_func='softmax'),
+               params, fv, tex)]
+    # the main paths of the textured slice: a panda_dist frame at full
+    # width (forward only; uniform tau 1e-2 and the sweep's densest frame,
+    # gaussian tau 1, where every chunk hits every tile), and the default
+    # GenDR's forward and backward with surface and vertex textures
+    for dist_func, tau in (('uniform', 1e-2), ('gaussian', 1.0)):
+        shapes.append((f'panda {dist_func} tau {tau:g}',
+                       *panda_inputs('cuda', 1536, dist_func, tau)))
+    shapes += list(gendr_inputs())
+    kt = {}
+    for name, cfg, params, sfv, stex in shapes:
+        panda = name.startswith('panda')
+        kt[name] = time_kernels(smi, name, cfg, params, sfv, stex, reps,
+                                bwd=not panda,
+                                plain=(1, 0) if panda else (3, 1))
     exp, eyes, targets = _shape_experiment('torch')
     torch_steps = exp.run(TRAIN_LR, TRAIN_SIGMA, eyes, targets, 6)['step_s'][1:]
     cuda_med = 1e3 * float(np.median(cuda_steps[1:]))
@@ -412,8 +755,7 @@ def timings(smi, cuda_steps, reps=50):
           f'median {cuda_med:.3f} ms of {len(cuda_steps) - 1}, '
           f'backend=torch median {torch_med:.3f} ms of {len(torch_steps)}',
           flush=True)
-    return dict(rasterize_fwd=(fwd_ms, fwd_plain_ms),
-                rasterize_bwd=(bwd_ms, bwd_plain_ms))
+    return kt
 
 
 def main():
@@ -437,26 +779,40 @@ def main():
           f'{time.perf_counter() - t0:.2f} s', flush=True)
     for name in names:
         for line in _build.BUILD_LOG.get(name, '').splitlines():
-            if 'ptxas' in line:
+            if 'registers' in line or 'spill' in line:
                 print(f'[build] {name}: {line.strip()}')
 
     img_err, grad_err = compare_kernels()
-    render_launches = render_path()
-    train_launches, cuda_steps = training_path()
-    ms = timings(smi, cuda_steps)
+    by_path = dict(render=render_path())
+    by_path['training'], cuda_steps = training_path()
+    by_path['panda'], _ = panda_path()
+    panda_frame_vs_torch()
+    for texture_type, launches in gendr_default_path().items():
+        by_path[f'gendr_{texture_type}'] = launches
+    kt = timings(smi, cuda_steps)
 
     errs = dict(rasterize_fwd=img_err, rasterize_bwd=grad_err)
     replaces = dict(rasterize_fwd='gendr_tpu/raster/pallas_backend.py:254',
                     rasterize_bwd='gendr_tpu/raster/pallas_backend.py:1171')
+    envelopes = dict(rasterize_fwd='K1a+K1b', rasterize_bwd='K2a+K2b')
+    # each kernel's numbers at the shape of the textured slice's main path:
+    # a panda_dist frame for the forward, the default GenDR's backward
+    main_shape = dict(rasterize_fwd='panda uniform tau 0.01',
+                      rasterize_bwd='gendr surf')
+
+    def numbers(r):
+        return dict(ms=r['ms'], plain_ms=r['plain_ms'], bound_ms=r['bound'][0],
+                    bound_by=r['bound'][1])
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
         'source': f'gendr_tpu_torch/csrc/{name}.cu',
-        'replaces': replaces[name],
-        'launches': train_launches[name],
-        'launches_by_path': {'render': render_launches[name],
-                             'training': train_launches[name]},
-        'max_abs_err': errs[name],
-        'ms': ms[name][0], 'plain_ms': ms[name][1]} for name in names]}))
+        'replaces': replaces[name], 'envelope': envelopes[name],
+        'launches': sum(p[name] for p in by_path.values()),
+        'launches_by_path': {k: p[name] for k, p in by_path.items()},
+        'max_abs_err': errs[name], 'shape': main_shape[name],
+        **numbers(kt[main_shape[name]][name]), 'library_ms': None,
+        'by_shape': {shape: numbers(r[name]) for shape, r in kt.items()
+                     if name in r}} for name in names]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

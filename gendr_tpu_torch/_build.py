@@ -44,18 +44,19 @@ _I = ctypes.c_int
 # argtypes of each library's C functions, by library name
 SIGNATURES = {
     'rasterize_fwd': {
-        # tile_counts tile_ids kcap par packed perm out B NI Fp FC
-        # image_size dist_func dist_squared alpha_func hard_rgb double_side
-        # device stream
-        'gendr_rasterize_fwd': ((_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _I, _I, _I, _I, _I, _I, _P), _I),
+        # tile_counts tile_ids kcap par packed perm out, then B NI Fp FC
+        # image_size dist_func dist_squared alpha_func mode double_side
+        # texture_type texture_res device, then stream
+        'gendr_rasterize_fwd': ((_P, _P, _I, _P, _P, _P, _P) + (_I,) * 13
+                                + (_P,), _I),
         'gendr_error_string': ((_I,), ctypes.c_char_p),
     },
     'rasterize_bwd': {
-        # chunk_counts chunk_ids T par packed perm pix out B NI Fp FC
-        # image_size dist_func dist_squared alpha_func hard_rgb device stream
-        'gendr_rasterize_bwd': ((_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _I, _I, _I, _I, _I, _I, _P), _I),
+        # chunk_counts chunk_ids T par packed perm pix out, then B NI NO Fp
+        # FC image_size dist_func dist_squared alpha_func mode double_side
+        # texture_type texture_res device, then stream
+        'gendr_rasterize_bwd': ((_P, _P, _I, _P, _P, _P, _P, _P) + (_I,) * 14
+                                + (_P,), _I),
         'gendr_error_string': ((_I,), ctypes.c_char_p),
     },
 }

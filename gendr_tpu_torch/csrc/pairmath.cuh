@@ -10,7 +10,9 @@
 //
 // A face's packed rows are read through an accessor row(i) (shared memory
 // in the forward, registers in the backward); every index is a
-// compile-time constant once inlined.
+// compile-time constant once inlined.  Its texture values come through a
+// second accessor tex(i), i counted from R_TEX, whose index is the sampled
+// texel's and so known only at run time.
 
 #pragma once
 
@@ -23,11 +25,16 @@ constexpr int THREADS = TILE * TILE;
 
 // parameter-vector slots (raster/pairmath.py)
 constexpr int P_SCALE = 0, P_SHAPE = 1, P_SHIFT = 2, P_THR = 3, P_TCP = 4,
-              P_NEAR = 7, P_FAR = 8, P_GINV1 = 9, P_GINV = 10, P_MARGIN = 15;
+              P_GAMMA = 6, P_NEAR = 7, P_FAR = 8, P_GINV1 = 9, P_GINV = 10,
+              P_MARGIN = 15;
 // packed rows (raster/pack.py)
 constexpr int R_BBOX = 0, R_INV = 4, R_TV = 13, R_E = 22, R_E2 = 28,
-              R_M = 31, R_MM = 37, R_FRONT = 40, R_FVALID = 44, R_DZ = 45,
-              R_TEX = 48, NI_BASE = 48;
+              R_M = 31, R_MM = 37, R_FRONT = 40, R_IZ = 41, R_FVALID = 44,
+              R_DZ = 45, R_TEX = 48, NI_BASE = 48;
+// what a launch aggregates beside alpha (raster/cuda_backend.py MODE_*)
+enum { MODE_ALPHA = 0, MODE_HARD = 1, MODE_SOFTMAX = 2 };
+// texture types (config.py)
+enum { TEXTURE_SURFACE = 0, TEXTURE_VERTEX = 1 };
 // distribution ids (config.py)
 enum {
   HEAVISIDE = 0, UNIFORM, CUBIC_HERMITE, WIGNER_SEMICIRCLE, GAUSSIAN, LAPLACE,
@@ -305,6 +312,64 @@ __device__ __forceinline__ Closest closest_feature(const Row& row,
   c.dis_y = wj * my + out_dd * ey;
   c.dis2 = fminf(fminf(d2[0], d2[1]), d2[2]);
   return c;
+}
+
+// the softmax colour path's depth (pairmath.py need_depth, cu:807-810): the
+// clipped barycentrics, their sum s, zp = s / (wc . iz) on [near, far], and
+// the normalised barycentrics wcn that blend and index the texture
+struct SoftDepth {
+  float zp;
+  bool zvalid;
+  float wcn[3];
+};
+template <class Row>
+__device__ __forceinline__ SoftDepth softmax_depth(const Row& row,
+                                                   const float w[3],
+                                                   float znear, float zfar) {
+  const float wc0 = clampf(w[0], 0.0f, 1.0f);
+  const float wc1 = clampf(w[1], 0.0f, 1.0f);
+  const float wc2 = clampf(w[2], 0.0f, 1.0f);
+  const float s = fmaxf(wc0 + wc1 + wc2, 1e-5f);
+  const float denom =
+      wc0 * row(R_IZ + 0) + wc1 * row(R_IZ + 1) + wc2 * row(R_IZ + 2);
+  SoftDepth d;
+  d.zp = s / denom;
+  d.zvalid = d.zp >= znear && d.zp <= zfar;
+  d.wcn[0] = wc0 / s;
+  d.wcn[1] = wc1 / s;
+  d.wcn[2] = wc2 / s;
+  return d;
+}
+
+// the texel of an R x R folded-triangle grid a pair samples
+// (raster/geometry.py:surface_texel_index, cu:178-185), clamped to the grid
+__device__ __forceinline__ int surface_texel_index(float w0, float w1, int R) {
+  const float fr = (float)R;
+  const int wx = (int)floorf(w0 * fr);
+  const int wy = (int)floorf(w1 * fr);
+  const bool lower = (w0 + w1) * fr - (float)wx - (float)wy <= 1.0f;
+  const int idx = lower ? wy * R + wx : (R - 1 - wy) * R + (R - 1 - wx);
+  return min(max(idx, 0), R * R - 1);
+}
+
+// a pair's colour (forward_sample_texture, cu:175-191) from its face's
+// texture values tex(i), i the texture row past R_TEX: the vertex blend of
+// the three vertex colours by wcn, or the RGB of the surface texel wcn
+// selects (R = 1: the one texel).  On the TPU this was a one-hot sum over
+// every texel row (Mosaic has no per-lane gather); here it is a gather.
+template <class Tex>
+__device__ __forceinline__ void sample_color(const Tex& tex, int texture_type,
+                                             int R, const float wcn[3],
+                                             float col[3]) {
+  if (texture_type == TEXTURE_VERTEX) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      col[c] = wcn[0] * tex(c) + wcn[1] * tex(3 + c) + wcn[2] * tex(6 + c);
+  } else {
+    const int t = R == 1 ? 0 : surface_texel_index(wcn[0], wcn[1], R);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) col[c] = tex(3 * t + c);
+  }
 }
 
 }  // namespace gendr

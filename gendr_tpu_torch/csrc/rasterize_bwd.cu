@@ -1,36 +1,50 @@
 // Backward rasterization kernel for Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces the TPU kernel gendr_tpu/raster/pallas_backend.py:_bwd_kernel
-// (the sub-kernel ROADMAP.md calls K2a): the gradient of the K1a envelope,
-// channels 'alpha' and 'rgba' with hard RGB over one-texel surface
-// textures, the alpha families hard, max, probabilistic and einstein, any
-// of the 18 CDFs as a runtime id, and dist_squared either way.
+// for the sub-kernels ROADMAP.md calls K2a and K2b: the gradient of the
+// K1a/K1b envelope, channels 'alpha', hard RGB and softmax RGB, over vertex
+// textures or surface textures of up to 36 texels per face, the alpha
+// families hard, max, probabilistic and einstein, any of the 18 CDFs as a
+// runtime id, and dist_squared either way.
 //
 // What it computes, per (pixel, face) pair: the recomputed coverage, the
 // aggregate-inverse alpha rule (pallas_backend.py:1282-1288; hard alpha
-// passes the incoming gradient through unmultiplied, cu:975-976), for hard
-// RGB the texel gradient of the pixel's winning face
-// (pallas_backend.py:1292-1302), the PDF chain and the closest-point
-// weights (pallas_backend.py:1328-1351), and coef = 2 sign c when
-// dist_squared, else sign c rdis.  Each face sums its pairs into 6 vertex
-// xy gradients, plus 3 texel gradients for hard RGB.
+// passes the incoming gradient through unmultiplied, cu:975-976); for hard
+// RGB the texture gradient of the pixel's winning face
+// (pallas_backend.py:1292-1302); for softmax RGB the softmax chain
+// (pallas_backend.py:1303-1326): the pair's softmax weight from the
+// pixel's final (ssum, smax), its colour's pull on the final colour added
+// to the coverage chain, the vertex z gradients and the texture gradient;
+// then the PDF chain and the closest-point weights
+// (pallas_backend.py:1328-1351), coef = 2 sign c when dist_squared, else
+// sign c rdis.  A texture gradient goes to the texel the pair samples or,
+// for vertex textures, to the three vertex colours by wcn
+// (pallas_backend.py:1365-1384).  Each face sums its pairs into 6 vertex xy
+// gradients, 3 vertex z gradients (softmax) and its texture gradients.
 //
 // What bounds it on the card: per-pair ALU work and how few blocks there
-// are.  The input is small (the chunk's packed rows, 2 or 6 pixel columns
-// of 4 bytes per pixel); every pair the bbox gate admits costs some 100
-// flops of pair math, CDF and PDF.  One block per (batch, face chunk)
-// gives B * K blocks, 10 at the flagship (1280 faces, B=1): the card's 132
-// SMs are mostly idle there.  That is the price of the design below and is
-// left for a later redesign.
+// are.  The input is small (the chunk's packed rows, 2, 6 or 10 pixel
+// columns of 4 bytes per pixel); every pair the bbox gate admits costs some
+// 100 flops of pair math, CDF and PDF, and some 60 more on the softmax
+// path.  One block per (batch, face chunk) gives B * K blocks, 10 at the
+// flagship (1280 faces, B=1): the card's 132 SMs are mostly idle there.
+// That is the price of the design below and is left for a later redesign.
 //
 // What the design does: one block per (batch element, face chunk), one
-// thread per face of the chunk, holding its face's packed rows and its
+// thread per face of the chunk, holding its face's geometry rows and its
 // gradient sums in registers.  The block walks the chunk's hit-tile list;
 // for each tile it stages the tile's 256 pixel columns in shared memory
-// (at most 6 KB) and every thread walks them in a fixed order.  A thread
+// (at most 10 KB) and every thread walks them in a fixed order.  A thread
 // skips a whole tile whose rectangle misses its face's bbox + P_MARGIN,
-// and any pair outside that gate.  No atomics: each sum has one owner and
-// a fixed order, so the same inputs give bitwise-equal gradients.
+// and any pair outside that gate.  A surface texture of TS > 1 texels has
+// 3 TS sums per face, too many for registers: they live in a shared-memory
+// block [3 TS, FC] whose column f only thread f touches (up to 55 KB at
+// TS 36 and FC 128, by opting in above 48 KB).  The 9 vertex-colour sums
+// and the 3 of one texel stay in registers, which is faster: holding them
+// in the shared block too cost 10 % at the flagship and 6 % at the default
+// GenDR with vertex colours (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+// No atomics: each sum has one owner and a fixed order, so the same inputs
+// give bitwise-equal gradients.
 //
 // Semantics follow raster/pairmath.py (closest-feature branch) and
 // raster/torch_backend.py:backward; raster/cuda_backend.py:
@@ -47,15 +61,23 @@ namespace {
 using namespace gendr;
 
 constexpr int MAX_FC = 256;  // threads per block: one per face of a chunk
+constexpr size_t STATIC_SMEM = 48 * 1024;  // above it a launch opts in
 // pixel columns (raster/cuda_backend.py PIX_*): alpha gradient, final
-// alpha, then for hard RGB the colour gradient and the winner's input id
-constexpr int PIX_GA = 0, PIX_FA = 1, PIX_GR = 2, PIX_WID = 5;
+// alpha, then for RGB the colour gradient, and the winner's input id (hard)
+// or the final colour, softmax sum and softmax max (softmax)
+constexpr int PIX_GA = 0, PIX_FA = 1, PIX_GR = 2, PIX_WID = 5, PIX_FR = 5,
+              PIX_SSUM = 8, PIX_SMAX = 9;
+
+__host__ __device__ constexpr int npix(int mode) {
+  return mode == MODE_SOFTMAX ? 10 : mode == MODE_HARD ? 6 : 2;
+}
 
 // One block per face chunk blockIdx.x of batch element blockIdx.y; one
-// thread per face.  ALPHA: the alpha family; HARD_RGB: also the winner-
-// masked texel gradient (channels 'rgba').  out rows: x0 y0 x1 y1 x2 y2
-// (+ r g b for HARD_RGB), one column per sorted face.
-template <int ALPHA, bool HARD_RGB>
+// thread per face.  ALPHA: the alpha family; MODE: alpha only, hard RGB or
+// softmax RGB.  out rows (NO of them): x0 y0 x1 y1 x2 y2, then z0 z1 z2
+// (softmax), then the texture gradients (RGB: 9 for vertex textures, 3 TS
+// for surface), one column per sorted face.
+template <int ALPHA, int MODE>
 __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
     const int* __restrict__ chunk_counts,  // [B, K]
     const int* __restrict__ chunk_ids,     // [B, K, T]
@@ -64,11 +86,14 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
     const int* __restrict__ perm,          // [B, Fp] input id per sorted slot
     const float* __restrict__ pix,         // [B, NPIX, P]
     float* __restrict__ out,               // [B, NO, Fp]
-    int NI, int Fp, int FC, int image_size, int tiles_x, int dist_func,
-    int dist_squared) {
-  constexpr int NPIX = HARD_RGB ? 6 : 2;
-  constexpr int NO = HARD_RGB ? 9 : 6;
-  __shared__ float cols[NPIX * THREADS];  // the tile's pixel columns
+    int NI, int NO, int Fp, int FC, int image_size, int tiles_x,
+    int dist_func, int dist_squared, int double_side, int texture_type,
+    int texture_res) {
+  constexpr int NPIX = npix(MODE);
+  constexpr int NZ = MODE == MODE_SOFTMAX ? 3 : 0;
+  extern __shared__ float smem[];
+  float* cols = smem;                   // [NPIX, THREADS] the tile's pixels
+  float* tsum = smem + NPIX * THREADS;  // [3 TS, FC] surface texel sums
 
   const int K = gridDim.x;
   const int k = blockIdx.x;
@@ -78,12 +103,18 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
   const int is = image_size;
   const int T = tiles_x * tiles_x;
   const size_t P = (size_t)is * is;
+  const int R = texture_res;
+  const bool vertex = texture_type == TEXTURE_VERTEX;
+  const int ntex = NO - 6 - NZ;  // texture gradient rows (0 for alpha)
+  // texture sums in registers (vertex colours, one texel) or shared memory
+  const bool tex_in_regs = vertex || R == 1;
 
   const float scale = par[P_SCALE], shape = par[P_SHAPE];
   const float shift = par[P_SHIFT], thr = par[P_THR];
   const float ginv1 = par[P_GINV1], ginv = par[P_GINV];
-  const float margin = par[P_MARGIN];
-  const float inv_far = 1.0f / par[P_FAR], inv_near = 1.0f / par[P_NEAR];
+  const float margin = par[P_MARGIN], gamma = par[P_GAMMA];
+  const float znear = par[P_NEAR], zfar = par[P_FAR];
+  const float inv_far = 1.0f / zfar, inv_near = 1.0f / znear;
 
   // the face's geometry rows, in registers for the whole block
   float fr[NI_BASE];
@@ -92,11 +123,43 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
   for (int r = 0; r < NI_BASE; ++r) fr[r] = pk[(size_t)r * Fp];
   const auto row = [&](int i) { return fr[i]; };
   const bool face_valid = fr[R_FVALID] > 0.0f;
-  const int my_id = HARD_RGB ? perm[(size_t)b * Fp + gf] : -1;
-
-  float acc[NO];
+  const int my_id = MODE == MODE_HARD ? perm[(size_t)b * Fp + gf] : -1;
+  // its texture values: the 9 vertex colours in registers, a surface
+  // texture's rows through the read-only cache
+  float vt[9];
 #pragma unroll
-  for (int c = 0; c < NO; ++c) acc[c] = 0.0f;
+  for (int i = 0; i < 9; ++i)
+    vt[i] = MODE != MODE_ALPHA && vertex ? pk[(size_t)(R_TEX + i) * Fp] : 0.0f;
+  const float* gt = pk + (size_t)R_TEX * Fp;
+  const auto vtex = [&](int i) { return vt[i]; };
+  const auto stex = [&](int i) { return __ldg(gt + (size_t)i * Fp); };
+
+  float acc[9];  // x0 y0 x1 y1 x2 y2, then z0 z1 z2 for softmax
+#pragma unroll
+  for (int c = 0; c < 9; ++c) acc[c] = 0.0f;
+  float tacc[9];
+#pragma unroll
+  for (int c = 0; c < 9; ++c) tacc[c] = 0.0f;
+  if (MODE != MODE_ALPHA && !tex_in_regs)
+    for (int i = 0; i < ntex; ++i) tsum[i * FC + f] = 0.0f;
+
+  // a pair's texture gradient coef[c] of channel c, routed by wcn: to the
+  // vertex colours, the one texel, or the sampled texel's sums
+  const auto add_tex_grad = [&](const float wcn[3], const float coef[3]) {
+    if (vertex) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) tacc[3 * j + c] += wcn[j] * coef[c];
+    } else if (R == 1) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) tacc[c] += coef[c];
+    } else {
+      const int t = surface_texel_index(wcn[0], wcn[1], R);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) tsum[(3 * t + c) * FC + f] += coef[c];
+    }
+  };
 
   const int n = chunk_counts[b * K + k];
   const int* my_tiles = chunk_ids + ((size_t)b * K + k) * T;
@@ -171,14 +234,46 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
         c = ga * ((1.0f - fa * fa) / fmaxf(1.0f - frag * frag, 1e-6f));
       }
 
-      if (HARD_RGB) {
-        // the texel gradient flows only to the pixel's winner (cu:997-1004)
+      float gr[3];
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch)
+        gr[ch] = MODE == MODE_ALPHA ? 0.0f : cols[(PIX_GR + ch) * THREADS + l];
+      if (MODE == MODE_HARD) {
+        // the texture gradient flows only to the pixel's winner
+        // (cu:997-1004), routed by the raw barycentrics (winners are
+        // inside-loose, where they are the clipped, normalised ones)
         const float denom = affine(row, R_DZ, xp, yp);
         const bool zvalid = denom >= inv_far && denom <= inv_near;
-        if (zvalid && (int)cols[PIX_WID * THREADS + l] == my_id) {
-          acc[6] += cols[(PIX_GR + 0) * THREADS + l];
-          acc[7] += cols[(PIX_GR + 1) * THREADS + l];
-          acc[8] += cols[(PIX_GR + 2) * THREADS + l];
+        if (zvalid && (int)cols[PIX_WID * THREADS + l] == my_id)
+          add_tex_grad(w, gr);
+      } else if (MODE == MODE_SOFTMAX) {
+        // softmax chain (cu:1008-1029)
+        const SoftDepth d = softmax_depth(row, w, znear, zfar);
+        const bool front_ok = double_side || row(R_FRONT) > 0.0f;
+        if (d.zvalid && front_ok) {
+          const float zn = (zfar - d.zp) / (zfar - znear);
+          const float zps = frag *
+                            expf((zn - cols[PIX_SMAX * THREADS + l]) / gamma) /
+                            cols[PIX_SSUM * THREADS + l];
+          float col[3];
+          if (vertex)
+            sample_color(vtex, TEXTURE_VERTEX, R, d.wcn, col);
+          else
+            sample_color(stex, TEXTURE_SURFACE, R, d.wcn, col);
+          const float cxyz =
+              (gr[0] * (col[0] - cols[(PIX_FR + 0) * THREADS + l]) +
+               gr[1] * (col[1] - cols[(PIX_FR + 1) * THREADS + l]) +
+               gr[2] * (col[2] - cols[(PIX_FR + 2) * THREADS + l])) *
+              zps;
+          const float coef[3] = {zps * gr[0], zps * gr[1], zps * gr[2]};
+          add_tex_grad(d.wcn, coef);
+          c = c + cxyz / frag;
+          const float cz = cxyz / gamma / (znear - zfar) * d.zp * d.zp;
+          // w_clip_j / z_j^2 == wcn_j * iz_j^2 (cu:1027-1029)
+#pragma unroll
+          for (int v = 0; v < 3; ++v)
+            acc[6 + v] +=
+                cz * d.wcn[v] * (row(R_IZ + v) * row(R_IZ + v));
         }
       }
       if (dist_func == HEAVISIDE) continue;  // its PDF is 0
@@ -202,59 +297,106 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
 
   float* o = out + (size_t)b * NO * Fp + gf;
 #pragma unroll
-  for (int c = 0; c < NO; ++c) o[(size_t)c * Fp] = acc[c];
+  for (int c = 0; c < 6 + NZ; ++c) o[(size_t)c * Fp] = acc[c];
+  o += (size_t)(6 + NZ) * Fp;
+  if (MODE == MODE_ALPHA) return;
+  if (tex_in_regs) {
+#pragma unroll
+    for (int c = 0; c < 9; ++c)
+      if (c < ntex) o[(size_t)c * Fp] = tacc[c];
+  } else {
+    for (int i = 0; i < ntex; ++i) o[(size_t)i * Fp] = tsum[i * FC + f];
+  }
 }
 
-template <bool HARD_RGB>
-bool launch_family(int alpha_func, dim3 grid, int FC, cudaStream_t stream,
-                   const int* chunk_counts, const int* chunk_ids,
-                   const float* par, const float* packed, const int* perm,
-                   const float* pix, float* out, int NI, int Fp,
-                   int image_size, int tiles_x, int dist_func,
-                   int dist_squared) {
-#define GENDR_LAUNCH(A)                                                       \
-  rasterize_bwd_kernel<A, HARD_RGB><<<grid, FC, 0, stream>>>(                \
-      chunk_counts, chunk_ids, par, packed, perm, pix, out, NI, Fp, FC,      \
-      image_size, tiles_x, dist_func, dist_squared)
-  switch (alpha_func) {
-    case ALPHA_HARD: GENDR_LAUNCH(ALPHA_HARD); return true;
-    case MAX_TCN: GENDR_LAUNCH(MAX_TCN); return true;
-    case PROBABILISTIC_TCN: GENDR_LAUNCH(PROBABILISTIC_TCN); return true;
-    case EINSTEIN_TCN: GENDR_LAUNCH(EINSTEIN_TCN); return true;
+struct Args {
+  const int* chunk_counts;
+  const int* chunk_ids;
+  const float* par;
+  const float* packed;
+  const int* perm;
+  const float* pix;
+  float* out;
+  int NI, NO, Fp, FC, image_size, tiles_x, dist_func, dist_squared,
+      double_side, texture_type, texture_res;
+};
+
+template <int ALPHA, int MODE>
+cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
+                   const Args& a) {
+  const auto kernel = rasterize_bwd_kernel<ALPHA, MODE>;
+  if (smem > STATIC_SMEM) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
   }
-#undef GENDR_LAUNCH
-  return false;
+  kernel<<<grid, a.FC, smem, stream>>>(
+      a.chunk_counts, a.chunk_ids, a.par, a.packed, a.perm, a.pix, a.out,
+      a.NI, a.NO, a.Fp, a.FC, a.image_size, a.tiles_x, a.dist_func,
+      a.dist_squared, a.double_side, a.texture_type, a.texture_res);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_family(int alpha_func, dim3 grid, size_t smem,
+                          cudaStream_t stream, const Args& a) {
+  switch (alpha_func) {
+    case ALPHA_HARD: return launch<ALPHA_HARD, MODE>(grid, smem, stream, a);
+    case MAX_TCN: return launch<MAX_TCN, MODE>(grid, smem, stream, a);
+    case PROBABILISTIC_TCN:
+      return launch<PROBABILISTIC_TCN, MODE>(grid, smem, stream, a);
+    case EINSTEIN_TCN: return launch<EINSTEIN_TCN, MODE>(grid, smem, stream, a);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes (gendr_tpu_torch/_build.py).  Launches on
-// `stream` and returns cudaGetLastError() (0 on success); never
-// synchronizes and allocates nothing.  T is the row length of chunk_ids.
+// `stream` and returns the launch's error (0 on success); never
+// synchronizes and allocates nothing.  T is the row length of chunk_ids;
+// texture_res is R of an R x R surface texture (1 for one texel); NO, the
+// rows of out, must be the layout's: 6, the 3 z rows for softmax, and for
+// RGB the 9 vertex-colour or 3 R^2 texel rows.
 extern "C" int gendr_rasterize_bwd(
     const int* chunk_counts, const int* chunk_ids, int T, const float* par,
     const float* packed, const int* perm, const float* pix, float* out, int B,
-    int NI, int Fp, int FC, int image_size, int dist_func, int dist_squared,
-    int alpha_func, int hard_rgb, int device, void* stream) {
+    int NI, int NO, int Fp, int FC, int image_size, int dist_func,
+    int dist_squared, int alpha_func, int mode, int double_side,
+    int texture_type, int texture_res, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int tiles_x = (image_size + TILE - 1) / TILE;
+  const int ntex = mode == MODE_ALPHA ? 0
+                   : texture_type == TEXTURE_VERTEX
+                       ? 9
+                       : 3 * texture_res * texture_res;
   if (FC < 1 || FC > MAX_FC || Fp % FC != 0 || T != tiles_x * tiles_x ||
-      NI < NI_BASE)
+      NI < R_TEX + ntex || texture_res < 1 ||
+      NO != 6 + (mode == MODE_SOFTMAX ? 3 : 0) + ntex)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(Fp / FC, B);
+  // a surface texture of R > 1 keeps its texel sums in shared memory
+  const bool tex_smem = ntex > 0 && texture_type == TEXTURE_SURFACE &&
+                        texture_res > 1;
+  const size_t smem =
+      ((size_t)npix(mode) * THREADS + (tex_smem ? (size_t)ntex * FC : 0)) *
+      sizeof(float);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool ok =
-      hard_rgb ? launch_family<true>(alpha_func, grid, FC, s, chunk_counts,
-                                     chunk_ids, par, packed, perm, pix, out,
-                                     NI, Fp, image_size, tiles_x, dist_func,
-                                     dist_squared)
-               : launch_family<false>(alpha_func, grid, FC, s, chunk_counts,
-                                      chunk_ids, par, packed, perm, pix, out,
-                                      NI, Fp, image_size, tiles_x, dist_func,
-                                      dist_squared);
-  if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const Args a{chunk_counts, chunk_ids,  par,          packed,
+               perm,         pix,        out,          NI,
+               NO,           Fp,         FC,           image_size,
+               tiles_x,      dist_func,  dist_squared, double_side,
+               texture_type, texture_res};
+  switch (mode) {
+    case MODE_ALPHA:
+      return (int)launch_family<MODE_ALPHA>(alpha_func, grid, smem, s, a);
+    case MODE_HARD:
+      return (int)launch_family<MODE_HARD>(alpha_func, grid, smem, s, a);
+    case MODE_SOFTMAX:
+      return (int)launch_family<MODE_SOFTMAX>(alpha_func, grid, smem, s, a);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* gendr_error_string(int code) {

@@ -1,15 +1,18 @@
 // Forward rasterization kernel for Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces the TPU kernel gendr_tpu/raster/pallas_backend.py:_fwd_kernel
-// (the sub-kernel ROADMAP.md calls K1a): channels 'alpha' and 'rgba' with
-// hard RGB over one-texel surface textures, the alpha families hard, max,
-// probabilistic and einstein, and any of the 18 CDFs as a runtime id.
+// for the sub-kernels ROADMAP.md calls K1a and K1b: channels 'alpha', hard
+// RGB and softmax RGB, over vertex textures or surface textures of up to
+// 36 texels per face, the alpha families hard, max, probabilistic and
+// einstein, and any of the 18 CDFs as a runtime id.
 //
 // What bounds it on the card: per-pair ALU work.  At the flagship size
 // (256x256 pixels, 1280 faces, 56 packed rows) it reads about 0.3 MB of
 // packed face rows and writes about 1.5 MB (6 channels x 65536 pixels x
 // 4 B); between the two, every (pixel, face) pair it visits costs some 60
-// flops of barycentric, distance and CDF arithmetic.
+// flops of barycentric, distance and CDF arithmetic, and some 40 more on
+// the softmax colour path (clipped depth, two exponentials, the texel
+// gather and the blend).
 //
 // What the design does about it: the hit-list cull.  The prepass sorts the
 // faces along a Morton curve (so a chunk of FC faces is spatially tight)
@@ -17,8 +20,16 @@
 // overlaps it.  One block owns one tile (one thread per pixel) and walks
 // only that list; a thread then skips each pair outside the face's bbox +
 // probability margin before any distance algebra.  Everything a pixel
-// aggregates stays in its thread's registers; each chunk's rows are staged
-// once in shared memory and read by all 256 threads as broadcasts.
+// aggregates stays in its thread's registers; each chunk's 48 geometry rows
+// are staged once in shared memory and read by all 256 threads as
+// broadcasts.  Of the texture rows (3 per texel, up to 108 of them) a thread
+// reads the few it samples from global memory through the read-only cache:
+// staging them too was slower on every shape measured (PERF.md).
+//
+// The softmax is streamed per thread over the pairs it visits, in order:
+// it carries (ssum, smax, rgb) and rescales the sums only when a pair
+// raises the running max (pallas_backend.py:438-460, cu:824-839).  Hard
+// RGB samples a colour only when a pair becomes the new winner.
 //
 // Semantics follow raster/pairmath.py (forward branch) and
 // raster/torch_backend.py; raster/cuda_backend.py:rasterize_fwd_plain is
@@ -35,10 +46,13 @@ namespace {
 
 using namespace gendr;
 
+constexpr size_t STATIC_SMEM = 48 * 1024;  // shared memory of one block
+
 // One block per 16x16 pixel tile of batch element blockIdx.y; one thread
-// per pixel.  ALPHA: the alpha family; HARD_RGB: also run the z-argmax and
-// carry the winner's colour (channels 'rgba'), else alpha only.
-template <int ALPHA, bool HARD_RGB>
+// per pixel.  ALPHA: the alpha family; MODE: alpha only, hard RGB (the
+// z-argmax and the winner's colour) or softmax RGB.  out rows: alpha, then
+// depth, winner input id, r, g, b (hard) or ssum, smax, r, g, b (softmax).
+template <int ALPHA, int MODE>
 __global__ void __launch_bounds__(THREADS) rasterize_fwd_kernel(
     const int* __restrict__ tile_counts,  // [B, T]
     const int* __restrict__ tile_ids,     // [B, T, kcap]
@@ -48,10 +62,10 @@ __global__ void __launch_bounds__(THREADS) rasterize_fwd_kernel(
     const int* __restrict__ perm,         // [B, Fp] input id per sorted slot
     float* __restrict__ out,              // [B, NO, P], NO = 6 or 1
     int NI, int Fp, int FC, int image_size, int tiles_x, int dist_func,
-    int dist_squared, int double_side) {
+    int dist_squared, int double_side, int texture_type, int texture_res) {
   extern __shared__ float smem[];
-  float* rows = smem;                                  // [NI, FC]
-  int* ids = reinterpret_cast<int*>(smem + NI * FC);   // [FC]
+  float* rows = smem;                                       // [NI_BASE, FC]
+  int* ids = reinterpret_cast<int*>(smem + NI_BASE * FC);   // [FC]
 
   const int T = gridDim.x;
   const int t = blockIdx.x;
@@ -67,7 +81,8 @@ __global__ void __launch_bounds__(THREADS) rasterize_fwd_kernel(
   const float scale = par[P_SCALE], shape = par[P_SHAPE];
   const float shift = par[P_SHIFT], thr = par[P_THR];
   const float ginv1 = par[P_GINV1], margin = par[P_MARGIN];
-  const float inv_far = 1.0f / par[P_FAR], inv_near = 1.0f / par[P_NEAR];
+  const float znear = par[P_NEAR], zfar = par[P_FAR], gamma = par[P_GAMMA];
+  const float inv_far = 1.0f / zfar, inv_near = 1.0f / znear;
 
   const int n = tile_counts[b * T + t];
   const int* my_ids = tile_ids + ((size_t)b * T + t) * kcap;
@@ -75,20 +90,22 @@ __global__ void __launch_bounds__(THREADS) rasterize_fwd_kernel(
   const int* pm = perm + (size_t)b * Fp;
 
   // per-pixel carry: the alpha statistic (product of (1 - frag) for
-  // probabilistic, the running fold otherwise) and the hard-RGB winner
+  // probabilistic, the running fold otherwise), the hard-RGB winner or the
+  // streaming softmax (sum, max, weighted colour)
   float acc = ALPHA == PROBABILISTIC_TCN ? 1.0f : 0.0f;
   float best = NEG_INF;
   int best_id = -1;
+  float ssum = 0.0f, smax = NEG_INF;
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
 
   for (int j = 0; j < n; ++j) {
     const int cid = my_ids[j];
     __syncthreads();  // every thread is done with the previous chunk
-    for (int i = lane; i < NI * FC; i += THREADS) {
+    for (int i = lane; i < NI_BASE * FC; i += THREADS) {
       const int r = i / FC;
       rows[i] = pk[(size_t)r * Fp + (size_t)cid * FC + (i - r * FC)];
     }
-    if (HARD_RGB) {
+    if (MODE == MODE_HARD) {
       for (int f = lane; f < FC; f += THREADS) ids[f] = pm[cid * FC + f];
     }
     __syncthreads();
@@ -130,101 +147,147 @@ __global__ void __launch_bounds__(THREADS) rasterize_fwd_kernel(
       } else {
         acc = (acc + frag) / (1.0f + acc * frag);
       }
+      if (MODE == MODE_ALPHA) continue;
 
-      if (HARD_RGB) {
+      // the face's texture values, through the read-only cache
+      const float* gt = pk + (size_t)R_TEX * Fp + (size_t)cid * FC + f;
+      const auto tex = [&](int i) { return __ldg(gt + (size_t)i * Fp); };
+      const bool front_ok = double_side || row(R_FRONT) > 0.0f;
+      if (MODE == MODE_HARD) {
         // z-argmin as an argmax of the affine denom = 1/zp (cu:815-822)
         const float denom = affine(row, R_DZ, xp, yp);
         const bool zvalid = denom >= inv_far && denom <= inv_near;
-        const bool front_ok = double_side || row(R_FRONT) > 0.0f;
         if (in_loose && zvalid && front_ok) {
           const int oid = ids[f];
           if (denom > best || (denom == best && oid < best_id)) {
             best = denom;
             best_id = oid;
-            cr = row(R_TEX + 0);
-            cg = row(R_TEX + 1);
-            cb = row(R_TEX + 2);
+            // winners are inside-loose, where the raw barycentrics are the
+            // clipped, normalised ones
+            float col[3];
+            sample_color(tex, texture_type, texture_res, w, col);
+            cr = col[0];
+            cg = col[1];
+            cb = col[2];
           }
         }
+      } else {
+        // streaming softmax over the normalised depth (cu:824-839)
+        const SoftDepth d = softmax_depth(row, w, znear, zfar);
+        if (!(d.zvalid && front_ok)) continue;
+        const float zn = (zfar - d.zp) / (zfar - znear);
+        if (zn > smax) {
+          const float sc = expf((smax - zn) / gamma);
+          ssum = ssum * sc;
+          cr = cr * sc;
+          cg = cg * sc;
+          cb = cb * sc;
+          smax = zn;
+        }
+        const float wgt = frag * expf((zn - smax) / gamma);
+        float col[3];
+        sample_color(tex, texture_type, texture_res, d.wcn, col);
+        ssum = ssum + wgt;
+        cr = cr + wgt * col[0];
+        cg = cg + wgt * col[1];
+        cb = cb + wgt * col[2];
       }
     }
   }
 
   if (!in_image) return;
   const size_t P = (size_t)is * is;
-  const size_t NO = HARD_RGB ? 6 : 1;
+  const size_t NO = MODE == MODE_ALPHA ? 1 : 6;
   float* o = out + (size_t)b * NO * P + (size_t)prow * is + pcol;
   o[0] = ALPHA == PROBABILISTIC_TCN ? 1.0f - acc : acc;
-  if (HARD_RGB) {
+  if (MODE == MODE_HARD) {
     const bool any = best > NEG_INF;
     o[P] = any ? 1.0f / best : BIG_DEPTH;
     o[2 * P] = any ? (float)best_id : -1.0f;
+  } else if (MODE == MODE_SOFTMAX) {
+    o[P] = ssum;
+    o[2 * P] = smax;
+  }
+  if (MODE != MODE_ALPHA) {
     o[3 * P] = cr;
     o[4 * P] = cg;
     o[5 * P] = cb;
   }
 }
 
-template <int ALPHA, bool HARD_RGB>
-void launch(dim3 grid, size_t smem, cudaStream_t stream,
-            const int* tile_counts, const int* tile_ids, int kcap,
-            const float* par, const float* packed, const int* perm,
-            float* out, int NI, int Fp, int FC, int image_size, int tiles_x,
-            int dist_func, int dist_squared, int double_side) {
-  rasterize_fwd_kernel<ALPHA, HARD_RGB><<<grid, THREADS, smem, stream>>>(
-      tile_counts, tile_ids, kcap, par, packed, perm, out, NI, Fp, FC,
-      image_size, tiles_x, dist_func, dist_squared, double_side);
+struct Args {
+  const int* tile_counts;
+  const int* tile_ids;
+  int kcap;
+  const float* par;
+  const float* packed;
+  const int* perm;
+  float* out;
+  int NI, Fp, FC, image_size, tiles_x, dist_func, dist_squared, double_side,
+      texture_type, texture_res;
+};
+
+template <int ALPHA, int MODE>
+cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
+                   const Args& a) {
+  rasterize_fwd_kernel<ALPHA, MODE><<<grid, THREADS, smem, stream>>>(
+      a.tile_counts, a.tile_ids, a.kcap, a.par, a.packed, a.perm, a.out,
+      a.NI, a.Fp, a.FC, a.image_size, a.tiles_x, a.dist_func, a.dist_squared,
+      a.double_side, a.texture_type, a.texture_res);
+  return cudaGetLastError();
 }
 
-template <bool HARD_RGB>
-bool launch_family(int alpha_func, dim3 grid, size_t smem,
-                   cudaStream_t stream, const int* tile_counts,
-                   const int* tile_ids, int kcap, const float* par,
-                   const float* packed, const int* perm, float* out, int NI,
-                   int Fp, int FC, int image_size, int tiles_x, int dist_func,
-                   int dist_squared, int double_side) {
-#define GENDR_LAUNCH(A)                                                      \
-  launch<A, HARD_RGB>(grid, smem, stream, tile_counts, tile_ids, kcap, par, \
-                      packed, perm, out, NI, Fp, FC, image_size, tiles_x,   \
-                      dist_func, dist_squared, double_side)
+template <int MODE>
+cudaError_t launch_family(int alpha_func, dim3 grid, size_t smem,
+                          cudaStream_t stream, const Args& a) {
   switch (alpha_func) {
-    case ALPHA_HARD: GENDR_LAUNCH(ALPHA_HARD); return true;
-    case MAX_TCN: GENDR_LAUNCH(MAX_TCN); return true;
-    case PROBABILISTIC_TCN: GENDR_LAUNCH(PROBABILISTIC_TCN); return true;
-    case EINSTEIN_TCN: GENDR_LAUNCH(EINSTEIN_TCN); return true;
+    case ALPHA_HARD: return launch<ALPHA_HARD, MODE>(grid, smem, stream, a);
+    case MAX_TCN: return launch<MAX_TCN, MODE>(grid, smem, stream, a);
+    case PROBABILISTIC_TCN:
+      return launch<PROBABILISTIC_TCN, MODE>(grid, smem, stream, a);
+    case EINSTEIN_TCN: return launch<EINSTEIN_TCN, MODE>(grid, smem, stream, a);
   }
-#undef GENDR_LAUNCH
-  return false;
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes (gendr_tpu_torch/_build.py).  Launches on
-// `stream` and returns cudaGetLastError() (0 on success); never
-// synchronizes and allocates nothing.
+// `stream` and returns the launch's error (0 on success); never
+// synchronizes and allocates nothing.  texture_res is R of an R x R surface
+// texture (1 for one texel).
 extern "C" int gendr_rasterize_fwd(
     const int* tile_counts, const int* tile_ids, int kcap, const float* par,
     const float* packed, const int* perm, float* out, int B, int NI, int Fp,
     int FC, int image_size, int dist_func, int dist_squared, int alpha_func,
-    int hard_rgb, int double_side, int device, void* stream) {
+    int mode, int double_side, int texture_type, int texture_res, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int tiles_x = (image_size + TILE - 1) / TILE;
+  const size_t smem = ((size_t)NI_BASE * sizeof(float) + sizeof(int)) * FC;
+  if (NI < NI_BASE || texture_res < 1 || smem > STATIC_SMEM ||
+      (mode != MODE_ALPHA &&
+       NI < R_TEX + (texture_type == TEXTURE_VERTEX
+                          ? 9
+                          : 3 * texture_res * texture_res)))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(tiles_x * tiles_x, B);
-  const size_t smem = (size_t)NI * FC * sizeof(float) + FC * sizeof(int);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool ok =
-      hard_rgb
-          ? launch_family<true>(alpha_func, grid, smem, s, tile_counts,
-                                tile_ids, kcap, par, packed, perm, out, NI,
-                                Fp, FC, image_size, tiles_x, dist_func,
-                                dist_squared, double_side)
-          : launch_family<false>(alpha_func, grid, smem, s, tile_counts,
-                                 tile_ids, kcap, par, packed, perm, out, NI,
-                                 Fp, FC, image_size, tiles_x, dist_func,
-                                 dist_squared, double_side);
-  if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const Args a{tile_counts, tile_ids,   kcap,         par,
+               packed,      perm,       out,          NI,
+               Fp,          FC,         image_size,   tiles_x,
+               dist_func,   dist_squared, double_side, texture_type,
+               texture_res};
+  switch (mode) {
+    case MODE_ALPHA:
+      return (int)launch_family<MODE_ALPHA>(alpha_func, grid, smem, s, a);
+    case MODE_HARD:
+      return (int)launch_family<MODE_HARD>(alpha_func, grid, smem, s, a);
+    case MODE_SOFTMAX:
+      return (int)launch_family<MODE_SOFTMAX>(alpha_func, grid, smem, s, a);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* gendr_error_string(int code) {

@@ -112,6 +112,21 @@ def camera_grid():
     return np.array(poses, np.float32)
 
 
+def textured_scene(texture_res: int = 5):
+    """The procedural stand-in for the reference's textured panda
+    (``animations/common.py:textured_scene`` without an OBJ): icosphere(3)
+    x0.8 with a surface texture of texture_res^2 texels per face, coloured
+    per face by its centre.  Returns (vertices [642, 3], faces [1280, 3],
+    textures [1, 1280, texture_res^2, 3])."""
+    v, f = icosphere(3)
+    tex = np.zeros((f.shape[0], texture_res ** 2, 3), np.float32)
+    centers = v[f].mean(1)
+    tex[:, :, 0] = 0.5 + 0.5 * np.sin(6 * centers[:, 0])[:, None]
+    tex[:, :, 1] = 0.5 + 0.5 * np.cos(6 * centers[:, 1])[:, None]
+    tex[:, :, 2] = 0.6
+    return v * 0.8, f, tex[None]
+
+
 def test_meshes(name: str = 'cube'):
     """Simple procedural stand-ins for the reference's OBJ assets."""
     if name == 'cube':

@@ -238,9 +238,8 @@ def parse_args(argv=None):
     parser.add_argument('--backend', type=str, default=None,
                         help="'cuda' (the kernels), 'torch' (plain), or "
                         'the default for the device')
-    parser.add_argument('--device', type=str,
-                        default='cuda' if torch.cuda.is_available()
-                        else 'cpu')
+    parser.add_argument('--device', type=str, default='cuda',
+                        help="'cuda' (the default: the card) or 'cpu'")
     parser.add_argument('--quick', action='store_true',
                         help='tiny grid for smoke testing')
     parser.add_argument('--views', type=str, nargs='+',
@@ -252,6 +251,10 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.device.startswith('cuda') and not torch.cuda.is_available():
+        raise SystemExit('opt_shape: --device cuda needs a CUDA device '
+                         '(torch.cuda.is_available() is False); pass '
+                         '--device cpu to run on the CPU')
     os.makedirs(args.out_dir, exist_ok=True)
     data_dir = os.environ.get('GENDR_DATA_DIR')
     exp = ShapeExperiment(args, args.device, args.backend)

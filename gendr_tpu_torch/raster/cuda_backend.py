@@ -10,11 +10,17 @@ Port of ``gendr_tpu/raster/pallas_backend.py``:
   hit tiles for the backward);
 * the forward kernel, ``csrc/rasterize_fwd.cu``, through
   :func:`rasterize_fwd`;
-* the epilogue ``_finalize_soa``: the background fold and the reshape to
-  [B, 4, H, W], in plain torch;
+* the epilogue ``_finalize_soa``: the background fold (for softmax RGB
+  the streaming-softmax merge with the background state) and the reshape
+  to [B, 4, H, W], in plain torch;
 * the backward kernel, ``csrc/rasterize_bwd.cu``, through
-  :func:`rasterize_bwd`, on the pixel columns :func:`backward` builds from
-  the image gradient, then the un-permute to input face order.
+  :func:`rasterize_bwd`, on the pixel columns :func:`pixel_columns` builds
+  from the image gradient, then the un-permute to input face order.
+
+The kernels cover the sub-kernels K1a/K1b and K2a/K2b of ROADMAP.md Queue
+2: channels 'alpha', hard RGB and softmax RGB over vertex textures or
+surface textures of up to 36 texels per face, with the alpha families
+hard, max, probabilistic and einstein.
 
 :func:`rasterize_fwd_plain` and :func:`rasterize_bwd_plain` are the
 kernels' functions in plain PyTorch: same inputs, same outputs.  The
@@ -24,8 +30,10 @@ versions only for CPU tensors.
 The TPU workarounds are gone: no 128-aligned tiling (the kernel masks the
 ragged edge tile, so any image size runs), no split of the hit lists
 between SMEM and HBM (a block reads its own list row), no per-tile face
-compaction yet (ROADMAP.md).  Configurations outside the kernel's envelope
-raise ``ValueError``; ``backend='torch'`` renders them.
+compaction yet (ROADMAP.md), no one-hot texel selection (a pair gathers
+its texel).  Configurations outside the kernels' envelope (the parametric
+folds, K1c; more texels per face, K1d) raise ``ValueError``;
+``backend='torch'`` renders them.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import torch
 from gendr_tpu_torch import config as C
 from gendr_tpu_torch.ops import distributions as D
 from gendr_tpu_torch.ops import tconorms as TC
+from gendr_tpu_torch.raster import geometry as G
 from gendr_tpu_torch.raster import pack
 from gendr_tpu_torch.raster import pairmath as PM
 from gendr_tpu_torch.raster import torch_backend as TB
@@ -45,7 +54,12 @@ from gendr_tpu_torch.raster.torch_backend import BIG_DEPTH, NEG_INF
 TILE = 16  # pixel tile edge: one CUDA block of 16x16 threads per tile
 DEFERRED_ALPHA = (C.ALPHA_HARD, C.MAX_TCN, C.PROBABILISTIC_TCN,
                   C.EINSTEIN_TCN)
-SMEM_LIMIT = 48 * 1024  # static shared-memory budget of one block
+# shared memory of a forward block (static budget), and the most a backward
+# block may use on Hopper (dynamic, opted in above 48 KB)
+FWD_SMEM_LIMIT = 48 * 1024
+SMEM_LIMIT = 232448
+# what a launch aggregates beside alpha (csrc/pairmath.cuh MODE_*)
+MODE_ALPHA, MODE_HARD, MODE_SOFTMAX = 0, 1, 2
 
 # launches of each kernel, counted where the wrapper launches it
 LAUNCHES = {'rasterize_fwd': 0, 'rasterize_bwd': 0}
@@ -53,32 +67,39 @@ LAUNCHES = {'rasterize_fwd': 0, 'rasterize_bwd': 0}
 MAX_BWD_CHUNK = 256
 
 
+def render_mode(cfg: C.RenderConfig):
+    """MODE_ALPHA for channels 'alpha', else MODE_HARD or MODE_SOFTMAX."""
+    if cfg.channels == 'alpha':
+        return MODE_ALPHA
+    return MODE_HARD if cfg.aggr_rgb_func == C.RGB_HARD else MODE_SOFTMAX
+
+
+def texture_res(TS: int):
+    """R of an R x R surface texture of TS texels (surface_texel_index)."""
+    return int(round(TS ** 0.5))
+
+
 def check_envelope(cfg: C.RenderConfig, TS: int):
-    """Raise ValueError for a configuration the kernel does not cover yet
+    """Raise ValueError for a configuration the kernels do not cover
     (TS: texels per face), naming the sub-kernel of ROADMAP.md Queue 2
-    that will."""
+    that will where one is planned."""
     if cfg.aggr_alpha_func not in DEFERRED_ALPHA:
         raise ValueError(
             f'backend="cuda" covers the alpha families hard, max, '
             f'probabilistic and einstein; aggr_alpha_func id '
             f'{cfg.aggr_alpha_func} is a parametric fold (sub-kernel K1c, '
             f'not ported yet): use backend="torch"')
-    if cfg.channels == 'alpha':
+    if cfg.channels == 'alpha' or cfg.texture_type == C.TEXTURE_VERTEX:
         return
-    if cfg.aggr_rgb_func != C.RGB_HARD:
+    if TS > pack.TEXEL_UNROLL_CAP:
         raise ValueError(
-            'backend="cuda" covers hard RGB and channels="alpha"; softmax '
-            'RGB is sub-kernel K1b (not ported yet): use backend="torch"')
-    if cfg.texture_type != C.TEXTURE_SURFACE:
+            f'backend="cuda" covers surface textures of up to '
+            f'{pack.TEXEL_UNROLL_CAP} texels per face; TS={TS} is '
+            f'sub-kernel K1d (not ported yet): use backend="torch"')
+    if TS != texture_res(TS) ** 2:
         raise ValueError(
-            'backend="cuda" covers one-texel surface textures; vertex '
-            'textures are sub-kernel K1b (not ported yet): use '
-            'backend="torch"')
-    if TS != 1:
-        raise ValueError(
-            f'backend="cuda" covers one-texel surface textures; '
-            f'TS={TS} texels per face is sub-kernel K1b/K1d '
-            f'(not ported yet): use backend="torch"')
+            f'backend="cuda" samples square R x R surface textures; TS={TS} '
+            f'texels per face is not a square')
 
 
 def _spread(v):
@@ -141,7 +162,18 @@ def _check_tensors(dev, *named):
             raise ValueError(f'{name} must be contiguous')
 
 
-def _check_inputs(tile_counts, tile_ids, par, packed, perm, cfg):
+def _check_rows(NI, cfg: C.RenderConfig, TS):
+    """The packed row count must be the layout the kernels read: the
+    geometry rows, plus the texture rows for RGB."""
+    want = pack.num_rows(cfg.texture_type, TS,
+                         with_tex=cfg.channels != 'alpha')
+    if NI != want:
+        raise ValueError(f'packed has {NI} rows, not the {want} the kernels '
+                         f'read for channels={cfg.channels!r}, texture '
+                         f'type {cfg.texture_type} and TS={TS}')
+
+
+def _check_inputs(tile_counts, tile_ids, par, packed, perm, cfg, TS):
     _check_tensors(packed.device,
                    ('tile_counts', tile_counts, torch.int32),
                    ('tile_ids', tile_ids, torch.int32),
@@ -160,46 +192,47 @@ def _check_inputs(tile_counts, tile_ids, par, packed, perm, cfg):
                          f'{tuple(tile_ids.shape)}')
     if tuple(perm.shape) != (B, Fp) or tuple(par.shape) != (PM.NPAR,):
         raise ValueError(f'perm must be [{B}, {Fp}] and par [{PM.NPAR}]')
-    # alpha-only reads the geometry rows; hard RGB also the one-texel colour
-    if NI != (pack.NI_BASE if cfg.channels == 'alpha' else pack.NI):
-        raise ValueError(f'packed has {NI} rows, not the layout the kernel '
-                         f'reads for channels={cfg.channels!r}')
-    if (NI + 1) * cfg.face_chunk * 4 > SMEM_LIMIT:
-        raise ValueError(f'face_chunk {cfg.face_chunk} x {NI} rows exceeds '
-                         f'the {SMEM_LIMIT}-byte shared-memory stage')
+    _check_rows(NI, cfg, TS)
+    # a block stages a chunk's geometry rows and input ids
+    if (pack.NI_BASE + 1) * cfg.face_chunk * 4 > FWD_SMEM_LIMIT:
+        raise ValueError(f'face_chunk {cfg.face_chunk} exceeds the '
+                         f'{FWD_SMEM_LIMIT}-byte shared-memory stage')
 
 
 def rasterize_fwd(tile_counts, tile_ids, par, packed, perm,
-                  cfg: C.RenderConfig):
-    """The forward kernel: [B, NO, P] float32, NO = 6 (alpha, depth,
-    winner input id, r, g, b) for hard RGB or 1 (alpha) for channels
-    'alpha', in row-major pixel order.
+                  cfg: C.RenderConfig, TS=1):
+    """The forward kernel: [B, NO, P] float32 in row-major pixel order,
+    NO = 1 (alpha) for channels 'alpha', else 6: alpha, depth, winner
+    input id, r, g, b for hard RGB, or alpha, ssum, smax and the
+    softmax-weighted r, g, b before the background merge for softmax RGB.
+    TS: texels per face of surface textures.
 
     CUDA tensors launch ``csrc/rasterize_fwd.cu`` on the current stream;
     CPU tensors run :func:`rasterize_fwd_plain`.
     """
-    _check_inputs(tile_counts, tile_ids, par, packed, perm, cfg)
-    check_envelope(cfg, TS=1)  # the row count above admits one texel
+    _check_inputs(tile_counts, tile_ids, par, packed, perm, cfg, TS)
+    check_envelope(cfg, TS)
     if packed.device.type == 'cpu':
         return rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
-                                   cfg)
+                                   cfg, TS)
     if packed.device.type != 'cuda':
         raise ValueError(f'no forward kernel for device {packed.device}')
 
     from gendr_tpu_torch import _build
     lib = _build.load('rasterize_fwd')
     B, NI, Fp = packed.shape
-    hard_rgb = cfg.channels != 'alpha'
+    mode = render_mode(cfg)
     P = cfg.image_size * cfg.image_size
-    out = torch.empty((B, 6 if hard_rgb else 1, P), dtype=torch.float32,
-                      device=packed.device)
+    out = torch.empty((B, 1 if mode == MODE_ALPHA else 6, P),
+                      dtype=torch.float32, device=packed.device)
     stream = torch.cuda.current_stream(packed.device)
     err = lib.gendr_rasterize_fwd(
         tile_counts.data_ptr(), tile_ids.data_ptr(), tile_ids.shape[2],
         par.data_ptr(), packed.data_ptr(), perm.data_ptr(), out.data_ptr(),
         B, NI, Fp, cfg.face_chunk, cfg.image_size, cfg.dist_func,
-        int(cfg.dist_squared), cfg.aggr_alpha_func, int(hard_rgb),
-        int(cfg.double_side), packed.device.index or 0, stream.cuda_stream)
+        int(cfg.dist_squared), cfg.aggr_alpha_func, mode,
+        int(cfg.double_side), cfg.texture_type, texture_res(TS),
+        packed.device.index or 0, stream.cuda_stream)
     if err != 0:
         raise RuntimeError('rasterize_fwd launch failed: '
                            + lib.gendr_error_string(err).decode())
@@ -207,14 +240,36 @@ def rasterize_fwd(tile_counts, tile_ids, par, packed, perm,
     return out
 
 
+def _chunk_textures(pk, cfg: C.RenderConfig, TS):
+    """A chunk's texture rows of its packed rows pk [B, NI, FC] as the
+    torch backend's textures: [B, FC, TS, 3], or [B, FC, 3, 3] for vertex
+    colours."""
+    B, _, FC = pk.shape
+    n = 3 if cfg.texture_type == C.TEXTURE_VERTEX else TS
+    return pk[:, pack.R_TEX:pack.R_TEX + 3 * n].reshape(B, n, 3, FC) \
+        .permute(0, 3, 1, 2)
+
+
+def _hit(counts, ids, n):
+    """[B, A, n] int32: is item i on row a's list (the first counts[b, a]
+    entries of ids[b, a])?"""
+    B, A = counts.shape
+    listed = (torch.arange(ids.shape[2], device=ids.device)[None, None, :]
+              < counts[..., None]).to(torch.int32)
+    hit = torch.zeros((B, A, n), dtype=torch.int32, device=ids.device)
+    hit.scatter_add_(2, ids.long(), listed)
+    return hit
+
+
 def rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
-                        cfg: C.RenderConfig):
+                        cfg: C.RenderConfig, TS=1):
     """The kernel's function in plain PyTorch, on any device.
 
     A pixel folds the chunks its tile lists, in ascending chunk order, and
     within a chunk the faces in ascending sorted order, as a kernel thread
-    does; the probabilistic and einstein folds run face by face in that
-    order.  Hard-RGB ties on the depth key go to the smaller input face id.
+    does; the probabilistic and einstein folds and the streaming softmax
+    run face by face in that order.  Hard-RGB ties on the depth key go to
+    the smaller input face id.
     """
     B, NI, Fp = packed.shape
     FC = cfg.face_chunk
@@ -222,17 +277,11 @@ def rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
     is_ = cfg.image_size
     dev = packed.device
     tx = -(-is_ // TILE)
-    T = tx * tx
-    hard_rgb = cfg.channels != 'alpha'
+    mode = render_mode(cfg)
     tid = cfg.aggr_alpha_func
+    gamma, near, far = par[PM.P_GAMMA], par[PM.P_NEAR], par[PM.P_FAR]
 
-    # hit[b, t, k]: chunk k is on tile t's list
-    kcap = tile_ids.shape[2]
-    listed = (torch.arange(kcap, device=dev)[None, None, :]
-              < tile_counts[..., None]).to(torch.int32)
-    hit = torch.zeros((B, T, K), dtype=torch.int32, device=dev)
-    hit.scatter_add_(2, tile_ids.long(), listed)
-
+    hit = _hit(tile_counts, tile_ids, K)                    # [B, T, K]
     idx = torch.arange(is_ * is_, device=dev)
     ptile = (idx // is_ // TILE) * tx + idx % is_ // TILE   # [P]
     xp, yp = TB.pixel_grid(is_, dev)
@@ -242,7 +291,9 @@ def rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
                      device=dev)
     best = torch.full((B, P), NEG_INF, device=dev)
     best_id = torch.full((B, P), -1, dtype=torch.int32, device=dev)
-    rgb = torch.zeros((B, 3, P), device=dev)
+    ssum = torch.zeros((B, P), device=dev)
+    smax = torch.full((B, P), NEG_INF, device=dev)
+    rgb = torch.zeros((B, P, 3), device=dev)
     big_id = torch.iinfo(torch.int32).max
 
     for k in range(K):
@@ -254,8 +305,8 @@ def rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
         def row(i):
             return pk[:, i, None, :]                        # [B, 1, FC]
         q = PM._pair_math(row, xp[None, :, None], yp[None, :, None], par,
-                          cfg, need_wcn=False, fwd_only=True,
-                          need_depth=hard_rgb)
+                          cfg, fwd_only=True,
+                          need_depth=mode != MODE_ALPHA)
         valid = q['valid'] & on[..., None]
         frag = torch.where(valid, q['frag'], 0.0)
 
@@ -269,8 +320,12 @@ def rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
         else:
             for f in range(FC):
                 acc = (acc + frag[..., f]) / (1.0 + acc * frag[..., f])
+        if mode == MODE_ALPHA:
+            continue
+        # each pair's colour [B, P, FC, 3] (csrc/pairmath.cuh:sample_color)
+        col = TB._sample_colors(_chunk_textures(pk, cfg, TS), q['wcn'], cfg)
 
-        if hard_rgb:
+        if mode == MODE_HARD:
             hmask = valid & q['zvalid'] & q['in_loose'] & q['front_ok']
             dm = torch.where(hmask, q['denom'], NEG_INF)     # [B, P, FC]
             dmax = dm.amax(-1)
@@ -280,15 +335,35 @@ def rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
             better = (dmax > best) | ((dmax == best) & (oid_sel < best_id))
             pos = (tie & (oid == oid_sel[..., None])).to(torch.int32) \
                 .argmax(-1)                                   # [B, P]
-            col = pk[:, pack.R_TEX:pack.R_TEX + 3]            # [B, 3, FC]
-            col = torch.gather(col, 2, pos[:, None, :].expand(B, 3, P))
+            col = torch.gather(col, 2, pos[..., None, None]
+                               .expand(B, P, 1, 3))[:, :, 0]
             best = torch.where(better, dmax, best)
             best_id = torch.where(better, oid_sel, best_id)
-            rgb = torch.where(better[:, None, :], col, rgb)
+            rgb = torch.where(better[..., None], col, rgb)
+        else:
+            # streaming softmax, a face at a time: rescale when the max
+            # rises, then add the pair's weight (cu:824-839)
+            cm = valid & q['zvalid'] & q['front_ok']
+            zn = (far - q['zp']) / (far - near)
+            for f in range(FC):
+                m, z = cm[..., f], zn[..., f]
+                rise = m & (z > smax)
+                sc = torch.exp((smax - z) / gamma)
+                ssum = torch.where(rise, ssum * sc, ssum)
+                rgb = torch.where(rise[..., None], rgb * sc[..., None], rgb)
+                smax = torch.where(rise, z, smax)
+                wgt = frag[..., f] * torch.exp((z - smax) / gamma)
+                ssum = torch.where(m, ssum + wgt, ssum)
+                rgb = torch.where(m[..., None], rgb + wgt[..., None]
+                                  * col[:, :, f], rgb)
 
     alpha = 1.0 - acc if tid == C.PROBABILISTIC_TCN else acc
-    if not hard_rgb:
+    if mode == MODE_ALPHA:
         return alpha[:, None, :]
+    rgb = rgb.transpose(1, 2)
+    if mode == MODE_SOFTMAX:
+        return torch.cat([alpha[:, None], ssum[:, None], smax[:, None], rgb],
+                         dim=1)
     has = best > NEG_INF
     depth = torch.where(has, 1.0 / best, BIG_DEPTH)
     fidx = torch.where(has, best_id.to(torch.float32), -1.0)
@@ -302,15 +377,30 @@ def _finalize_soa(out, cfg: C.RenderConfig, params: Dict):
     torch backend's contract."""
     B, _, P = out.shape
     is_ = cfg.image_size
-    bg = params['background_color'].to(out.device).reshape(1, 3, 1)
+    dev = out.device
+    bg = params['background_color'].to(dev).reshape(1, 3, 1)
     alpha = out[:, 0:1]
-    if cfg.channels == 'alpha':
+    mode = render_mode(cfg)
+    if mode == MODE_ALPHA:
         rgb_final = bg.expand(B, 3, P)
-        aggr0 = torch.full((B, 1, P), BIG_DEPTH, device=out.device)
-        aggr1 = torch.full((B, 1, P), -1.0, device=out.device)
-    else:
+        aggr0 = torch.full((B, 1, P), BIG_DEPTH, device=dev)
+        aggr1 = torch.full((B, 1, P), -1.0, device=dev)
+    elif mode == MODE_HARD:
         aggr0, aggr1 = out[:, 1:2], out[:, 2:3]
         rgb_final = torch.where(aggr1 >= 0, out[:, 3:6], bg)
+    else:
+        # streaming-softmax merge with the background state (smax eps,
+        # ssum exp(eps / gamma), rgb bg * ssum; pallas_backend.py:839-851)
+        eps = params['aggr_rgb_eps'].to(dev)
+        gamma = params['aggr_rgb_gamma'].to(dev)
+        ssum_k, smax_k = out[:, 1:2], out[:, 2:3]
+        m = torch.maximum(eps, smax_k)
+        sa = torch.exp((eps - m) / gamma)
+        sb = torch.exp((smax_k - m) / gamma)
+        ssum = torch.exp(eps / gamma) * sa + ssum_k * sb
+        rgb = bg * (torch.exp(eps / gamma) * sa) + out[:, 3:6] * sb
+        rgb_final = rgb / ssum
+        aggr0, aggr1 = ssum, m
     soft_colors = torch.cat([rgb_final, alpha], dim=1).reshape(B, 4, is_, is_)
     aggrs_info = torch.cat([aggr0, aggr1], dim=1).reshape(B, 2, is_, is_)
     return soft_colors, aggrs_info
@@ -321,10 +411,11 @@ def forward_with_aux(face_vertices, textures, cfg: C.RenderConfig,
     """Same contract as torch_backend.forward, plus the prepass products
     (sorted, packed faces and both hit lists) as the backward's aux;
     winner ids in aggrs_info are input face ids."""
-    check_envelope(cfg, textures.shape[2])
+    TS = textures.shape[2]
+    check_envelope(cfg, TS)
     aux = prepass(face_vertices, textures, cfg, params)
     out = rasterize_fwd(aux['tile_counts'], aux['tile_ids'], aux['par'],
-                        aux['packed'], aux['perm'], cfg)
+                        aux['packed'], aux['perm'], cfg, TS)
     soft_colors, aggrs_info = _finalize_soa(out, cfg, params)
     return soft_colors, aggrs_info, aux
 
@@ -338,20 +429,39 @@ def forward(face_vertices, textures, cfg: C.RenderConfig, params: Dict):
 
 
 # pixel columns of the backward kernel, rows of its [B, NPIX, P] input:
-# the alpha gradient and the final alpha, then for hard RGB the colour
-# gradient and the winner's input face id
+# the alpha gradient and the final alpha; for RGB the colour gradient,
+# then the winner's input face id (hard) or the final colour, the softmax
+# sum and the softmax max (softmax)
 PIX_GA, PIX_FA, PIX_GR, PIX_WID = 0, 1, 2, 5
+PIX_FR, PIX_SSUM, PIX_SMAX = 5, 8, 9
 
 
-def _bwd_layout(cfg: C.RenderConfig):
+def _bwd_layout(cfg: C.RenderConfig, TS=1):
     """(NPIX, NO): pixel columns read and gradient rows written by the
-    backward kernel.  Rows are [x0 y0 x1 y1 x2 y2] (+ [r g b] of the one
-    texel for hard RGB); the z gradients are zero outside softmax RGB."""
-    hard_rgb = cfg.channels != 'alpha'
-    return (6, 9) if hard_rgb else (2, 6)
+    backward kernel.  Rows are [x0 y0 x1 y1 x2 y2], then [z0 z1 z2] for
+    softmax RGB, then for RGB the texture rows: 9 vertex colours (vertex j
+    channel c at 3 j + c) or 3 TS texels (texel t channel c at 3 t + c)."""
+    mode = render_mode(cfg)
+    if mode == MODE_ALPHA:
+        return 2, 6
+    ntex = 9 if cfg.texture_type == C.TEXTURE_VERTEX else 3 * TS
+    if mode == MODE_HARD:
+        return 6, 6 + ntex
+    return 10, 9 + ntex
 
 
-def _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg):
+def _bwd_smem(cfg: C.RenderConfig, TS):
+    """Bytes of shared memory a backward block uses: a tile's pixel
+    columns, and a surface texture's per-face sums when TS > 1 (vertex
+    colours and one texel are summed in registers)."""
+    npix, _ = _bwd_layout(cfg, TS)
+    tex = render_mode(cfg) != MODE_ALPHA \
+        and cfg.texture_type == C.TEXTURE_SURFACE and TS > 1
+    return (npix * TILE * TILE + (3 * TS * cfg.face_chunk if tex else 0)) * 4
+
+
+def _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
+                      TS):
     _check_tensors(packed.device,
                    ('chunk_counts', chunk_counts, torch.int32),
                    ('chunk_ids', chunk_ids, torch.int32),
@@ -377,47 +487,50 @@ def _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg):
                          f'and {tuple(chunk_ids.shape)}')
     if tuple(perm.shape) != (B, Fp) or tuple(par.shape) != (PM.NPAR,):
         raise ValueError(f'perm must be [{B}, {Fp}] and par [{PM.NPAR}]')
-    if NI < pack.NI_BASE:
-        raise ValueError(f'packed has {NI} rows, fewer than the '
-                         f'{pack.NI_BASE} geometry rows')
-    npix, _ = _bwd_layout(cfg)
+    _check_rows(NI, cfg, TS)
+    npix, _ = _bwd_layout(cfg, TS)
     P = cfg.image_size * cfg.image_size
     if tuple(pix.shape) != (B, npix, P):
         raise ValueError(f'pix must be [{B}, {npix}, {P}] for '
                          f'channels={cfg.channels!r}, got '
                          f'{tuple(pix.shape)}')
+    if _bwd_smem(cfg, TS) > SMEM_LIMIT:
+        raise ValueError(f'face_chunk {FC} x TS={TS} exceeds the '
+                         f'{SMEM_LIMIT}-byte shared memory of a block')
 
 
 def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
-                  cfg: C.RenderConfig):
+                  cfg: C.RenderConfig, TS=1):
     """The backward kernel: per-face gradient rows [B, NO, Fp] float32 in
     sorted face order (see _bwd_layout), from the pixel columns pix
-    [B, NPIX, P] (PIX_*) in row-major pixel order.
+    [B, NPIX, P] (PIX_*) in row-major pixel order.  TS: texels per face of
+    surface textures.
 
     CUDA tensors launch ``csrc/rasterize_bwd.cu`` on the current stream;
     CPU tensors run :func:`rasterize_bwd_plain`.
     """
-    _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg)
-    check_envelope(cfg, TS=1)
+    _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
+                      TS)
+    check_envelope(cfg, TS)
     if packed.device.type == 'cpu':
         return rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed,
-                                   perm, pix, cfg)
+                                   perm, pix, cfg, TS)
     if packed.device.type != 'cuda':
         raise ValueError(f'no backward kernel for device {packed.device}')
 
     from gendr_tpu_torch import _build
     lib = _build.load('rasterize_bwd')
     B, NI, Fp = packed.shape
-    hard_rgb = cfg.channels != 'alpha'
-    _, NO = _bwd_layout(cfg)
+    _, NO = _bwd_layout(cfg, TS)
     out = torch.empty((B, NO, Fp), dtype=torch.float32, device=packed.device)
     stream = torch.cuda.current_stream(packed.device)
     err = lib.gendr_rasterize_bwd(
         chunk_counts.data_ptr(), chunk_ids.data_ptr(), chunk_ids.shape[2],
         par.data_ptr(), packed.data_ptr(), perm.data_ptr(), pix.data_ptr(),
-        out.data_ptr(), B, NI, Fp, cfg.face_chunk, cfg.image_size,
+        out.data_ptr(), B, NI, NO, Fp, cfg.face_chunk, cfg.image_size,
         cfg.dist_func, int(cfg.dist_squared), cfg.aggr_alpha_func,
-        int(hard_rgb), packed.device.index or 0, stream.cuda_stream)
+        render_mode(cfg), int(cfg.double_side), cfg.texture_type,
+        texture_res(TS), packed.device.index or 0, stream.cuda_stream)
     if err != 0:
         raise RuntimeError('rasterize_bwd launch failed: '
                            + lib.gendr_error_string(err).decode())
@@ -426,14 +539,15 @@ def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
 
 
 def rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed, perm, pix,
-                        cfg: C.RenderConfig):
+                        cfg: C.RenderConfig, TS=1):
     """The backward kernel's function in plain PyTorch, on any device.
 
     For each chunk, every pixel of a tile on the chunk's hit list meets
     every face of the chunk: the recomputed coverage, the aggregate-inverse
     alpha rule (hard: the incoming gradient unmultiplied, cu:975-976), the
-    winner-masked texel gradient for hard RGB, the PDF chain and the
-    closest-point weights, summed over the pixels.
+    winner-masked texture gradient for hard RGB or the softmax colour, z and
+    texture chain for softmax RGB, the PDF chain and the closest-point
+    weights, summed over the pixels.
     """
     B, NI, Fp = packed.shape
     FC = cfg.face_chunk
@@ -441,51 +555,85 @@ def rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed, perm, pix,
     is_ = cfg.image_size
     dev = packed.device
     tx = -(-is_ // TILE)
-    T = tx * tx
-    hard_rgb = cfg.channels != 'alpha'
+    mode = render_mode(cfg)
     tid = cfg.aggr_alpha_func
-    _, NO = _bwd_layout(cfg)
+    gamma, near, far = par[PM.P_GAMMA], par[PM.P_NEAR], par[PM.P_FAR]
+    _, NO = _bwd_layout(cfg, TS)
+    t0 = 9 if mode == MODE_SOFTMAX else 6  # first texture row
 
-    # hit[b, k, t]: tile t is on chunk k's list
-    listed = (torch.arange(T, device=dev)[None, None, :]
-              < chunk_counts[..., None]).to(torch.int32)
-    hit = torch.zeros((B, K, T), dtype=torch.int32, device=dev)
-    hit.scatter_add_(2, chunk_ids.long(), listed)
-
+    hit = _hit(chunk_counts, chunk_ids, tx * tx)            # [B, K, T]
     idx = torch.arange(is_ * is_, device=dev)
     ptile = (idx // is_ // TILE) * tx + idx % is_ // TILE   # [P]
     xp, yp = TB.pixel_grid(is_, dev)
-    ga = pix[:, PIX_GA, :, None]                            # [B, P, 1]
-    fa = pix[:, PIX_FA, :, None]
+
+    def col(i):
+        return pix[:, i, :, None]                           # [B, P, 1]
 
     out = torch.zeros((B, NO, Fp), dtype=torch.float32, device=dev)
     for k in range(K):
         on = hit[:, k, ptile] > 0                           # [B, P]
         if not bool(on.any()):
             continue
-        pk = packed[:, :, k * FC:(k + 1) * FC]
+        sl = slice(k * FC, (k + 1) * FC)
+        pk = packed[:, :, sl]
 
         def row(i):
             return pk[:, i, None, :]                        # [B, 1, FC]
         q = PM._pair_math(row, xp[None, :, None], yp[None, :, None], par,
-                          cfg, need_wcn=False, need_depth=hard_rgb)
+                          cfg, need_depth=mode != MODE_ALPHA)
         valid = q['valid'] & on[..., None]
         frag = q['frag']
 
         if tid == C.ALPHA_HARD:
-            c = ga.expand(frag.shape)
+            c = col(PIX_GA).expand(frag.shape)
         else:
-            c = ga * TC.aggregate_backward(tid, fa, frag, par[PM.P_TCP])
+            c = col(PIX_GA) * TC.aggregate_backward(tid, col(PIX_FA), frag,
+                                                    par[PM.P_TCP])
         c = torch.where(valid, c, 0.0)
 
-        if hard_rgb:
-            oid = perm[:, None, k * FC:(k + 1) * FC]        # [B, 1, FC]
+        tex_coef = None
+        if mode != MODE_ALPHA:
+            gr = [col(PIX_GR + ch) for ch in range(3)]
+        if mode == MODE_HARD:
+            oid = perm[:, None, sl]                         # [B, 1, FC]
             win = valid & q['zvalid'] \
-                & (pix[:, PIX_WID, :, None].to(torch.int32) == oid)
-            for ch in range(3):
-                gr = pix[:, PIX_GR + ch, :, None]
-                out[:, 6 + ch, k * FC:(k + 1) * FC] = \
-                    torch.where(win, gr, 0.0).sum(1)
+                & (col(PIX_WID).to(torch.int32) == oid)
+            tex_coef = [torch.where(win, g, 0.0) for g in gr]
+        elif mode == MODE_SOFTMAX:
+            cm = valid & q['zvalid'] & q['front_ok']
+            zn = (far - q['zp']) / (far - near)
+            zps = torch.where(cm, frag * torch.exp((zn - col(PIX_SMAX))
+                                                   / gamma)
+                              / col(PIX_SSUM), 0.0)
+            cols = TB._sample_colors(_chunk_textures(pk, cfg, TS), q['wcn'],
+                                     cfg)
+            cxyz = (gr[0] * (cols[..., 0] - col(PIX_FR + 0))
+                    + gr[1] * (cols[..., 1] - col(PIX_FR + 1))
+                    + gr[2] * (cols[..., 2] - col(PIX_FR + 2))) * zps
+            tex_coef = [zps * g for g in gr]
+            c = c + torch.where(cm, cxyz / torch.where(cm, frag, 1.0), 0.0)
+            cz = cxyz / gamma / (near - far) * q['zp'] * q['zp']
+            for j in range(3):
+                iz = pk[:, pack.R_IZ + j, None, :]
+                out[:, 6 + j, sl] = torch.where(
+                    cm, cz * q['wcn'][j] * (iz * iz), 0.0).sum(1)
+
+        if tex_coef is not None:
+            if cfg.texture_type == C.TEXTURE_VERTEX:
+                for j in range(3):
+                    for ch in range(3):
+                        out[:, t0 + 3 * j + ch, sl] = \
+                            (q['wcn'][j] * tex_coef[ch]).sum(1)
+            elif TS == 1:
+                for ch in range(3):
+                    out[:, t0 + ch, sl] = tex_coef[ch].sum(1)
+            else:
+                ti = G.surface_texel_index(q['wcn'], texture_res(TS))
+                ti = ti.expand(frag.shape).long()
+                gt = torch.zeros((B, 3 * TS, FC), device=dev)
+                for ch in range(3):
+                    gt.scatter_add_(1, 3 * ti + ch, tex_coef[ch])
+                out[:, t0:t0 + 3 * TS, sl] = gt
 
         if cfg.dist_func == C.HEAVISIDE:
             continue  # its PDF is 0: no geometry gradient
@@ -501,8 +649,8 @@ def rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed, perm, pix,
         cy = coef * q['dis_y']
         tw = PM.tw_from_ksel(q['ksel'], q['tv'])
         for i in range(3):
-            out[:, 2 * i, k * FC:(k + 1) * FC] = (cx * tw[i]).sum(1)
-            out[:, 2 * i + 1, k * FC:(k + 1) * FC] = (cy * tw[i]).sum(1)
+            out[:, 2 * i, sl] = (cx * tw[i]).sum(1)
+            out[:, 2 * i + 1, sl] = (cy * tw[i]).sum(1)
     return out
 
 
@@ -513,16 +661,22 @@ def pixel_columns(soft_colors, aggrs_info, grad_soft_colors,
     B = soft_colors.shape[0]
     P = cfg.image_size * cfg.image_size
     g = grad_soft_colors.reshape(B, 4, P)
-    cols = [g[:, 3:4], soft_colors.reshape(B, 4, P)[:, 3:4]]
-    if cfg.channels != 'alpha':
-        cols += [g[:, :3], aggrs_info.reshape(B, 2, P)[:, 1:2]]
+    fin = soft_colors.reshape(B, 4, P)
+    ag = aggrs_info.reshape(B, 2, P)
+    cols = [g[:, 3:4], fin[:, 3:4]]
+    mode = render_mode(cfg)
+    if mode == MODE_HARD:
+        cols += [g[:, :3], ag[:, 1:2]]
+    elif mode == MODE_SOFTMAX:
+        cols += [g[:, :3], fin[:, :3], ag]
     return torch.cat(cols, dim=1).to(torch.float32).contiguous()
 
 
 def unpermute_grads(rows, perm, textures, cfg: C.RenderConfig):
     """The kernel's gradient rows [B, NO, Fp] in sorted face order ->
-    (grad_face_vertices [B,F,9], grad_textures [B,F,TS,3]) in input order,
-    with zero z columns (pallas_backend.py:1546-1580)."""
+    (grad_face_vertices [B,F,9], grad_textures [B,F,TS,3] or [B,F,3,3]) in
+    input order; the z columns are zero but for softmax RGB
+    (pallas_backend.py:1546-1580)."""
     B, F = textures.shape[:2]
     # the row of sorted slot i belongs to input face perm[i]; padded faces
     # map past F and are dropped
@@ -530,13 +684,18 @@ def unpermute_grads(rows, perm, textures, cfg: C.RenderConfig):
     res = torch.empty_like(out)
     res.scatter_(1, perm.long()[..., None].expand_as(out), out)
     res = res[:, :F]
+    mode = render_mode(cfg)
     gxy = res[..., :6].reshape(B, F, 3, 2)
-    grad_faces = torch.cat([gxy, torch.zeros_like(gxy[..., :1])],
-                           dim=-1).reshape(B, F, 9)
-    if cfg.channels == 'alpha':
+    if mode == MODE_SOFTMAX:
+        gz = res[..., 6:9, None]
+    else:
+        gz = torch.zeros_like(gxy[..., :1])
+    grad_faces = torch.cat([gxy, gz], dim=-1).reshape(B, F, 9)
+    if mode == MODE_ALPHA:
         grad_tex = torch.zeros_like(textures)
     else:
-        grad_tex = res[..., 6:9].reshape(B, F, 1, 3)
+        t0 = 9 if mode == MODE_SOFTMAX else 6
+        grad_tex = res[..., t0:].reshape(textures.shape)
     return grad_faces, grad_tex
 
 
@@ -544,8 +703,9 @@ def backward_from_aux(face_vertices, textures, aux, soft_colors, aggrs_info,
                       grad_soft_colors, cfg: C.RenderConfig, params: Dict):
     """(grad_face_vertices [B,F,9], grad_textures [B,F,TS,3]) through the
     backward kernel, reusing the forward's prepass (aux)."""
-    check_envelope(cfg, textures.shape[2])
+    TS = textures.shape[2]
+    check_envelope(cfg, TS)
     pix = pixel_columns(soft_colors, aggrs_info, grad_soft_colors, cfg)
     rows = rasterize_bwd(aux['chunk_counts'], aux['chunk_ids'], aux['par'],
-                         aux['packed'], aux['perm'], pix, cfg)
+                         aux['packed'], aux['perm'], pix, cfg, TS)
     return unpermute_grads(rows, aux['perm'], textures, cfg)

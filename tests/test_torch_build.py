@@ -45,12 +45,15 @@ def test_device_constants_match_python():
     assert consts['NI_BASE'] == pack.NI_BASE
     assert consts['TILE'] == CB.TILE
     for name in ('HEAVISIDE', 'ALPHA_HARD', 'MAX_TCN', 'PROBABILISTIC_TCN',
-                 'EINSTEIN_TCN'):
+                 'EINSTEIN_TCN', 'TEXTURE_SURFACE', 'TEXTURE_VERTEX'):
         assert consts[name] == getattr(C, name), name
+    for name in ('MODE_ALPHA', 'MODE_HARD', 'MODE_SOFTMAX'):
+        assert consts[name] == getattr(CB, name), name
     dists = re.search(r'enum \{\s*HEAVISIDE = 0, ([^}]*)\}', src).group(1)
     names = ['HEAVISIDE'] + [n.strip() for n in dists.split(',') if n.strip()]
     assert [getattr(C, n) for n in names] == list(range(18))
     bwd = (_build.CSRC / 'rasterize_bwd.cu').read_text()
     assert f'MAX_FC = {CB.MAX_BWD_CHUNK};' in bwd
-    for name in ('PIX_GA', 'PIX_FA', 'PIX_GR', 'PIX_WID'):
+    for name in ('PIX_GA', 'PIX_FA', 'PIX_GR', 'PIX_WID', 'PIX_FR',
+                 'PIX_SSUM', 'PIX_SMAX'):
         assert f'{name} = {getattr(CB, name)}' in bwd, name

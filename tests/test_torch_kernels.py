@@ -21,9 +21,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CASES, GRAD_AGREE, GRAD_ATOL, agreement,
-                        check_kernels, flagship_cfg, flagship_scene,
-                        grads_through, training_inputs)
+from chip_smoke import (CASES, GRAD_AGREE, GRAD_ATOL, TEXTURE_CASES,
+                        agreement, check_kernels, flagship_cfg,
+                        flagship_scene, gendr_inputs, grads_through,
+                        panda_inputs, training_inputs)
 from gendr_tpu_torch import config as C, render
 from gendr_tpu_torch.raster import cuda_backend as CB
 
@@ -104,17 +105,24 @@ def test_kernel_small_and_ragged_sizes(cuda, size, face_chunk):
 def test_render_on_cuda_launches_the_kernel_or_raises(cuda):
     fv, tex = flagship_scene(cuda)
     launches = CB.LAUNCHES['rasterize_fwd']
-    img = render(fv, tex, image_size=64, aggr_rgb_func='hard')
-    assert img.is_cuda and CB.LAUNCHES['rasterize_fwd'] == launches + 1
-    with pytest.raises(ValueError, match='K1b'):
-        render(fv, tex, image_size=64, aggr_rgb_func='softmax')
+    for rgb in ('hard', 'softmax'):
+        img = render(fv, tex, image_size=64, aggr_rgb_func=rgb)
+        assert img.is_cuda and CB.LAUNCHES['rasterize_fwd'] == launches + 1
+        ref = render(fv, tex, image_size=64, aggr_rgb_func=rgb,
+                     backend='torch')
+        assert CB.LAUNCHES['rasterize_fwd'] == launches + 1
+        assert float((img - ref).abs().max()) <= IMG_ATOL
+        launches += 1
     with pytest.raises(ValueError, match='K1c'):
         render(fv, tex, image_size=64, aggr_rgb_func='hard',
                aggr_alpha_func='yager', aggr_alpha_t_conorm_p=2.0)
-    ref = render(fv, tex, image_size=64, aggr_rgb_func='hard',
-                 backend='torch')
-    assert CB.LAUNCHES['rasterize_fwd'] == launches + 1
-    assert float((img - ref).abs().max()) <= IMG_ATOL
+    _, big = flagship_scene(cuda, TS=49)
+    with pytest.raises(ValueError, match='K1d'):
+        render(fv, big, image_size=64)
+    _, odd = flagship_scene(cuda, TS=3)
+    with pytest.raises(ValueError, match='square'):
+        render(fv, odd, image_size=64)
+    assert CB.LAUNCHES['rasterize_fwd'] == launches
 
 
 def _bwd_kernel_vs_plain(cfg, params, B, device, seed=0):
@@ -189,3 +197,60 @@ def test_render_backward_on_cuda_launches_the_kernel(cuda):
         assert CB.LAUNCHES['rasterize_bwd'] == launches \
             + (backend == 'cuda')
     assert agreement(grads['cuda'], grads['torch']) > GRAD_AGREE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name,kw,B,size,ts', TEXTURE_CASES,
+                         ids=[c[0] for c in TEXTURE_CASES])
+def test_textured_kernels_match_plain(cuda, name, kw, B, size, ts):
+    # K1b/K2b: softmax RGB and textures, both kernels against their plain
+    # versions (image, no hard-RGB winner flips, gradients, bitwise repeats)
+    fv, tex = flagship_scene(cuda, B, TS=ts,
+                             texture_type=kw.get('texture_type', 'surface'))
+    cfg = flagship_cfg(size, **kw)
+    params = C.RenderParams(dist_scale=1e-2).as_dict()
+    check_kernels(name, cfg, params, fv, tex)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_panda_and_gendr_inputs(cuda):
+    # the panda_dist renderer on its TS=25 scene at 256x256, and the
+    # default GenDR's inputs (4 views at 512x512, surface and vertex)
+    check_kernels('panda', *panda_inputs(cuda))
+    names = []
+    for name, cfg, params, fv, tex in gendr_inputs():
+        check_kernels(name, cfg, params, fv, tex)
+        names.append(name)
+    assert names == ['gendr surf', 'gendr vert']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('texture_type', ['surface', 'vertex'])
+def test_default_renderer_launches_each_kernel_once(cuda, texture_type):
+    import gendr_tpu_torch as G
+    from gendr_tpu_torch import data
+    v, f, tex = data.textured_scene(5)
+    if texture_type == 'vertex':
+        tex = np.random.RandomState(0).rand(v.shape[0], 3)
+    grads = {}
+    for backend in (None, 'torch'):
+        verts = torch.tensor(v, device=cuda, requires_grad=True)
+        t = torch.tensor(tex, dtype=torch.float32, device=cuda,
+                         requires_grad=True)
+        mesh = G.Mesh.create(verts, f, t, 5 if texture_type == 'surface'
+                             else 1, texture_type)
+        look = G.LookAt().to(cuda)
+        look.set_eyes_from_angles(2.732, 30.0, 45.0)
+        launches = dict(CB.LAUNCHES)
+        img = G.GenDR(image_size=64, anti_aliasing=True,
+                      texture_type=texture_type, backend=backend)(
+            look(G.Lighting().to(cuda)(mesh)))
+        loss = 0.5 * (img[:, 3] ** 2).sum() + 0.1 * img[:, :3].sum()
+        grads[backend] = (img.detach(),
+                          *torch.autograd.grad(loss, (verts, t)))
+        ran = int(backend is None)
+        assert CB.LAUNCHES == {k: n + ran for k, n in launches.items()}
+    assert float((grads[None][0] - grads['torch'][0]).abs().max()) \
+        <= IMG_ATOL
+    assert agreement(grads[None][2], grads['torch'][2]) > GRAD_AGREE
+    assert float(grads[None][1].abs().max()) > 0

@@ -154,8 +154,9 @@ def test_torch_backend_matches_xla(spec):
                                    rtol=1e-4, atol=1e-6)
 
 
-# the kernel's envelope: alpha families hard/max/probabilistic/einstein,
-# channels 'alpha' or hard RGB over one-texel surface textures
+# K1a's envelope (tests/test_torch_textures.py holds K1b's): alpha families
+# hard/max/probabilistic/einstein, channels 'alpha' or hard RGB over
+# one-texel surface textures
 KERNEL_SPECS = [
     dict(dist='uniform', tcn='probabilistic', rgb='hard', scale=1e-2),
     dict(dist='uniform', tcn='probabilistic', rgb='hard',
@@ -227,24 +228,63 @@ def _tiny(device='cpu'):
 @pytest.mark.parametrize('kw,sub', [
     (dict(aggr_rgb_func='softmax'), 'K1b'),
     (dict(aggr_rgb_func='hard', texture_type='vertex'), 'K1b'),
-    (dict(aggr_rgb_func='hard', ts=4), 'K1b/K1d'),
+    (dict(aggr_rgb_func='hard', ts=4), 'K1b'),
     (dict(aggr_rgb_func='hard', aggr_alpha_func='yager',
           aggr_alpha_t_conorm_p=2.0), 'K1c'),
     (dict(channels='alpha', aggr_alpha_func='frank',
           aggr_alpha_t_conorm_p=2.0), 'K1c'),
+    (dict(aggr_rgb_func='softmax', ts=49), 'K1d'),
 ])
 def test_cuda_backend_envelope_raises(kw, sub):
+    """backend='cuda' renders what its sub-kernel covers (K1b here, so on
+    the CPU its plain versions agree with the torch backend) and raises,
+    naming the sub-kernel that will, for the rest; the plain backend
+    renders every configuration."""
     fv, tex = _tiny()
     kw = dict(kw)
-    if kw.pop('ts', 1) == 4:
-        tex = torch.full((1, 5, 4, 3), 0.5)
+    ts = kw.pop('ts', 1)
+    if ts > 1:
+        tex = torch.rand((1, 5, ts, 3), generator=torch.Generator()
+                         .manual_seed(ts))
     if kw.get('texture_type') == 'vertex':
         tex = torch.full((1, 5, 3, 3), 0.5)
-    with pytest.raises(ValueError, match=sub):
-        render(fv, tex, image_size=16, backend='cuda', **kw)
-    # the plain backend renders the same configuration
-    img = render(fv, tex, image_size=16, backend='torch', **kw)
-    assert img.shape == (1, 4, 16, 16)
+    ref = render(fv, tex, image_size=16, backend='torch', **kw)
+    assert ref.shape == (1, 4, 16, 16)
+    if sub == 'K1b':
+        img = render(fv, tex, image_size=16, backend='cuda', **kw)
+        np.testing.assert_allclose(img.numpy(), ref.numpy(), atol=1e-5)
+    else:
+        with pytest.raises(ValueError, match=sub):
+            render(fv, tex, image_size=16, backend='cuda', **kw)
+
+
+@pytest.mark.parametrize('ts', [2, 3])
+def test_cuda_wrappers_refuse_non_square_textures(ts):
+    """The kernels sample R x R texel grids and size their gradient rows by
+    R, so each wrapper refuses a surface texture of TS != R^2 texels before
+    it would launch, also when handed the prepass products directly."""
+    fv, _ = _tiny()
+    tex = torch.rand((1, 5, ts, 3), generator=torch.Generator()
+                     .manual_seed(ts))
+    cfg = C.RenderConfig.create(image_size=16, aggr_rgb_func='softmax',
+                                backend='cuda')
+    params = C.RenderParams().as_dict()
+    aux = CB.prepass(fv, tex, cfg, params)
+    args = (aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
+            aux['perm'], cfg, ts)
+    launches = dict(CB.LAUNCHES)
+    with pytest.raises(ValueError, match='square'):
+        render(fv, tex, image_size=16, aggr_rgb_func='softmax',
+               backend='cuda')
+    with pytest.raises(ValueError, match='square'):
+        CB.rasterize_fwd(*args)
+    npix, NO = CB._bwd_layout(cfg, ts)
+    assert NO == 9 + 3 * ts
+    pix = torch.zeros((1, npix, 16 * 16))
+    with pytest.raises(ValueError, match='square'):
+        CB.rasterize_bwd(aux['chunk_counts'], aux['chunk_ids'], aux['par'],
+                         aux['packed'], aux['perm'], pix, cfg, ts)
+    assert CB.LAUNCHES == launches
 
 
 def test_render_default_backend_on_cpu_is_torch():
@@ -291,20 +331,22 @@ def test_backward_runs_on_both_backends():
 
 
 def test_backward_raises_not_implemented():
-    """A configuration whose kernels are not implemented yet raises
-    ValueError on backend='cuda', in the forward and in the backward
-    alike; the plain backend differentiates it."""
+    """A configuration whose kernels are not implemented yet (a parametric
+    fold, K1c) raises ValueError on backend='cuda', in the forward and in
+    the backward alike; the plain backend differentiates it."""
     fv, tex = _tiny()
     fv.requires_grad_(True)
     kw = dict(image_size=16, aggr_rgb_func='softmax', dist_func='logistic',
-              dist_scale=5e-2, face_chunk=8)
-    with pytest.raises(ValueError, match='K1b'):
+              dist_scale=5e-2, face_chunk=8, aggr_alpha_func='yager',
+              aggr_alpha_t_conorm_p=2.0)
+    with pytest.raises(ValueError, match='K1c'):
         render(fv, tex, backend='cuda', **kw)
     out = render(fv, tex, backend='torch', **kw)
     soft = out.detach()
     cfg = C.RenderConfig.create(backend='cuda', **{
-        k: v for k, v in kw.items() if k != 'dist_scale'})
-    with pytest.raises(ValueError, match='K1b'):
+        k: v for k, v in kw.items()
+        if k not in ('dist_scale', 'aggr_alpha_t_conorm_p')})
+    with pytest.raises(ValueError, match='K1c'):
         CB.backward_from_aux(fv, tex, None, soft, torch.zeros(1, 2, 16, 16),
                              torch.ones_like(soft), cfg,
                              C.RenderParams(dist_scale=5e-2).as_dict())
