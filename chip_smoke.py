@@ -20,7 +20,13 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    256x256; on the default GenDR's inputs of phase 4 (4 views at 512x512,
    surface and vertex textures); and on the inputs the shape optimizer of
    phase 3 gives the kernels (its soft and hard renderers on its template
-   from 24 views at 64x64, the hard renderer on its 120 goal views).  Each
+   from 24 views at 64x64, the hard renderer on its 120 goal views); and,
+   for the parametric folds, on the flagship (whose CDF is the uniform
+   one, so coverage saturates at exactly 1) with each of hamacher, frank,
+   yager, aczel_alsina, dombi and schweizer_sklar, alpha-only and hard RGB,
+   softmax RGB with 25 texels for yager and frank, frank with the logistic
+   CDF, the panda_tcn renderer with yager and aczel_alsina at 256x256, and
+   the shape optimizer's soft renderer with yager p=2.  Each
    case compares the forward image (and, for hard RGB, every winner), the
    gradient of 0.5 sum(alpha^2) + 0.1 sum(rgb), each side through its own
    forward, and two backward runs, bitwise;
@@ -41,9 +47,24 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    (anti-aliased 256x256, softmax RGB) on 4 views with surface and then
    vertex textures, forward and loss.backward() to vertices and textures,
    one launch of each kernel per run, against backend='torch';
-5. times the kernels against their plain versions beside their bounds, at
+5. drives the t-conorm sweeps, path (c): ``gendr_tpu_torch.animations.
+   panda_tcn`` at its defaults (1536x1536 renders, 25 texels, softmax RGB,
+   uniform CDF) over the full canonical list of 11 t-conorm configurations
+   x the 7 taus of --quick, ``--sweep-p --quick`` (hamacher, yager,
+   aczel_alsina x 8 values of p) and ``triangles_tcn --quick``, checking
+   one forward launch per frame, none backward, and every frame finite
+   with alpha in [0, 1]; one full-width yager frame against
+   backend='torch'; and path (d), the shape optimizer with ``--aggr-func
+   yager --t_conorm_p 2`` for 30 steps, as phase 3;
+6. runs both probe kernels of ``csrc/ulp_probe.cu`` over every case of the
+   three ULP tools against torch on the card and on the CPU, prints the
+   table, and fails where a kernel and torch on the card differ by more
+   than ULP_BUDGET;
+7. times the kernels against their plain versions beside their bounds, at
    the flagship (hard RGB, and softmax RGB with one texel), at the panda
    frame and at the default GenDR's shapes (surface and vertex textures),
+   a yager panda_tcn frame at tau 1e-2 and tau 1 and path (d)'s render
+   beside the probabilistic fold at the same shapes, the probe kernels,
    the panda frames' render alone, the forward render and the forward +
    backward through both backends, and the median training step through
    both backends.
@@ -76,6 +97,28 @@ TRAIN_LR, TRAIN_SIGMA = 10 ** -1.5, 1e-2
 PANDA_ARGS = ['--quick', '--device', 'cuda']
 PANDA_FRAMES = 14  # --quick: 2 distributions x 7 taus
 GENDR_VIEWS = 4
+# path (c): the t-conorm sweeps as their users run them on the card, and the
+# frames they make: 11 configurations x 7 taus, 3 families x 8 values of p,
+# and --quick's 2 configurations x 7 taus of the triangle
+TCN_ARGS = ['--quick', '--device', 'cuda']
+TCN_FRAMES = (77, 24, 14)
+# path (d): training with a parametric fold
+YAGER_ARGS = ['--aggr-func', 'yager', '--t_conorm_p', '2']
+# a full-width yager frame through backend='cuda' (a serial fold) against
+# backend='torch' (the butterfly's grouping): the image gate.  Measured
+# 2.07e-4 on an NVIDIA H100 80GB HBM3 at 700 W, beside 2.2e-4 for the
+# probabilistic frame of panda_dist: the two backends' pair math, not the
+# fold order, sets it
+TCN_VS_TORCH_TOL = IMG_TOL
+# what kernel vs torch on the card may differ by, per kind of probe op,
+# for the render gates to hold (image 2e-3 on [0, 1]; gradients rtol 5e-3):
+# one function or IEEE operation 2 ulp; a coverage (cdf, fold) 1e-5
+# absolute, two orders under the image gate after a pixel folds a hundred
+# pairs; a derivative or a chain 1e-4 of max(|value|, 1), well under the
+# gradient gate's rtol
+ULP_BUDGET = dict(primitive=('max_ulp', 2), cdf=('max_abs', 1e-5),
+                  fold=('max_abs', 1e-5), pdf=('max_rel', 1e-4),
+                  fold_backward=('max_rel', 1e-4), chain=('max_rel', 1e-4))
 # the card's peaks (NVIDIA's H100 SXM data sheet, at a 700 W power limit):
 # float32 outside the tensor cores and HBM bandwidth
 H100_FP32_FLOPS, H100_HBM_BYTES = 67e12, 3.35e12
@@ -87,6 +130,19 @@ H100_FP32_FLOPS, H100_HBM_BYTES = 67e12, 3.35e12
 # chain and, for softmax, the colour, z and texture chain
 FWD_FLOPS_PER_PAIR = (73, 81, 121)   # by cuda_backend.MODE_*
 BWD_FLOPS_PER_PAIR = (110, 120, 190)
+# those counts hold the probabilistic fold (2 operations) and its
+# aggregate-inverse rule (4); a parametric family's fold_step and
+# aggregate_backward take their place, counted in csrc/pairmath.cuh the
+# same way (a powf, logf or expm1f is one): by config.py's t-conorm id
+FOLD_FLOPS = {4: 13, 5: 13, 6: 9, 7: 20, 8: 19, 9: 12}
+FOLD_BWD_FLOPS = {4: 18, 5: 13, 6: 6, 7: 18, 8: 17, 9: 16}
+
+
+def flops_per_pair(cfg, mode):
+    """(forward, backward) float operations per gated pair of cfg."""
+    tid = cfg.aggr_alpha_func
+    return (FWD_FLOPS_PER_PAIR[mode] + FOLD_FLOPS.get(tid, 2) - 2,
+            BWD_FLOPS_PER_PAIR[mode] + FOLD_BWD_FLOPS.get(tid, 4) - 4)
 
 
 def smi_line():
@@ -94,6 +150,23 @@ def smi_line():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def ptxas_summary(report):
+    """Per kernel instantiation of a ptxas -v report, one line: the
+    kernel's template arguments (for the render kernels ALPHA, MODE of
+    csrc/pairmath.cuh), its registers and its spills."""
+    import re
+    lines, entry = [], ''
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = '<' + ', '.join(re.findall(r'Li(\d+)E', m.group(1))) + '>'
+        elif 'spill' in line:
+            lines.append(f'{entry} {line.split(":", 1)[-1].strip()}')
+        elif 'registers' in line:
+            lines[-1] += '; ' + line.split(':', 1)[-1].strip()
+    return lines
 
 
 def flagship_scene(device, B=1, seed=0, TS=1, texture_type='surface'):
@@ -140,6 +213,25 @@ TEXTURE_CASES = [
     ('softmax25b4', dict(aggr_rgb_func='softmax', double_side=False), 4, 256,
      25),
 ]
+
+# K1c/K2c: the six parametric t-conorms on the same scene, each at the
+# parameter of animations/t_conorms.py; name, RenderConfig keywords, p,
+# texels per face.  The flagship's CDF is the uniform one, so these hold
+# frank (and the rest) where coverage saturates at exactly 1
+_FAMILIES = [('hamacher', 0.5), ('frank', 2.0), ('yager', 2.0),
+             ('aczel_alsina', 2.0), ('dombi', 2.0),
+             ('schweizer_sklar', -2.0)]
+T_CONORM_CASES = (
+    [(f'{fam[:8]} a', dict(aggr_alpha_func=fam, channels='alpha'), p, 1)
+     for fam, p in _FAMILIES]
+    + [(f'{fam[:8]} h', dict(aggr_alpha_func=fam), p, 1)
+       for fam, p in _FAMILIES]
+    + [('yager sm25', dict(aggr_alpha_func='yager', aggr_rgb_func='softmax'),
+        0.5, 25),
+       ('frank sm25', dict(aggr_alpha_func='frank', aggr_rgb_func='softmax'),
+        2.0, 25),
+       ('frank logis', dict(aggr_alpha_func='frank', dist_func='logistic'),
+        0.5, 1)])
 
 
 def flagship_cfg(image_size=256, **kw):
@@ -247,16 +339,25 @@ def check_kernels(name, cfg, params, fv, tex, aux=None):
     return img_err, grad_err
 
 
-def training_inputs(device='cuda'):
+def t_conorm_inputs(kw, p, ts, device='cuda'):
+    """(cfg, params, face vertices, textures) of a T_CONORM_CASES entry."""
+    from gendr_tpu_torch import config as C
+    params = C.RenderParams(dist_scale=1e-2,
+                            aggr_alpha_t_conorm_p=p).as_dict()
+    return (flagship_cfg(256, **kw), params,
+            *flagship_scene(device, TS=ts))
+
+
+def training_inputs(device='cuda', extra=()):
     """The inputs the shape optimizer gives the kernels (phase 3): its soft
     renderer (logistic sigma 1e-2, probabilistic, alpha) and its hard
     renderer (heaviside, hard alpha, squared distance) on the 642-vertex
     template from 24 views at 64x64, the first step's scene; the hard
-    renderer on the 120 goal views of the cube.  Yields (name, cfg,
-    params, face vertices, textures)."""
+    renderer on the 120 goal views of the cube.  extra: further opt_shape
+    arguments.  Yields (name, cfg, params, face vertices, textures)."""
     import torch
     from gendr_tpu_torch.raster.render import render_config
-    exp, eyes, _ = _shape_experiment(None, device)
+    exp, eyes, _ = _shape_experiment(None, device, extra)
     exp.diff_renderer.dist_scale = TRAIN_SIGMA
     with torch.no_grad():
         template, _, _ = exp.model_mesh(eyes)
@@ -282,6 +383,19 @@ def panda_inputs(device='cuda', size=256, dist_func='gaussian', tau=1e-2):
     r = PD.renderer(args, dist_func, 0)
     r.dist_scale = tau
     cfg, params = render_config(**r.render_kwargs())
+    return cfg, params, fv.reshape(1, -1, 9).contiguous(), tex.contiguous()
+
+
+def tcn_inputs(device='cuda', size=256, t_conorm='yager', p=2.0, tau=1e-2):
+    """The panda_tcn sweep's renderer at a render size of size x size on
+    its scene: (cfg, params, face vertices, textures)."""
+    from gendr_tpu_torch.animations import panda_tcn as TCN
+    from gendr_tpu_torch.raster.render import render_config
+    args = TCN.parse_args(['--resolution', str(size // 2), '--device',
+                           device])
+    fv, tex = TCN.scene(args)
+    cfg, params = render_config(
+        **TCN.renderer(args, t_conorm, p, tau).render_kwargs())
     return cfg, params, fv.reshape(1, -1, 9).contiguous(), tex.contiguous()
 
 
@@ -351,6 +465,13 @@ def compare_kernels():
                                                    'surface')))
               for name, kw, B, size, ts in TEXTURE_CASES]
     cases.append(('panda', *panda_inputs()))
+    cases += [(name, *t_conorm_inputs(kw, p, ts))
+              for name, kw, p, ts in T_CONORM_CASES]
+    cases += [('tcn yager', *tcn_inputs()),
+              ('tcn aczel', *tcn_inputs(t_conorm='aczel_alsina', p=0.5))]
+    # path (d)'s soft renderer (its hard renderer is phase 3's)
+    opt_yager = next(iter(training_inputs(extra=YAGER_ARGS)))
+    cases.append(('opt yager', *opt_yager[1:]))
     for name, cfg, params, fv, tex in [*cases, *gendr_inputs(),
                                        *training_inputs()]:
         img_err, grad_err = check_kernels(name, cfg, params, fv, tex)
@@ -422,31 +543,33 @@ def render_path():
     return launches
 
 
-def _shape_experiment(backend, device='cuda'):
+def _shape_experiment(backend, device='cuda', extra=()):
     from gendr_tpu_torch.experiments import opt_shape as OS
-    args = OS.parse_args(['--model_obj', 'proc_cube.obj', '--device', device])
+    args = OS.parse_args(['--model_obj', 'proc_cube.obj', '--device', device,
+                          *extra])
     exp = OS.ShapeExperiment(args, device, backend)
     cameras, images = exp.goals(args.model_obj)
     eyes, targets = exp.view_set(cameras, images, '24@30')
     return exp, eyes, targets
 
 
-def training_path():
-    """Phase 3: TRAIN_STEPS steps of the shape optimizer through the
-    kernels.  Returns each kernel's launches in that run and the step
-    times."""
+def training_path(extra=()):
+    """Phase 3, and with extra = YAGER_ARGS path (d): TRAIN_STEPS steps of
+    the shape optimizer through the kernels.  Returns each kernel's
+    launches in that run and the step times."""
     import torch
     from gendr_tpu_torch.raster import cuda_backend as CB
-    exp, eyes, targets = _shape_experiment(None)
+    exp, eyes, targets = _shape_experiment(None, extra=extra)
     for k in CB.LAUNCHES:
         CB.LAUNCHES[k] = 0
     rec = exp.run(TRAIN_LR, TRAIN_SIGMA, eyes, targets, TRAIN_STEPS)
     torch.cuda.synchronize()
     launches = dict(CB.LAUNCHES)
     h = rec['hard_losses']
-    print(f'[training path] opt_shape, 642-vertex template (1280 faces), '
-          f'24 views at 64x64, logistic sigma 1e-2, probabilistic, lr '
-          f'10^-1.5, cube target: hard IoU loss {h[0]:.6f} after step 1, '
+    print(f'[training path] opt_shape{"".join(" " + a for a in extra)}, '
+          f'642-vertex template (1280 faces), 24 views at 64x64, logistic '
+          f'sigma 1e-2, {exp.args.aggr_func}, lr 10^-1.5, cube target: hard '
+          f'IoU loss {h[0]:.6f} after step 1, '
           f'{h[-1]:.6f} after step {len(h)} (best {min(h):.6f}); '
           f'gradients finite={rec["grads_finite"]}; launches={launches}',
           flush=True)
@@ -521,6 +644,159 @@ def panda_frame_vs_torch():
     torch.cuda.empty_cache()
     if not err < IMG_TOL:
         raise AssertionError(f'panda frame vs torch backend: {err}')
+
+
+def tcn_path():
+    """Phase 5, path (c): the t-conorm sweeps through panda_tcn's entry
+    points at their defaults, PNGs into a temporary directory, forward
+    only: the tau sweep over the full canonical list (the command line's
+    --quick keeps only max and probabilistic, which run no parametric
+    fold), the p sweep and the triangle sweep through their command
+    lines.  Checks one forward launch per frame and none backward, and
+    every frame finite with alpha in [0, 1].  Returns the launches."""
+    import tempfile
+    import torch
+    from gendr_tpu_torch.animations import panda_tcn as TCN, triangles_tcn
+    from gendr_tpu_torch.animations.common import T_CONORMS
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    with tempfile.TemporaryDirectory() as out_dir:
+        out = ['--out-dir', out_dir]
+        for k in CB.LAUNCHES:
+            CB.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        sweeps = [TCN.run(TCN.parse_args(TCN_ARGS + out), T_CONORMS),
+                  TCN.main(TCN_ARGS + ['--sweep-p'] + out),
+                  triangles_tcn.main(TCN_ARGS + out)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(CB.LAUNCHES)
+        pngs = len([p for p in os.listdir(out_dir) if p.endswith('.png')])
+    frames = tuple(len(stats) for stats in sweeps)
+    ok = all(fin and 0.0 <= lo and hi <= 1.0
+             for stats in sweeps for fin, lo, hi in stats)
+    print(f'[tcn path] panda_tcn {" ".join(TCN_ARGS)} over the 11 canonical '
+          f't-conorm configurations, then --sweep-p, then triangles_tcn: '
+          f'1280 faces, TS=25, 1536x1536 renders (768x768 with 2x AA), '
+          f'softmax RGB, uniform: {frames} frames, {pngs} PNGs in '
+          f'{seconds:.1f} s (render+fetch+png, host clock); frames finite '
+          f'with alpha in [0, 1]: {ok}; launches={launches}', flush=True)
+    # the triangle sweep's --quick names coincide with the tau sweep's first
+    # two configurations, so its 14 PNGs replace theirs
+    if frames != TCN_FRAMES or pngs != sum(TCN_FRAMES[:2]):
+        raise AssertionError(f'{frames} frames, {pngs} PNGs')
+    if not ok:
+        raise AssertionError(f'a frame is not finite or alpha leaves '
+                             f'[0, 1]: {sweeps}')
+    if launches != {'rasterize_fwd': sum(TCN_FRAMES), 'rasterize_bwd': 0}:
+        raise AssertionError(f'tcn path launches {launches}')
+    return launches
+
+
+def tcn_frame_vs_torch():
+    """One full-width frame of the tau sweep (yager p=2, tau 1e-2,
+    1536x1536) through backend='cuda', whose threads fold serially, and
+    backend='torch', which folds in the JAX package's butterfly grouping."""
+    import torch
+    from gendr_tpu_torch.animations import panda_tcn as TCN
+    args = TCN.parse_args(TCN_ARGS)
+    fv, tex = TCN.scene(args)
+    imgs = {}
+    for backend in ('cuda', 'torch'):
+        args.backend = backend
+        with torch.no_grad():
+            imgs[backend] = TCN.renderer(args, 'yager', 2.0) \
+                .forward_tensors(fv, tex)
+    torch.cuda.synchronize()
+    err = float((imgs['cuda'] - imgs['torch']).abs().max())
+    alpha = imgs['cuda'][0, 3]
+    print(f'[tcn frame] yager p=2 tau 1e-2, 1536x1536 render: img_err vs '
+          f'backend=torch {err:.3g} (tolerance {TCN_VS_TORCH_TOL}), coverage '
+          f'{float((alpha > 0.5).float().mean()):.4f}', flush=True)
+    del imgs
+    torch.cuda.empty_cache()
+    if not err < TCN_VS_TORCH_TOL:
+        raise AssertionError(f'tcn frame vs torch backend: {err}')
+
+
+def within_ulp_budget(result):
+    """Does a probe result's kernel-vs-torch-on-the-card difference stay
+    inside ULP_BUDGET for its op's kind?"""
+    from gendr_tpu_torch.tools import _ulp
+    field, limit = ULP_BUDGET[_ulp.OPS[result.case.op].kind]
+    return getattr(result.card, field) <= limit
+
+
+def probe_phase():
+    """Phase 6: every case of the three ULP tools through both probe
+    kernels, against torch on the card and on the CPU.  Prints the table;
+    raises where a kernel leaves its budget against torch on the card or
+    the two kernels differ from each other.  Returns the launches, the
+    largest absolute difference from torch on the card over the cdf and
+    fold cases, and the per-case results."""
+    import torch
+    from gendr_tpu_torch.tools import _ulp
+    cases = _ulp.check_cases() + _ulp.bisect_cases() + _ulp.smem_cases()
+    for k in _ulp.LAUNCHES:
+        _ulp.LAUNCHES[k] = 0
+    results = [(_ulp.run_case(c, 'ulp_elementwise'),
+                _ulp.run_case(c, 'ulp_param_vector')) for c in cases]
+    torch.cuda.synchronize()
+    launches = dict(_ulp.LAUNCHES)
+    print(f'[probes] {len(cases)} cases x (ulp_elementwise, '
+          f'ulp_param_vector): kernel vs torch on the card | on the CPU')
+    over, split = [], []
+    for by_value, by_vector in results:
+        _ulp.report(by_value)
+        if by_vector.cpu != by_value.cpu:
+            split.append(by_value.case.name)
+            print(f'      ulp_param_vector differs from ulp_elementwise: '
+                  f'vs the CPU {by_vector.cpu}')
+        over += [r.case.name for r in (by_value, by_vector)
+                 if not within_ulp_budget(r)]
+    bitwise = sum(r.card.n_differ == 0 for r, _ in results)
+    bitwise_cpu = sum(r.cpu.n_differ == 0 for r, _ in results)
+    worst = max(r.card.max_abs for pair in results for r in pair
+                if _ulp.OPS[r.case.op].kind in ('cdf', 'fold'))
+    print(f'[probes] {bitwise} of {len(cases)} cases bitwise with torch on '
+          f'the card, {bitwise_cpu} with torch on the CPU; the two kernels '
+          f'agree bitwise on {len(cases) - len(split)}; over budget: '
+          f'{over or "none"}; launches={launches}', flush=True)
+    if over or split:
+        raise AssertionError(f'probe kernels: over budget {over}, the two '
+                             f'kernels differ on {split}')
+    if launches != {k: len(cases) for k in launches}:
+        raise AssertionError(f'probe launches {launches}')
+    return launches, worst
+
+
+def time_probes(smi, reps):
+    """Both probe kernels on the yager fold over the tools' 8 x 2048
+    saturation inputs: medians of reps launches (CUDA events), the torch
+    expression on the card, and the byte bound (two inputs read, one
+    output written).  Returns {kernel: dict}."""
+    import torch
+    from gendr_tpu_torch import config as C
+    from gendr_tpu_torch.tools import _ulp
+    a, b = (torch.as_tensor(v).cuda() for v in _ulp.saturation_inputs())
+    q = _ulp._pad_params((C.YAGER_TCN, 2.0))
+    qd = torch.tensor(q, device='cuda')
+    runs = dict(
+        ulp_elementwise=(lambda: _ulp.ulp_elementwise('FOLD_STEP', a, b, q),
+                         lambda: _ulp.OPS['FOLD_STEP'].torch(a, b, q)),
+        ulp_param_vector=(lambda: _ulp.ulp_param_vector('FOLD_STEP', a, b,
+                                                        qd),
+                          lambda: _ulp.OPS['FOLD_STEP'].torch(a, b, qd)))
+    res = {name: dict(ms=_median_ms(kernel, reps),
+                      plain_ms=_median_ms(plain, reps),
+                      bound=bound(3 * _nbytes(a), 9 * a.numel()))
+           for name, (kernel, plain) in runs.items()}
+    parts = [f'{k} {r["ms"]:.4f} ms, torch {r["plain_ms"]:.4f} ms, bound '
+             f'{r["bound"][0]:.6f} ms ({r["bound"][1]})'
+             for k, r in res.items()]
+    print(f'[timing] {smi}: probe kernels, yager fold_step p=2 on '
+          f'{a.numel()} elements, medians of {reps}: ' + '; '.join(parts),
+          flush=True)
+    return res
 
 
 def gendr_default_path():
@@ -646,11 +922,11 @@ def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
     args = (aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
             aux['perm'], cfg, TS)
     out = CB.rasterize_fwd(*args)
+    fwd_flops, bwd_flops = flops_per_pair(cfg, mode)
     res = {'rasterize_fwd': dict(
         ms=_median_ms(lambda: CB.rasterize_fwd(*args), reps),
         plain_ms=_median_ms(lambda: CB.rasterize_fwd_plain(*args), *plain),
-        bound=bound(_nbytes(*args[:5], out),
-                    pairs * FWD_FLOPS_PER_PAIR[mode]))}
+        bound=bound(_nbytes(*args[:5], out), pairs * fwd_flops))}
     if bwd:
         soft, aggrs = CB._finalize_soa(out, cfg, params)
         g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]], 1)
@@ -662,8 +938,7 @@ def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
             ms=_median_ms(lambda: CB.rasterize_bwd(*bargs), reps),
             plain_ms=_median_ms(lambda: CB.rasterize_bwd_plain(*bargs),
                                 *plain),
-            bound=bound(_nbytes(*bargs[:6], rows),
-                        pairs * BWD_FLOPS_PER_PAIR[mode]))
+            bound=bound(_nbytes(*bargs[:6], rows), pairs * bwd_flops))
     torch.cuda.empty_cache()
     parts = [f'{k} {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, '
              f'bound {r["bound"][0]:.4f} ms ({r["bound"][1]})'
@@ -675,8 +950,8 @@ def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
     return res
 
 
-def timings(smi, cuda_steps, reps=50):
-    """Phase 5: medians of CUDA-event timings after warm-up, and host-clock
+def timings(smi, cuda_steps, yager_steps, reps=50):
+    """Phase 7: medians of CUDA-event timings after warm-up, and host-clock
     frame and step times.  Returns time_kernels' results by shape."""
     import torch
     from gendr_tpu_torch import config as C, render
@@ -740,9 +1015,19 @@ def timings(smi, cuda_steps, reps=50):
         shapes.append((f'panda {dist_func} tau {tau:g}',
                        *panda_inputs('cuda', 1536, dist_func, tau)))
     shapes += list(gendr_inputs())
+    # the parametric slice's main paths: a panda_tcn frame at full width,
+    # sparse (tau 1e-2) and dense (tau 1), folded by yager p=2 and, beside
+    # it, by the probabilistic product; and path (d)'s soft render (B=24,
+    # 64x64, alpha only), forward and backward, likewise
+    for tau in (1e-2, 1.0):
+        for t_conorm, p in (('yager', 2.0), ('probabilistic', 0.0)):
+            shapes.append((f'tcn {t_conorm} tau {tau:g}',
+                           *tcn_inputs('cuda', 1536, t_conorm, p, tau)))
+    for name, extra in (('opt yager', YAGER_ARGS), ('opt probabilistic', ())):
+        shapes.append((name, *next(iter(training_inputs(extra=extra)))[1:]))
     kt = {}
     for name, cfg, params, sfv, stex in shapes:
-        panda = name.startswith('panda')
+        panda = name.startswith(('panda', 'tcn'))
         kt[name] = time_kernels(smi, name, cfg, params, sfv, stex, reps,
                                 bwd=not panda,
                                 plain=(1, 0) if panda else (3, 1))
@@ -750,11 +1035,15 @@ def timings(smi, cuda_steps, reps=50):
     torch_steps = exp.run(TRAIN_LR, TRAIN_SIGMA, eyes, targets, 6)['step_s'][1:]
     cuda_med = 1e3 * float(np.median(cuda_steps[1:]))
     torch_med = 1e3 * float(np.median(torch_steps))
+    yager_med = 1e3 * float(np.median(yager_steps[1:]))
     print(f'[timing] {smi}: opt_shape step (forward+backward+Adam, 24 views '
           f'64x64, 1280 faces), host clock, synchronized: backend=cuda '
-          f'median {cuda_med:.3f} ms of {len(cuda_steps) - 1}, '
+          f'median {cuda_med:.3f} ms of {len(cuda_steps) - 1} '
+          f'(probabilistic), {yager_med:.3f} ms of {len(yager_steps) - 1} '
+          f'(yager p=2), '
           f'backend=torch median {torch_med:.3f} ms of {len(torch_steps)}',
           flush=True)
+    kt['probes'] = time_probes(smi, reps)
     return kt
 
 
@@ -778,9 +1067,8 @@ def main():
     print(f'[build] {", ".join(names)} ready in '
           f'{time.perf_counter() - t0:.2f} s', flush=True)
     for name in names:
-        for line in _build.BUILD_LOG.get(name, '').splitlines():
-            if 'registers' in line or 'spill' in line:
-                print(f'[build] {name}: {line.strip()}')
+        for line in ptxas_summary(_build.BUILD_LOG[name]):
+            print(f'[build] {name}: {line}')
 
     img_err, grad_err = compare_kernels()
     by_path = dict(render=render_path())
@@ -789,30 +1077,45 @@ def main():
     panda_frame_vs_torch()
     for texture_type, launches in gendr_default_path().items():
         by_path[f'gendr_{texture_type}'] = launches
-    kt = timings(smi, cuda_steps)
+    by_path['tcn'] = tcn_path()
+    tcn_frame_vs_torch()
+    by_path['training_yager'], yager_steps = training_path(YAGER_ARGS)
+    probe_launches, probe_err = probe_phase()
+    kt = timings(smi, cuda_steps, yager_steps)
 
-    errs = dict(rasterize_fwd=img_err, rasterize_bwd=grad_err)
+    errs = dict(rasterize_fwd=img_err, rasterize_bwd=grad_err,
+                ulp_elementwise=probe_err, ulp_param_vector=probe_err)
+    sources = dict(rasterize_fwd='rasterize_fwd', rasterize_bwd='rasterize_bwd',
+                   ulp_elementwise='ulp_probe', ulp_param_vector='ulp_probe')
     replaces = dict(rasterize_fwd='gendr_tpu/raster/pallas_backend.py:254',
-                    rasterize_bwd='gendr_tpu/raster/pallas_backend.py:1171')
-    envelopes = dict(rasterize_fwd='K1a+K1b', rasterize_bwd='K2a+K2b')
-    # each kernel's numbers at the shape of the textured slice's main path:
-    # a panda_dist frame for the forward, the default GenDR's backward
-    main_shape = dict(rasterize_fwd='panda uniform tau 0.01',
-                      rasterize_bwd='gendr surf')
+                    rasterize_bwd='gendr_tpu/raster/pallas_backend.py:1171',
+                    ulp_elementwise='tools/ulp_check.py:47 and '
+                    'tools/ulp_bisect.py:36',
+                    ulp_param_vector='tools/ulp_smem.py:37')
+    envelopes = dict(rasterize_fwd='K1a+K1b+K1c', rasterize_bwd='K2a+K2b+K2c',
+                     ulp_elementwise='probe', ulp_param_vector='probe')
+    # each kernel's numbers at the shape of the parametric slice's main
+    # path: a yager panda_tcn frame for the forward, path (d)'s backward,
+    # the yager fold for the probes; the earlier slices' are in by_shape
+    main_shape = dict(rasterize_fwd='tcn yager tau 0.01',
+                      rasterize_bwd='opt yager', ulp_elementwise='probes',
+                      ulp_param_vector='probes')
+    by_path['probes'] = probe_launches
 
     def numbers(r):
         return dict(ms=r['ms'], plain_ms=r['plain_ms'], bound_ms=r['bound'][0],
                     bound_by=r['bound'][1])
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
-        'source': f'gendr_tpu_torch/csrc/{name}.cu',
+        'source': f'gendr_tpu_torch/csrc/{sources[name]}.cu',
         'replaces': replaces[name], 'envelope': envelopes[name],
-        'launches': sum(p[name] for p in by_path.values()),
-        'launches_by_path': {k: p[name] for k, p in by_path.items()},
+        'launches': sum(p.get(name, 0) for p in by_path.values()),
+        'launches_by_path': {k: p[name] for k, p in by_path.items()
+                             if name in p},
         'max_abs_err': errs[name], 'shape': main_shape[name],
         **numbers(kt[main_shape[name]][name]), 'library_ms': None,
         'by_shape': {shape: numbers(r[name]) for shape, r in kt.items()
-                     if name in r}} for name in names]}))
+                     if name in r}} for name in sources]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

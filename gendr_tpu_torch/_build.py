@@ -5,7 +5,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 where the hash covers the source, every header of ``csrc/`` (the kernels
 share their device code through ``csrc/*.cuh``) and the flags, so an
 edited source or header builds anew and an unchanged one loads at once.
-The library is loaded with
+The ptxas report of each build (registers, shared memory and spills of
+every kernel instantiation) is kept beside the library as
+``lib<name>_<hash>.ptxas.txt``, so whichever process built it, every later
+one can read it (``BUILD_LOG``).  The library is loaded with
 ctypes; its functions take raw device pointers and the CUDA stream as
 ``c_void_p`` and ints as ``c_int``.  Nothing here runs at import time: the
 CPU tests import every module on machines with neither nvcc nor a card.
@@ -41,6 +44,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argtypes of each library's C functions, by library name
 SIGNATURES = {
     'rasterize_fwd': {
@@ -59,10 +63,19 @@ SIGNATURES = {
                                 + (_P,), _I),
         'gendr_error_string': ((_I,), ctypes.c_char_p),
     },
+    'ulp_probe': {
+        # op x y out n, then the parameters (five floats by value, or a
+        # device vector), device, stream
+        'gendr_ulp_elementwise': ((_I, _P, _P, _P, _I) + (_F,) * 5
+                                  + (_I, _P), _I),
+        'gendr_ulp_param_vector': ((_I, _P, _P, _P, _I, _P, _I, _P), _I),
+        'gendr_error_string': ((_I,), ctypes.c_char_p),
+    },
 }
 
-# the ptxas report (registers, shared memory, spills) of each build made by
-# this process, by library name
+# the ptxas report (registers, shared memory, spills) of each library that
+# build() was asked for, by library name: read from the file beside the
+# cached library, whichever process built it
 BUILD_LOG = {}
 
 
@@ -89,6 +102,11 @@ def library_path(name: str) -> Path:
     return CACHE / f'lib{name}_{h.hexdigest()[:16]}.so'
 
 
+def report_path(name: str) -> Path:
+    """The ptxas report kept beside library_path(name)."""
+    return library_path(name).with_suffix('.ptxas.txt')
+
+
 def build(*names: str) -> list:
     """Compile csrc/<name>.cu for each name whose library is not cached yet,
     one nvcc process per source, all started together; returns the library
@@ -110,10 +128,16 @@ def build(*names: str) -> list:
             failed.append(f'nvcc failed ({proc.returncode}) building '
                           f'{name}:\n{stdout}\n{stderr}')
             continue
-        BUILD_LOG[name] = stderr
+        # the report first: whoever finds the library finds its report
+        report_tmp = tmp.with_suffix('.txt')
+        report_tmp.write_text(stderr)
+        os.replace(report_tmp, report_path(name))
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     if failed:
         raise RuntimeError('\n'.join(failed))
+    for name in names:
+        report = report_path(name)
+        BUILD_LOG[name] = report.read_text() if report.exists() else ''
     return [library_path(name) for name in names]
 
 

@@ -1,8 +1,8 @@
 """Shared setup for the animation sweeps.
 
-Port of ``animations/common.py``: the canonical distribution sweep, the
-textured stand-in scene, compositing onto the reference's background and
-writing a PNG.  The PNG writer needs only the standard library (``zlib``
+Port of ``animations/common.py``: the canonical distribution and
+t-conorm sweeps, the single-triangle and textured stand-in scenes,
+compositing onto the reference's background and writing a PNG.  The PNG writer needs only the standard library (``zlib``
 and ``struct``), so the sweeps run where neither imageio nor PIL is
 installed.
 """
@@ -32,6 +32,33 @@ SIGMOID_FUNCTIONS = [
     ('gamma_rev', 2.),
     ('gamma_rev', .5),
 ]
+
+# the canonical t-conorm sweep (panda_tcn.py:63-76)
+T_CONORMS = [
+    ('max', 0.),
+    ('probabilistic', 0.),
+    ('einstein', 0.),
+    ('yager', .5), ('yager', 1.), ('yager', 2.), ('yager', 4.),
+    ('aczel_alsina', .5), ('aczel_alsina', 1.), ('aczel_alsina', 2.),
+    ('aczel_alsina', 4.),
+]
+
+
+def require_device(prog, device):
+    """Stop a command line that asks for a CUDA device where there is
+    none: no sweep falls back to the CPU on its own."""
+    if device.startswith('cuda') and not torch.cuda.is_available():
+        raise SystemExit(f'{prog}: --device cuda needs a CUDA device '
+                         f'(torch.cuda.is_available() is False); pass '
+                         f'--device cpu to render on the CPU')
+
+
+def triangle_scene(device=None) -> Mesh:
+    """A single triangle in view (triangles_dist.py's subject)."""
+    verts = np.array([[-0.6, -0.5, 2.0], [0.7, -0.4, 2.5],
+                      [0.0, 0.7, 3.0]], np.float32)
+    faces = np.array([[0, 1, 2]], np.int32)
+    return Mesh.create(verts, faces, device=device)
 
 
 def textured_scene(texture_res=5, device=None) -> Mesh:

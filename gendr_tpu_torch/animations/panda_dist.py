@@ -27,7 +27,8 @@ import torch
 import gendr_tpu_torch as G
 from gendr_tpu_torch.animations.common import (SIGMOID_FUNCTIONS,
                                                composite_on_background,
-                                               save_png, textured_scene)
+                                               require_device, save_png,
+                                               textured_scene)
 
 GAMMA, EPS, DIST_EPS = 10 ** -2.5, 10 ** -3, 10 ** 10
 
@@ -89,10 +90,7 @@ def main(argv=None):
     clock: render, fetch and PNG; per frame (finite, min alpha, max
     alpha))."""
     args = parse_args(argv)
-    if args.device.startswith('cuda') and not torch.cuda.is_available():
-        raise SystemExit('panda_dist: --device cuda needs a CUDA device '
-                         '(torch.cuda.is_available() is False); pass '
-                         '--device cpu to render on the CPU')
+    require_device('panda_dist', args.device)
     fv, tex = scene(args.texture_res, args.device)
     log_taus, dists = sweep(args)
     ms_per_frame, stats = [], []

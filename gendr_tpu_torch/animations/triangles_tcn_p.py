@@ -1,0 +1,22 @@
+"""Single-triangle t-conorm parameter-p sweep.
+
+Port of ``animations/triangles_tcn_p.py``: ``panda_tcn`` with
+``--triangle --sweep-p``.
+
+    python -m gendr_tpu_torch.animations.triangles_tcn_p --quick
+"""
+
+from __future__ import annotations
+
+import sys
+
+from gendr_tpu_torch.animations import panda_tcn
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    return panda_tcn.main(['--triangle', '--sweep-p'] + argv)
+
+
+if __name__ == '__main__':
+    main()

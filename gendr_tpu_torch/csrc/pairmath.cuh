@@ -2,7 +2,8 @@
 //
 // Device counterpart of raster/pairmath.py and ops/distributions.py: the
 // packed-row layout, the parameter-vector slots, the 18 CDFs and their
-// PDFs, and the barycentric / distance algebra.  Both kernels compile this
+// PDFs, the nine t-conorms' fold and aggregate-inverse gradient
+// (ops/tconorms.py), and the barycentric / distance algebra.  Both kernels compile this
 // one copy with the same flags (gendr_tpu_torch/_build.py, no multiply-add
 // contraction), so the coverage the backward recomputes equals the
 // forward's bitwise: the max t-conorm's gradient finds its winner by exact
@@ -42,7 +43,15 @@ enum {
   EXPONENTIAL, EXPONENTIAL_REV, GAMMA, GAMMA_REV, LEVY, LEVY_REV
 };
 // alpha aggregation ids (config.py)
-enum { ALPHA_HARD = 0, MAX_TCN = 1, PROBABILISTIC_TCN = 2, EINSTEIN_TCN = 3 };
+enum {
+  ALPHA_HARD = 0, MAX_TCN = 1, PROBABILISTIC_TCN = 2, EINSTEIN_TCN = 3,
+  HAMACHER_TCN = 4, FRANK_TCN = 5, YAGER_TCN = 6, ACZEL_ALSINA_TCN = 7,
+  DOMBI_TCN = 8, SCHWEIZER_SKLAR_TCN = 9
+};
+// the render kernels' template value for the six parametric families
+// (hamacher .. schweizer_sklar), which they tell apart at run time; not an
+// id of config.py
+constexpr int ALPHA_PARAMETRIC = 10;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float BIG_DEPTH = 10000000.0f;
@@ -220,6 +229,153 @@ __device__ inline float pdf(int dist, float sign, float x, float scale,
     }
   }
   return 0.0f;
+}
+
+// A t-conorm's parameter p with what depends on p alone, computed once per
+// thread outside the pair loop: log p (frank), 1 / p, p - 1, 1 - p and
+// (1 - p) / p, each rounded as ops/tconorms.py rounds it
+struct TcnParam {
+  float p, lnp, inv_p, pm1, omp, omp_over_p;
+};
+__device__ __forceinline__ TcnParam tcn_param(float p) {
+  TcnParam t;
+  t.p = p;
+  t.lnp = logf(p);
+  t.inv_p = 1.0f / p;
+  t.pm1 = p - 1.0f;
+  t.omp = 1.0f - p;
+  t.omp_over_p = t.omp / p;
+  return t;
+}
+
+// ops/tconorms.py:fold_step for the six parametric families, guard by
+// guard (reference cu:491-563).  a _|_ 0 = a and 0 _|_ b = b exactly
+// (_zero_identity): the arithmetic below reproduces the neutral element
+// only up to rounding, and a pixel's first admitted pair folds into
+// acc == 0.  The early returns also keep powf(0, p) and logf(0) of that
+// first pair out of the result.  frank's p^(1-a) - 1 is expm1f((1-a) log p),
+// never powf(p, 1-a) - 1, which cancels at the a -> 1 saturation edge.
+__device__ inline float parametric_fold(int tid, float a, float b,
+                                        const TcnParam& t) {
+  if (b == 0.0f) return a;
+  if (a == 0.0f) return b;
+  const float p = t.p;
+  switch (tid) {
+    case HAMACHER_TCN: {  // p >= 0
+      const float an = 1.0f - a, bn = 1.0f - b;
+      const float c =
+          (an * bn) / fmaxf(p + t.omp * (an + bn - an * bn), 1e-6f);
+      return 1.0f - c;
+    }
+    case FRANK_TCN: {  // p > 0, p != 1
+      const float ea = expm1f((1.0f - a) * t.lnp);
+      const float eb = expm1f((1.0f - b) * t.lnp);
+      const float c = log1pf(ea * eb / t.pm1) / t.lnp;
+      return 1.0f - c;
+    }
+    case YAGER_TCN: {  // p > 0
+      const float c =
+          fmaxf(1.0f - powf(powf(a, p) + powf(b, p), t.inv_p), 0.0f);
+      return 1.0f - c;
+    }
+    case ACZEL_ALSINA_TCN: {  // p > 0
+      const float an = 1.0f - a, bn = 1.0f - b;
+      // 1 - a < 1e-8 (or 1 - b): the result saturates to 1 (cu:528-529)
+      if (an < 1e-8f || bn < 1e-8f) return 1.0f;
+      const float la = -logf(fmaxf(an, 1e-30f));
+      const float lb = -logf(fmaxf(bn, 1e-30f));
+      const float c = expf(-powf(powf(la, p) + powf(lb, p), t.inv_p));
+      return 1.0f - c;
+    }
+    case DOMBI_TCN: {  // p > 0
+      const float an = 1.0f - a, bn = 1.0f - b;
+      if (an < 1e-8f || bn < 1e-8f) return 1.0f;
+      const float an_s = fmaxf(an, 1e-30f), bn_s = fmaxf(bn, 1e-30f);
+      const float c =
+          1.0f / (1.0f + powf(powf((1.0f - an_s) / an_s, p) +
+                                  powf((1.0f - bn_s) / bn_s, p),
+                              t.inv_p));
+      return 1.0f - c;
+    }
+    case SCHWEIZER_SKLAR_TCN: {  // p < 0
+      const float an = fmaxf(1.0f - a, 1e-30f);
+      const float bn = fmaxf(1.0f - b, 1e-30f);
+      const float c = powf(powf(an, p) + powf(bn, p) - 1.0f, t.inv_p);
+      return 1.0f - c;
+    }
+  }
+  return 0.0f;
+}
+
+// ops/tconorms.py:fold_step, a _|_ b for any of the nine t-conorms
+__device__ inline float fold_step(int tid, float a, float b, float p) {
+  switch (tid) {
+    case MAX_TCN: return fmaxf(a, b);
+    case PROBABILISTIC_TCN: return a + b - a * b;
+    case EINSTEIN_TCN: return (a + b) / (1.0f + a * b);
+  }
+  return parametric_fold(tid, a, b, tcn_param(p));
+}
+
+// ops/tconorms.py:aggregate_backward for the six parametric families:
+// dA/db rebuilt from the total aggregate a_all and b alone, with every
+// guard of the reference (cu:577-614)
+__device__ inline float parametric_aggregate_backward(int tid, float a_all,
+                                                      float b,
+                                                      const TcnParam& t) {
+  const float p = t.p;
+  switch (tid) {
+    case HAMACHER_TCN: {
+      const float num =
+          (1.0f - a_all) * (-a_all - p * (1.0f - a_all) + p + 1.0f);
+      const float den = (1.0f - b) * (-b - p * (1.0f - b) + p + 1.0f);
+      return num / fmaxf(den, 1e-6f);
+    }
+    case FRANK_TCN: {
+      const float d = expm1f((1.0f - b) * t.lnp);
+      const float d_guard = d + (d >= 0.0f ? 1e-6f : -1e-6f);  // copysign
+      return expf((a_all - b) * t.lnp) * expm1f((1.0f - a_all) * t.lnp) /
+             d_guard;
+    }
+    case YAGER_TCN: {
+      if (a_all == 1.0f) return 0.0f;
+      return powf(fmaxf(b, 1e-30f), t.pm1) * powf(fmaxf(a_all, 1e-30f), t.omp);
+    }
+    case ACZEL_ALSINA_TCN: {
+      const float lo = (float)(-1.0 + 1e-6);
+      const float log_b = -log1pf(fmaxf(-b, lo));
+      const float log_a = -log1pf(fmaxf(-a_all, lo));
+      return (1.0f - a_all) * powf(fmaxf(log_b, 1e-30f), t.pm1) *
+             powf(fmaxf(log_a, 1e-30f), t.omp) / fmaxf(1.0f - b, 1e-6f);
+    }
+    case DOMBI_TCN: {
+      const float bn = fmaxf(1.0f - b, 1e-6f);
+      const float an = fmaxf(1.0f - a_all, 1e-6f);
+      return (1.0f - a_all) * (1.0f - a_all) *
+             powf(fmaxf(b, 1e-30f) / bn, t.pm1) *
+             powf(fmaxf(a_all, 1e-30f) / an, t.omp) / bn / bn;
+    }
+    case SCHWEIZER_SKLAR_TCN: {
+      const float an = fmaxf(1.0f - a_all, 1e-6f);
+      const float bn = fmaxf(1.0f - b, 1e-6f);
+      const float bp = powf(bn, p), ap = powf(an, p);
+      const float inner = powf(powf(-bp + ap + 1.0f, t.inv_p), p);
+      return powf(bn, t.pm1) * powf(bp + inner - 1.0f, t.omp_over_p);
+    }
+  }
+  return 0.0f;
+}
+
+// ops/tconorms.py:aggregate_backward for any of the nine t-conorms
+__device__ inline float aggregate_backward(int tid, float a_all, float b,
+                                           float p) {
+  switch (tid) {
+    case MAX_TCN: return a_all == b ? 1.0f : 0.0f;
+    case PROBABILISTIC_TCN: return (1.0f - a_all) / fmaxf(1.0f - b, 1e-6f);
+    case EINSTEIN_TCN:
+      return (1.0f - a_all * a_all) / fmaxf(1.0f - b * b, 1e-6f);
+  }
+  return parametric_aggregate_backward(tid, a_all, b, tcn_param(p));
 }
 
 // bbox gate (pairmath.py P_MARGIN): outside it a pair's true coverage is

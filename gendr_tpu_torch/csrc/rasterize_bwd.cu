@@ -1,11 +1,11 @@
 // Backward rasterization kernel for Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces the TPU kernel gendr_tpu/raster/pallas_backend.py:_bwd_kernel
-// for the sub-kernels ROADMAP.md calls K2a and K2b: the gradient of the
-// K1a/K1b envelope, channels 'alpha', hard RGB and softmax RGB, over vertex
-// textures or surface textures of up to 36 texels per face, the alpha
-// families hard, max, probabilistic and einstein, any of the 18 CDFs as a
-// runtime id, and dist_squared either way.
+// for the sub-kernels ROADMAP.md calls K2a, K2b and K2c: the gradient of
+// the K1a/K1b/K1c envelope, channels 'alpha', hard RGB and softmax RGB, over
+// vertex textures or surface textures of up to 36 texels per face, the
+// alpha mode hard and all nine t-conorms, any of the 18 CDFs as a runtime
+// id, and dist_squared either way.
 //
 // What it computes, per (pixel, face) pair: the recomputed coverage, the
 // aggregate-inverse alpha rule (pallas_backend.py:1282-1288; hard alpha
@@ -43,6 +43,10 @@
 // and the 3 of one texel stay in registers, which is faster: holding them
 // in the shared block too cost 10 % at the flagship and 6 % at the default
 // GenDR with vertex colours (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+// The six parametric t-conorms (K2c) share one instantiation per mode,
+// ALPHA_PARAMETRIC, and switch on the family at run time as the forward
+// kernel does (rasterize_fwd.cu says why); their aggregate-inverse rule is
+// pairmath.cuh's parametric_aggregate_backward, up to four powf per pair.
 // No atomics: each sum has one owner and a fixed order, so the same inputs
 // give bitwise-equal gradients.
 //
@@ -73,7 +77,8 @@ __host__ __device__ constexpr int npix(int mode) {
 }
 
 // One block per face chunk blockIdx.x of batch element blockIdx.y; one
-// thread per face.  ALPHA: the alpha family; MODE: alpha only, hard RGB or
+// thread per face.  ALPHA: the alpha family, or ALPHA_PARAMETRIC with the
+// family in alpha_func; MODE: alpha only, hard RGB or
 // softmax RGB.  out rows (NO of them): x0 y0 x1 y1 x2 y2, then z0 z1 z2
 // (softmax), then the texture gradients (RGB: 9 for vertex textures, 3 TS
 // for surface), one column per sorted face.
@@ -87,8 +92,8 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
     const float* __restrict__ pix,         // [B, NPIX, P]
     float* __restrict__ out,               // [B, NO, Fp]
     int NI, int NO, int Fp, int FC, int image_size, int tiles_x,
-    int dist_func, int dist_squared, int double_side, int texture_type,
-    int texture_res) {
+    int dist_func, int dist_squared, int alpha_func, int double_side,
+    int texture_type, int texture_res) {
   constexpr int NPIX = npix(MODE);
   constexpr int NZ = MODE == MODE_SOFTMAX ? 3 : 0;
   extern __shared__ float smem[];
@@ -115,6 +120,7 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
   const float margin = par[P_MARGIN], gamma = par[P_GAMMA];
   const float znear = par[P_NEAR], zfar = par[P_FAR];
   const float inv_far = 1.0f / zfar, inv_near = 1.0f / znear;
+  const TcnParam tcp = tcn_param(par[P_TCP]);
 
   // the face's geometry rows, in registers for the whole block
   float fr[NI_BASE];
@@ -229,9 +235,12 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
       } else if (ALPHA == PROBABILISTIC_TCN) {
         const float fa = cols[PIX_FA * THREADS + l];
         c = ga * ((1.0f - fa) / fmaxf(1.0f - frag, 1e-6f));
-      } else {
+      } else if (ALPHA == EINSTEIN_TCN) {
         const float fa = cols[PIX_FA * THREADS + l];
         c = ga * ((1.0f - fa * fa) / fmaxf(1.0f - frag * frag, 1e-6f));
+      } else {
+        c = ga * parametric_aggregate_backward(
+                     alpha_func, cols[PIX_FA * THREADS + l], frag, tcp);
       }
 
       float gr[3];
@@ -318,7 +327,7 @@ struct Args {
   const float* pix;
   float* out;
   int NI, NO, Fp, FC, image_size, tiles_x, dist_func, dist_squared,
-      double_side, texture_type, texture_res;
+      alpha_func, double_side, texture_type, texture_res;
 };
 
 template <int ALPHA, int MODE>
@@ -333,19 +342,27 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
   kernel<<<grid, a.FC, smem, stream>>>(
       a.chunk_counts, a.chunk_ids, a.par, a.packed, a.perm, a.pix, a.out,
       a.NI, a.NO, a.Fp, a.FC, a.image_size, a.tiles_x, a.dist_func,
-      a.dist_squared, a.double_side, a.texture_type, a.texture_res);
+      a.dist_squared, a.alpha_func, a.double_side, a.texture_type,
+      a.texture_res);
   return cudaGetLastError();
 }
 
 template <int MODE>
-cudaError_t launch_family(int alpha_func, dim3 grid, size_t smem,
-                          cudaStream_t stream, const Args& a) {
-  switch (alpha_func) {
+cudaError_t launch_family(dim3 grid, size_t smem, cudaStream_t stream,
+                          const Args& a) {
+  switch (a.alpha_func) {
     case ALPHA_HARD: return launch<ALPHA_HARD, MODE>(grid, smem, stream, a);
     case MAX_TCN: return launch<MAX_TCN, MODE>(grid, smem, stream, a);
     case PROBABILISTIC_TCN:
       return launch<PROBABILISTIC_TCN, MODE>(grid, smem, stream, a);
     case EINSTEIN_TCN: return launch<EINSTEIN_TCN, MODE>(grid, smem, stream, a);
+    case HAMACHER_TCN:
+    case FRANK_TCN:
+    case YAGER_TCN:
+    case ACZEL_ALSINA_TCN:
+    case DOMBI_TCN:
+    case SCHWEIZER_SKLAR_TCN:
+      return launch<ALPHA_PARAMETRIC, MODE>(grid, smem, stream, a);
   }
   return cudaErrorInvalidValue;
 }
@@ -386,15 +403,15 @@ extern "C" int gendr_rasterize_bwd(
   const Args a{chunk_counts, chunk_ids,  par,          packed,
                perm,         pix,        out,          NI,
                NO,           Fp,         FC,           image_size,
-               tiles_x,      dist_func,  dist_squared, double_side,
-               texture_type, texture_res};
+               tiles_x,      dist_func,  dist_squared, alpha_func,
+               double_side,  texture_type, texture_res};
   switch (mode) {
     case MODE_ALPHA:
-      return (int)launch_family<MODE_ALPHA>(alpha_func, grid, smem, s, a);
+      return (int)launch_family<MODE_ALPHA>(grid, smem, s, a);
     case MODE_HARD:
-      return (int)launch_family<MODE_HARD>(alpha_func, grid, smem, s, a);
+      return (int)launch_family<MODE_HARD>(grid, smem, s, a);
     case MODE_SOFTMAX:
-      return (int)launch_family<MODE_SOFTMAX>(alpha_func, grid, smem, s, a);
+      return (int)launch_family<MODE_SOFTMAX>(grid, smem, s, a);
   }
   return (int)cudaErrorInvalidValue;
 }

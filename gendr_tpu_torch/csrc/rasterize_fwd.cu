@@ -1,10 +1,10 @@
 // Forward rasterization kernel for Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces the TPU kernel gendr_tpu/raster/pallas_backend.py:_fwd_kernel
-// for the sub-kernels ROADMAP.md calls K1a and K1b: channels 'alpha', hard
-// RGB and softmax RGB, over vertex textures or surface textures of up to
-// 36 texels per face, the alpha families hard, max, probabilistic and
-// einstein, and any of the 18 CDFs as a runtime id.
+// for the sub-kernels ROADMAP.md calls K1a, K1b and K1c: channels 'alpha',
+// hard RGB and softmax RGB, over vertex textures or surface textures of up
+// to 36 texels per face, the alpha mode hard and all nine t-conorms, and
+// any of the 18 CDFs as a runtime id.
 //
 // What bounds it on the card: per-pair ALU work.  At the flagship size
 // (256x256 pixels, 1280 faces, 56 packed rows) it reads about 0.3 MB of
@@ -25,6 +25,18 @@
 // broadcasts.  Of the texture rows (3 per texel, up to 108 of them) a thread
 // reads the few it samples from global memory through the read-only cache:
 // staging them too was slower on every shape measured (PERF.md).
+//
+// The alpha fold is serial per thread, one fold_step per admitted pair in
+// the order the thread visits them (the TPU kernel's 128-lane butterfly
+// and its zero-padded tree are its vector unit's shape, not the
+// function's).  hard, max, probabilistic and einstein are template values.
+// The six parametric families (K1c) share ONE instantiation per mode,
+// ALPHA_PARAMETRIC, and switch on the family at run time, as the CDF
+// already does: the family is uniform over a launch, so the switch never
+// diverges and costs a branch beside the two to five powf of a fold, while
+// six more template values would take 30 instantiations to build, not 15.
+// p is read from par (P_TCP), so a sweep over p never rebuilds; log p, 1/p
+// and p - 1 are computed once per thread, outside the pair loop.
 //
 // The softmax is streamed per thread over the pairs it visits, in order:
 // it carries (ssum, smax, rgb) and rescales the sums only when a pair
@@ -49,7 +61,8 @@ using namespace gendr;
 constexpr size_t STATIC_SMEM = 48 * 1024;  // shared memory of one block
 
 // One block per 16x16 pixel tile of batch element blockIdx.y; one thread
-// per pixel.  ALPHA: the alpha family; MODE: alpha only, hard RGB (the
+// per pixel.  ALPHA: the alpha family, or ALPHA_PARAMETRIC with the family
+// in alpha_func; MODE: alpha only, hard RGB (the
 // z-argmax and the winner's colour) or softmax RGB.  out rows: alpha, then
 // depth, winner input id, r, g, b (hard) or ssum, smax, r, g, b (softmax).
 template <int ALPHA, int MODE>
@@ -62,7 +75,8 @@ __global__ void __launch_bounds__(THREADS) rasterize_fwd_kernel(
     const int* __restrict__ perm,         // [B, Fp] input id per sorted slot
     float* __restrict__ out,              // [B, NO, P], NO = 6 or 1
     int NI, int Fp, int FC, int image_size, int tiles_x, int dist_func,
-    int dist_squared, int double_side, int texture_type, int texture_res) {
+    int dist_squared, int alpha_func, int double_side, int texture_type,
+    int texture_res) {
   extern __shared__ float smem[];
   float* rows = smem;                                       // [NI_BASE, FC]
   int* ids = reinterpret_cast<int*>(smem + NI_BASE * FC);   // [FC]
@@ -83,6 +97,7 @@ __global__ void __launch_bounds__(THREADS) rasterize_fwd_kernel(
   const float ginv1 = par[P_GINV1], margin = par[P_MARGIN];
   const float znear = par[P_NEAR], zfar = par[P_FAR], gamma = par[P_GAMMA];
   const float inv_far = 1.0f / zfar, inv_near = 1.0f / znear;
+  const TcnParam tcp = tcn_param(par[P_TCP]);
 
   const int n = tile_counts[b * T + t];
   const int* my_ids = tile_ids + ((size_t)b * T + t) * kcap;
@@ -144,8 +159,10 @@ __global__ void __launch_bounds__(THREADS) rasterize_fwd_kernel(
         acc = fmaxf(acc, frag);
       } else if (ALPHA == PROBABILISTIC_TCN) {
         acc = acc * (1.0f - frag);
-      } else {
+      } else if (ALPHA == EINSTEIN_TCN) {
         acc = (acc + frag) / (1.0f + acc * frag);
+      } else {
+        acc = parametric_fold(alpha_func, acc, frag, tcp);
       }
       if (MODE == MODE_ALPHA) continue;
 
@@ -223,8 +240,8 @@ struct Args {
   const float* packed;
   const int* perm;
   float* out;
-  int NI, Fp, FC, image_size, tiles_x, dist_func, dist_squared, double_side,
-      texture_type, texture_res;
+  int NI, Fp, FC, image_size, tiles_x, dist_func, dist_squared, alpha_func,
+      double_side, texture_type, texture_res;
 };
 
 template <int ALPHA, int MODE>
@@ -233,19 +250,26 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
   rasterize_fwd_kernel<ALPHA, MODE><<<grid, THREADS, smem, stream>>>(
       a.tile_counts, a.tile_ids, a.kcap, a.par, a.packed, a.perm, a.out,
       a.NI, a.Fp, a.FC, a.image_size, a.tiles_x, a.dist_func, a.dist_squared,
-      a.double_side, a.texture_type, a.texture_res);
+      a.alpha_func, a.double_side, a.texture_type, a.texture_res);
   return cudaGetLastError();
 }
 
 template <int MODE>
-cudaError_t launch_family(int alpha_func, dim3 grid, size_t smem,
-                          cudaStream_t stream, const Args& a) {
-  switch (alpha_func) {
+cudaError_t launch_family(dim3 grid, size_t smem, cudaStream_t stream,
+                          const Args& a) {
+  switch (a.alpha_func) {
     case ALPHA_HARD: return launch<ALPHA_HARD, MODE>(grid, smem, stream, a);
     case MAX_TCN: return launch<MAX_TCN, MODE>(grid, smem, stream, a);
     case PROBABILISTIC_TCN:
       return launch<PROBABILISTIC_TCN, MODE>(grid, smem, stream, a);
     case EINSTEIN_TCN: return launch<EINSTEIN_TCN, MODE>(grid, smem, stream, a);
+    case HAMACHER_TCN:
+    case FRANK_TCN:
+    case YAGER_TCN:
+    case ACZEL_ALSINA_TCN:
+    case DOMBI_TCN:
+    case SCHWEIZER_SKLAR_TCN:
+      return launch<ALPHA_PARAMETRIC, MODE>(grid, smem, stream, a);
   }
   return cudaErrorInvalidValue;
 }
@@ -277,15 +301,15 @@ extern "C" int gendr_rasterize_fwd(
   const Args a{tile_counts, tile_ids,   kcap,         par,
                packed,      perm,       out,          NI,
                Fp,          FC,         image_size,   tiles_x,
-               dist_func,   dist_squared, double_side, texture_type,
-               texture_res};
+               dist_func,   dist_squared, alpha_func, double_side,
+               texture_type, texture_res};
   switch (mode) {
     case MODE_ALPHA:
-      return (int)launch_family<MODE_ALPHA>(alpha_func, grid, smem, s, a);
+      return (int)launch_family<MODE_ALPHA>(grid, smem, s, a);
     case MODE_HARD:
-      return (int)launch_family<MODE_HARD>(alpha_func, grid, smem, s, a);
+      return (int)launch_family<MODE_HARD>(grid, smem, s, a);
     case MODE_SOFTMAX:
-      return (int)launch_family<MODE_SOFTMAX>(alpha_func, grid, smem, s, a);
+      return (int)launch_family<MODE_SOFTMAX>(grid, smem, s, a);
   }
   return (int)cudaErrorInvalidValue;
 }

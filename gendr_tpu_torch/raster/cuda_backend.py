@@ -17,10 +17,12 @@ Port of ``gendr_tpu/raster/pallas_backend.py``:
   :func:`rasterize_bwd`, on the pixel columns :func:`pixel_columns` builds
   from the image gradient, then the un-permute to input face order.
 
-The kernels cover the sub-kernels K1a/K1b and K2a/K2b of ROADMAP.md Queue
-2: channels 'alpha', hard RGB and softmax RGB over vertex textures or
-surface textures of up to 36 texels per face, with the alpha families
-hard, max, probabilistic and einstein.
+The kernels cover the sub-kernels K1a/K1b/K1c and K2a/K2b/K2c of
+ROADMAP.md Queue 2: channels 'alpha', hard RGB and softmax RGB over vertex
+textures or surface textures of up to 36 texels per face, with the alpha
+mode hard and all nine t-conorms (the six parametric families fold
+serially, a pair at a time, with ``aggr_alpha_t_conorm_p`` read from the
+parameter vector at run time).
 
 :func:`rasterize_fwd_plain` and :func:`rasterize_bwd_plain` are the
 kernels' functions in plain PyTorch: same inputs, same outputs.  The
@@ -31,9 +33,9 @@ The TPU workarounds are gone: no 128-aligned tiling (the kernel masks the
 ragged edge tile, so any image size runs), no split of the hit lists
 between SMEM and HBM (a block reads its own list row), no per-tile face
 compaction yet (ROADMAP.md), no one-hot texel selection (a pair gathers
-its texel).  Configurations outside the kernels' envelope (the parametric
-folds, K1c; more texels per face, K1d) raise ``ValueError``;
-``backend='torch'`` renders them.
+its texel).  Configurations outside the kernels' envelope (more than 36
+texels per face, K1d; a texel count that is not a square) raise
+``ValueError``; ``backend='torch'`` renders them.
 """
 
 from __future__ import annotations
@@ -52,8 +54,6 @@ from gendr_tpu_torch.raster import torch_backend as TB
 from gendr_tpu_torch.raster.torch_backend import BIG_DEPTH, NEG_INF
 
 TILE = 16  # pixel tile edge: one CUDA block of 16x16 threads per tile
-DEFERRED_ALPHA = (C.ALPHA_HARD, C.MAX_TCN, C.PROBABILISTIC_TCN,
-                  C.EINSTEIN_TCN)
 # shared memory of a forward block (static budget), and the most a backward
 # block may use on Hopper (dynamic, opted in above 48 KB)
 FWD_SMEM_LIMIT = 48 * 1024
@@ -80,15 +80,9 @@ def texture_res(TS: int):
 
 
 def check_envelope(cfg: C.RenderConfig, TS: int):
-    """Raise ValueError for a configuration the kernels do not cover
-    (TS: texels per face), naming the sub-kernel of ROADMAP.md Queue 2
-    that will where one is planned."""
-    if cfg.aggr_alpha_func not in DEFERRED_ALPHA:
-        raise ValueError(
-            f'backend="cuda" covers the alpha families hard, max, '
-            f'probabilistic and einstein; aggr_alpha_func id '
-            f'{cfg.aggr_alpha_func} is a parametric fold (sub-kernel K1c, '
-            f'not ported yet): use backend="torch"')
+    """Raise ValueError for a texture layout the kernels do not cover (TS:
+    texels per face): more than 36 texels per face, which is sub-kernel K1d
+    of ROADMAP.md Queue 2, or a texel count that is not a square."""
     if cfg.channels == 'alpha' or cfg.texture_type == C.TEXTURE_VERTEX:
         return
     if TS > pack.TEXEL_UNROLL_CAP:
@@ -267,9 +261,9 @@ def rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
 
     A pixel folds the chunks its tile lists, in ascending chunk order, and
     within a chunk the faces in ascending sorted order, as a kernel thread
-    does; the probabilistic and einstein folds and the streaming softmax
-    run face by face in that order.  Hard-RGB ties on the depth key go to
-    the smaller input face id.
+    does; the probabilistic, einstein and parametric folds and the
+    streaming softmax run face by face in that order.  Hard-RGB ties on the
+    depth key go to the smaller input face id.
     """
     B, NI, Fp = packed.shape
     FC = cfg.face_chunk
@@ -317,9 +311,12 @@ def rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
         elif tid == C.PROBABILISTIC_TCN:
             for f in range(FC):
                 acc = acc * (1.0 - frag[..., f])
-        else:
+        elif tid == C.EINSTEIN_TCN:
             for f in range(FC):
                 acc = (acc + frag[..., f]) / (1.0 + acc * frag[..., f])
+        else:
+            for f in range(FC):
+                acc = TC.fold_step(tid, acc, frag[..., f], par[PM.P_TCP])
         if mode == MODE_ALPHA:
             continue
         # each pair's colour [B, P, FC, 3] (csrc/pairmath.cuh:sample_color)

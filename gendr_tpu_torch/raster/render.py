@@ -102,9 +102,10 @@ def render(
     (surface) or [B, F, 3, 3] (vertex colors gathered per face).
     Returns soft_colors [B, 4(RGBA), H, W] on the inputs' device.
 
-    backend: 'cuda' (the hand-written kernel; raises for a configuration
-    outside its envelope), 'torch' (the plain streaming backend), or None
-    ('cuda' for CUDA tensors, 'torch' for CPU tensors).
+    backend: 'cuda' (the hand-written kernels: every distribution, alpha
+    and RGB mode; raises for surface textures of more than 36 texels per
+    face), 'torch' (the plain streaming backend), or None ('cuda' for CUDA
+    tensors, 'torch' for CPU tensors).
     """
     cfg, params = render_config(
         image_size=image_size, background_color=background_color,

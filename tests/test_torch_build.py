@@ -24,8 +24,72 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
 def test_every_kernel_source_has_its_signatures():
     names = sorted(p.stem for p in _build.CSRC.glob('*.cu'))
     assert names == sorted(_build.SIGNATURES) == ['rasterize_bwd',
-                                                    'rasterize_fwd']
+                                                    'rasterize_fwd',
+                                                    'ulp_probe']
     assert (_build.CSRC / 'pairmath.cuh').exists()
+    # pyproject.toml's patterns ship every source and name every subpackage
+    import fnmatch
+    import tomllib
+    from setuptools import find_packages
+    root = _build.PKG.parent
+    cfg = tomllib.loads((root / 'pyproject.toml').read_text())['tool'][
+        'setuptools']
+    packages = find_packages(str(root),
+                             include=cfg['packages']['find']['include'])
+    assert {'gendr_tpu_torch.tools', 'gendr_tpu_torch.animations'} \
+        <= set(packages)
+    shipped = cfg['package-data']['gendr_tpu_torch']
+    for path in _build.CSRC.iterdir():
+        rel = f'csrc/{path.name}'
+        assert any(fnmatch.fnmatch(rel, pat) for pat in shipped), rel
+
+
+def test_ptxas_report_is_kept_beside_the_library(tmp_path, monkeypatch):
+    """build() writes nvcc's ptxas report next to the library it caches
+    and BUILD_LOG reads it from there, so a process that finds the library
+    already built still sees every instantiation's registers and spills."""
+    import stat
+    (tmp_path / 'csrc').mkdir()
+    (tmp_path / 'csrc' / 'k.cu').write_text('// kernel\n')
+    report = "ptxas info    : Used 42 registers, used 1 barriers\n"
+    nvcc = tmp_path / 'nvcc'
+    # a stand-in compiler: writes the -o target and reports on stderr
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    f'echo built > "$2"\nprintf \'{report}\' >&2\n')
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, 'CSRC', tmp_path / 'csrc')
+    monkeypatch.setattr(_build, 'CACHE', tmp_path / 'cache')
+    monkeypatch.setattr(_build, '_nvcc', lambda: str(nvcc))
+    monkeypatch.setattr(_build, 'BUILD_LOG', {})
+    lib, = _build.build('k')
+    assert lib.read_text() == 'built\n'
+    assert _build.report_path('k') == lib.with_suffix('.ptxas.txt')
+    assert _build.report_path('k').read_text() == report
+    assert _build.BUILD_LOG == {'k': report}
+    # a second process: the library is cached, nvcc is not run again
+    monkeypatch.setattr(_build, 'BUILD_LOG', {})
+    monkeypatch.setattr(_build, '_nvcc', lambda: 1 / 0)
+    assert _build.build('k') == [lib]
+    assert _build.BUILD_LOG == {'k': report}
+    assert sorted(p.name for p in (tmp_path / 'cache').iterdir()) \
+        == sorted([lib.name, _build.report_path('k').name])
+
+
+def test_device_t_conorm_ids_match_python():
+    """csrc/pairmath.cuh's ids of the nine t-conorms equal config.py's, and
+    the render kernels' ALPHA_PARAMETRIC template value is none of them."""
+    import re
+    from gendr_tpu_torch import config as C
+    src = (_build.CSRC / 'pairmath.cuh').read_text()
+    consts = {name: int(val) for name, val in
+              re.findall(r'\b([A-Z][A-Z0-9_]*) = (\d+)\b', src)}
+    for name in ('HAMACHER_TCN', 'FRANK_TCN', 'YAGER_TCN',
+                 'ACZEL_ALSINA_TCN', 'DOMBI_TCN', 'SCHWEIZER_SKLAR_TCN'):
+        assert consts[name] == getattr(C, name), name
+    assert consts['ALPHA_PARAMETRIC'] not in C.AGGR_ALPHA_FUNC_MAP.values()
+    for kernel in ('rasterize_fwd.cu', 'rasterize_bwd.cu'):
+        text = (_build.CSRC / kernel).read_text()
+        assert text.count('launch<ALPHA_PARAMETRIC, MODE>') == 1
 
 
 def test_device_constants_match_python():

@@ -21,10 +21,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CASES, GRAD_AGREE, GRAD_ATOL, TEXTURE_CASES,
-                        agreement, check_kernels, flagship_cfg,
-                        flagship_scene, gendr_inputs, grads_through,
-                        panda_inputs, training_inputs)
+from chip_smoke import (CASES, GRAD_AGREE, GRAD_ATOL, T_CONORM_CASES,
+                        TEXTURE_CASES, agreement, check_kernels,
+                        flagship_cfg, flagship_scene, gendr_inputs,
+                        grads_through, panda_inputs, t_conorm_inputs,
+                        training_inputs)
 from gendr_tpu_torch import config as C, render
 from gendr_tpu_torch.raster import cuda_backend as CB
 
@@ -113,9 +114,14 @@ def test_render_on_cuda_launches_the_kernel_or_raises(cuda):
         assert CB.LAUNCHES['rasterize_fwd'] == launches + 1
         assert float((img - ref).abs().max()) <= IMG_ATOL
         launches += 1
-    with pytest.raises(ValueError, match='K1c'):
-        render(fv, tex, image_size=64, aggr_rgb_func='hard',
-               aggr_alpha_func='yager', aggr_alpha_t_conorm_p=2.0)
+    # a parametric fold (K1c) launches the kernel like any other family
+    kw = dict(image_size=64, aggr_rgb_func='hard', aggr_alpha_func='yager',
+              aggr_alpha_t_conorm_p=2.0)
+    img = render(fv, tex, **kw)
+    assert CB.LAUNCHES['rasterize_fwd'] == launches + 1
+    launches += 1
+    assert float((img - render(fv, tex, backend='torch', **kw)).abs().max()) \
+        <= IMG_ATOL
     _, big = flagship_scene(cuda, TS=49)
     with pytest.raises(ValueError, match='K1d'):
         render(fv, big, image_size=64)
@@ -254,3 +260,31 @@ def test_default_renderer_launches_each_kernel_once(cuda, texture_type):
         <= IMG_ATOL
     assert agreement(grads[None][2], grads['torch'][2]) > GRAD_AGREE
     assert float(grads[None][1].abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name,kw,p,ts', T_CONORM_CASES,
+                         ids=[c[0] for c in T_CONORM_CASES])
+def test_parametric_fold_kernels_match_plain(cuda, name, kw, p, ts):
+    # K1c/K2c: the six parametric t-conorms in alpha-only, hard-RGB and
+    # softmax-RGB renders, both kernels against their plain versions (the
+    # same serial fold order on both sides)
+    check_kernels(name, *t_conorm_inputs(kw, p, ts, cuda))
+
+
+@pytest.mark.cuda
+def test_probe_kernels_match_torch(cuda):
+    # both probe kernels over every case of the three tools: they agree
+    # with each other bitwise, and with torch on the card within the
+    # budget of the op's kind
+    from chip_smoke import within_ulp_budget
+    from gendr_tpu_torch.tools import _ulp
+    cases = _ulp.check_cases() + _ulp.bisect_cases() + _ulp.smem_cases()
+    launches = dict(_ulp.LAUNCHES)
+    for case in cases:
+        by_value = _ulp.run_case(case, 'ulp_elementwise')
+        by_vector = _ulp.run_case(case, 'ulp_param_vector')
+        assert by_value.cpu == by_vector.cpu, case.name
+        assert within_ulp_budget(by_value), (case.name, by_value.card)
+        assert within_ulp_budget(by_vector), (case.name, by_vector.card)
+    assert _ulp.LAUNCHES == {k: n + len(cases) for k, n in launches.items()}

@@ -236,8 +236,9 @@ def _tiny(device='cpu'):
     (dict(aggr_rgb_func='softmax', ts=49), 'K1d'),
 ])
 def test_cuda_backend_envelope_raises(kw, sub):
-    """backend='cuda' renders what its sub-kernel covers (K1b here, so on
-    the CPU its plain versions agree with the torch backend) and raises,
+    """backend='cuda' renders what its sub-kernels cover (K1b and K1c here,
+    so on the CPU its plain versions agree with the torch backend: the
+    serial fold against the butterfly's grouping, to 1e-5) and raises,
     naming the sub-kernel that will, for the rest; the plain backend
     renders every configuration."""
     fv, tex = _tiny()
@@ -250,7 +251,7 @@ def test_cuda_backend_envelope_raises(kw, sub):
         tex = torch.full((1, 5, 3, 3), 0.5)
     ref = render(fv, tex, image_size=16, backend='torch', **kw)
     assert ref.shape == (1, 4, 16, 16)
-    if sub == 'K1b':
+    if sub in ('K1b', 'K1c'):
         img = render(fv, tex, image_size=16, backend='cuda', **kw)
         np.testing.assert_allclose(img.numpy(), ref.numpy(), atol=1e-5)
     else:
@@ -331,22 +332,22 @@ def test_backward_runs_on_both_backends():
 
 
 def test_backward_raises_not_implemented():
-    """A configuration whose kernels are not implemented yet (a parametric
-    fold, K1c) raises ValueError on backend='cuda', in the forward and in
-    the backward alike; the plain backend differentiates it."""
-    fv, tex = _tiny()
+    """A configuration whose kernels are not implemented yet (49 texels
+    per face, K1d) raises ValueError on backend='cuda', in the forward and
+    in the backward alike; the plain backend differentiates it."""
+    fv, _ = _tiny()
+    tex = torch.rand((1, 5, 49, 3), generator=torch.Generator()
+                     .manual_seed(49))
     fv.requires_grad_(True)
     kw = dict(image_size=16, aggr_rgb_func='softmax', dist_func='logistic',
-              dist_scale=5e-2, face_chunk=8, aggr_alpha_func='yager',
-              aggr_alpha_t_conorm_p=2.0)
-    with pytest.raises(ValueError, match='K1c'):
+              dist_scale=5e-2, face_chunk=8)
+    with pytest.raises(ValueError, match='K1d'):
         render(fv, tex, backend='cuda', **kw)
     out = render(fv, tex, backend='torch', **kw)
     soft = out.detach()
     cfg = C.RenderConfig.create(backend='cuda', **{
-        k: v for k, v in kw.items()
-        if k not in ('dist_scale', 'aggr_alpha_t_conorm_p')})
-    with pytest.raises(ValueError, match='K1c'):
+        k: v for k, v in kw.items() if k != 'dist_scale'})
+    with pytest.raises(ValueError, match='K1d'):
         CB.backward_from_aux(fv, tex, None, soft, torch.zeros(1, 2, 16, 16),
                              torch.ones_like(soft), cfg,
                              C.RenderParams(dist_scale=5e-2).as_dict())

@@ -78,11 +78,11 @@ def test_regularizers_match_jax(average):
     assert LaplacianLoss(v, f).rows.numel() == 2 * (3 * f.shape[0] // 2)
 
 
-@pytest.fixture(scope='module')
-def jax_step():
+def _jax_step(extra=()):
     """The JAX experiment's train step (experiments/opt_shape.py:157-183)
-    on two views of its cube target at 24x24, with the xla backend."""
-    args = OS.parse_args(['-is', str(SIZE), '--device', 'cpu'])
+    on two views of its cube target at 24x24, with the xla backend; extra:
+    further opt_shape arguments, which both experiments' renderers read."""
+    args = OS.parse_args(['-is', str(SIZE), '--device', 'cpu', *extra])
     jmodel = JOS.ShapeModel(NV)
     lighting = gendr_tpu.Lighting()
     transform = gendr_tpu.LookAt(viewing_angle=15)
@@ -116,8 +116,33 @@ def jax_step():
                 new=as_np)
 
 
+@pytest.fixture(scope='module')
+def jax_step():
+    return _jax_step()
+
+
+@pytest.fixture(scope='module')
+def jax_step_yager():
+    return _jax_step(['--aggr-func', 'yager', '--t_conorm_p', '2'])
+
+
 @pytest.mark.parametrize('backend', ['torch', 'cuda'])
 def test_train_step_matches_jax(jax_step, backend):
+    _check_train_step(jax_step, backend)
+
+
+@pytest.mark.parametrize('backend', ['torch', 'cuda'])
+def test_train_step_with_a_parametric_fold_matches_jax(jax_step_yager,
+                                                       backend):
+    """opt_shape --aggr-func yager --t_conorm_p 2: through backend='cuda'
+    the plain versions of K1c's serial fold and K2c's aggregate-inverse
+    rule, against the JAX experiment's butterfly fold."""
+    args = jax_step_yager['args']
+    assert (args.aggr_func, args.t_conorm_p) == ('yager', 2.0)
+    _check_train_step(jax_step_yager, backend)
+
+
+def _check_train_step(jax_step, backend):
     exp = OS.ShapeExperiment(jax_step['args'], 'cpu', backend)
     exp.model = _port_model(jax_step['params'])
     eyes = torch.from_numpy(jax_step['eyes'])
