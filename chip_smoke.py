@@ -79,7 +79,25 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    three ULP tools against torch on the card and on the CPU, prints the
    table, and fails where a kernel and torch on the card differ by more
    than ULP_BUDGET;
-8. times the kernels against their plain versions beside their bounds, at
+8. drives the sharded paths, path (h): (h1) the forward and backward
+   kernels on row bands (K1e/K2e: two halves of the image and a ragged
+   band of rows 37-136) and on the two face halves a 2-way face split
+   gives (the second offset by its base_offset, with caller-padded faces)
+   against their plain versions, with phase 1's gates, on the flagship,
+   alpha-only, softmax RGB with 25 texels and yager p=2; the kernel's band
+   rows bitwise equal to its full render, the halves' carries merged
+   against the full render, the bands' gradients summed against the full
+   backward; (h2) ``gendr_tpu_torch.parallel.sharding`` in 4 processes on
+   the one card over gloo, mesh fp=2 x sp=2: the flagship and the default
+   GenDR's inputs (4 views at 512x512, softmax, 25 texels) through the
+   sharded render and loss.backward() against the unsharded render, every
+   rank launching both kernels; (h3) the dry run's IoU loss with Adam on
+   the 642-vertex template from 24 views at 64x64 over dp=2 x fp=2 for 10
+   steps: the loss falls and the first gradient agrees with the unsharded
+   step's; and the ``backend='torch'`` 1536x1536 frame of phase 4b under
+   16 GiB of device memory;
+9. times the kernels against their plain versions beside their bounds, at
+   a 128-row band and a face half of the flagship (K1e/K2e),
    the flagship (hard RGB, and softmax RGB with one texel), at the panda
    frame and at the default GenDR's shapes (surface and vertex textures),
    a yager panda_tcn frame at tau 1e-2 and tau 1 and path (d)'s render
@@ -158,6 +176,27 @@ VOXEL_SIZES = (32, 64)
 VOXEL_SHELL, VOXEL_TOL = 0.7, 0.05
 # path (g)
 CAMERA_ARGS = ['--quick', '--device', 'cuda']
+# path (h): the sharded render.  Row bands of the flagship (two halves of
+# the image and a ragged band whose last tile row is cut), on the flagship
+# and on alpha-only, softmax (25 texels) and yager p=2 variants (name,
+# RenderConfig keywords, p, texels per face); the ranks of one card, each
+# its own process; and (h3)'s training: dp=2 x fp=2 over 24 views at 64x64
+# of the 642-vertex template, 10 Adam steps at the dry run's lr
+BANDS = ((0, 128), (128, 128), (37, 100))
+BAND_CASES = [('flagship', {}, 0.0, 1),
+              ('alpha', dict(channels='alpha'), 0.0, 1),
+              ('softmax25', dict(aggr_rgb_func='softmax'), 0.0, 25),
+              ('yager', dict(aggr_alpha_func='yager'), 2.0, 1)]
+SHARD_RANKS = 4
+SHARD_VIEWS, SHARD_SIZE, SHARD_STEPS, SHARD_LR = 24, 64, 10, 1e-2
+SHARD_TIMEOUT = 300  # seconds the ranks of (h2) and (h3) may take
+# (h3)'s first sharded gradient against the unsharded one: the largest
+# norm-relative error (the gradient's entries are ~1e-2, where GRAD_ATOL
+# alone would pass a lost share of a face shard)
+SHARD_GRAD_REL = 1e-4
+# the backend='torch' frame of phase 4b peaked at 52.6 GiB before its
+# pixel bands (torch_backend.PAIR_BUDGET); above this it fails
+TORCH_PEAK_GIB = 16.0
 # the card's peaks (NVIDIA's H100 SXM data sheet, at a 700 W power limit):
 # float32 outside the tensor cores and HBM bandwidth
 H100_FP32_FLOPS, H100_HBM_BYTES = 67e12, 3.35e12
@@ -308,16 +347,17 @@ def grads_through(cfg, params, fv, tex, kernel, aux=None):
     from gendr_tpu_torch.raster import cuda_backend as CB
     aux = aux or CB.prepass(fv, tex, cfg, params)
     TS = tex.shape[2]
+    band = (aux['row0'], aux['height'])
     fwd = CB.rasterize_fwd if kernel else CB.rasterize_fwd_plain
     bwd = CB.rasterize_bwd if kernel else CB.rasterize_bwd_plain
     out = fwd(aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
-              aux['perm'], cfg, TS)
+              aux['perm'], cfg, TS, *band)
     soft, aggrs = CB._finalize_soa(out, cfg, params)
     # d loss / d soft_colors
     g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]], dim=1)
     pix = CB.pixel_columns(soft, aggrs, g, cfg)
     rows = bwd(aux['chunk_counts'], aux['chunk_ids'], aux['par'],
-               aux['packed'], aux['perm'], pix, cfg, TS)
+               aux['packed'], aux['perm'], pix, cfg, TS, *band)
     return CB.unpermute_grads(rows, aux['perm'], tex, cfg)
 
 
@@ -330,17 +370,17 @@ def agreement(got, want):
 
 
 def check_kernels(name, cfg, params, fv, tex, aux=None):
-    """Each kernel against its plain version on one input: the image, the
-    winner ids (hard RGB: none may differ), the gradient of each side
-    through its own forward, and the backward kernel twice, bitwise equal.
-    Prints one line and raises on a failed gate; returns (img_err,
-    grad_err)."""
+    """Each kernel against its plain version on one input (the band of
+    rows and the faces its prepass aux holds): the image, the winner ids
+    (hard RGB: none may differ), the gradient of each side through its own
+    forward, and the backward kernel twice, bitwise equal.  Prints one line
+    and raises on a failed gate; returns (img_err, grad_err)."""
     import torch
     from gendr_tpu_torch import config as C
     from gendr_tpu_torch.raster import cuda_backend as CB
     aux = aux or CB.prepass(fv, tex, cfg, params)
     args = (aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
-            aux['perm'], cfg, tex.shape[2])
+            aux['perm'], cfg, tex.shape[2], aux['row0'], aux['height'])
     got_k = CB.rasterize_fwd(*args)
     got_p = CB.rasterize_fwd_plain(*args)
     torch.cuda.synchronize()
@@ -350,8 +390,10 @@ def check_kernels(name, cfg, params, fv, tex, aux=None):
     alpha = soft_p[:, 3]
     partial = float(((alpha > 0) & (alpha < 1)).float().mean())
     B, size = fv.shape[0], cfg.image_size
-    line = (f'[kernel vs plain] {name:11s} B={B} {size}x{size} '
-            f'TS={tex.shape[2]}: img_err={img_err:.3g} '
+    rows = '' if aux['height'] == size else \
+        f' rows {aux["row0"]}+{aux["height"]}'
+    line = (f'[kernel vs plain] {name:11s} B={B} {size}x{size}{rows} '
+            f'F={fv.shape[1]} TS={tex.shape[2]}: img_err={img_err:.3g} '
             f'alpha_err={float((soft_k[:, 3] - alpha).abs().max()):.3g} '
             f'alpha_partial={partial:.4f}')
     if CB.render_mode(cfg) == CB.MODE_HARD:
@@ -740,15 +782,21 @@ def panda_frame_vs_torch():
         imgs[backend + '_peak'] = peak
     err = float((imgs['cuda'] - imgs['torch']).abs().max())
     alpha = imgs['cuda'][0, 3]
+    torch_peak = imgs['torch_peak']
     print(f'[panda frame] uniform tau 1e-2, 1536x1536 render: img_err vs '
           f'backend=torch {err:.3g}, coverage '
           f'{float((alpha > 0.5).float().mean()):.4f}, peak device memory '
-          f'cuda {imgs["cuda_peak"]:.2f} GiB, torch '
-          f'{imgs["torch_peak"]:.2f} GiB', flush=True)
+          f'(max_memory_allocated) cuda {imgs["cuda_peak"]:.2f} GiB, torch '
+          f'{torch_peak:.2f} GiB in bands of PAIR_BUDGET pair elements '
+          f'(52.6 GiB in one step before; gate {TORCH_PEAK_GIB} GiB)',
+          flush=True)
     del imgs
     torch.cuda.empty_cache()
     if not err < IMG_TOL:
         raise AssertionError(f'panda frame vs torch backend: {err}')
+    if not torch_peak < TORCH_PEAK_GIB:
+        raise AssertionError(f'backend=torch peaked at {torch_peak} GiB')
+    return torch_peak
 
 
 def tcn_path():
@@ -1066,7 +1114,7 @@ def voxel_path():
         torch.cuda.synchronize()
         ms[vs] = 1e3 * (time.perf_counter() - t0)
         t0 = time.perf_counter()
-        cpu = G.Mesh.create(v * 0.4, f).voxelize(vs)
+        cpu = G.Mesh.create(v * 0.4, f, device='cpu').voxelize(vs)
         cpu_ms = 1e3 * (time.perf_counter() - t0)
         differ = int((vox.cpu() != cpu).sum())
         solid = int(vox.sum())
@@ -1130,6 +1178,375 @@ def camera_path():
     return launches, rec['seconds']
 
 
+def face_halves(cfg, fv, tex):
+    """The two face shards a 2-way face split gives: (face vertices,
+    textures, fvalid, base_offset) each; the second carries a chunk of
+    padding faces that its fvalid marks invalid, as render_sharded pads."""
+    import torch
+    F = fv.shape[1]
+    h, pad = F // 2, cfg.face_chunk
+    fv1 = torch.cat([fv[:, h:], torch.zeros_like(fv[:, :pad])], 1)
+    tex1 = torch.cat([tex[:, h:], torch.zeros_like(tex[:, :pad])], 1)
+    return [(fv[:, :h], tex[:, :h], None, 0),
+            (fv1, tex1, torch.arange(F - h + pad, device=fv.device) < F - h,
+             h)]
+
+
+def shard_parts(cfg, params, fv, tex, n_fp, n_sp):
+    """The kernel inputs of each rank of an n_fp x n_sp split of one scene,
+    as render_sharded makes them: (label, face vertices, textures, prepass
+    aux) of face shard i (padded, with its fvalid) over row band j."""
+    from gendr_tpu_torch.parallel import sharding as S
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    hb = cfg.image_size // n_sp
+    parts = []
+    for i in range(n_fp):
+        f, t, v, _ = S._face_shard(fv, tex, cfg, n_fp, i)
+        for j in range(n_sp):
+            band = (j * hb, hb) if n_sp > 1 else None
+            parts.append((f'fp{i}/{n_fp} sp{j}/{n_sp}', f, t,
+                          CB.prepass(f, t, cfg, params, v, band)))
+    return parts
+
+
+def band_parts(cfg, params, fv, tex):
+    """Path (h1)'s kernel inputs of one scene: (label, face vertices,
+    textures, prepass aux) for each row band of BANDS over all faces, for
+    each of the two face_halves over all rows, and for each rank's band of
+    a face shard of path (h2)'s fp=2 x sp=2 split."""
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    parts = [(f'rows {r0}+{hb}', fv, tex,
+              CB.prepass(fv, tex, cfg, params, row_band=(r0, hb)))
+             for r0, hb in BANDS]
+    parts += [(f'half {i}', f, t, CB.prepass(f, t, cfg, params, v))
+              for i, (f, t, v, _) in enumerate(face_halves(cfg, fv, tex))]
+    return parts + shard_parts(cfg, params, fv, tex, 2, 2)
+
+
+def rank_inputs():
+    """The kernel inputs of every rank of (h2)'s default-GenDR scene
+    (fp=2 x sp=2) and of (h3)'s first step (dp=2 x fp=2): (label, cfg,
+    params, face vertices, textures, prepass aux)."""
+    from gendr_tpu_torch.parallel import sharding as S
+    name, cfg, params, fv, tex = next(iter(gendr_inputs()))
+    for label, f, t, aux in shard_parts(cfg, params, fv, tex, 2, 2):
+        yield f'{name} {label}', cfg, params, f, t, aux
+    cfg, params, base_v, faces, eyes_all = train_scene('cuda')
+    fv, tex = S.silhouette_inputs(base_v, faces, eyes_all)
+    b = SHARD_VIEWS // 2
+    for d in range(2):
+        for label, f, t, aux in shard_parts(cfg, params, fv[d * b:(d + 1) * b],
+                                            tex[d * b:(d + 1) * b], 2, 1):
+            yield f'train dp{d}/2 {label}', cfg, params, f, t, aux
+
+
+def band_phase():
+    """Path (h1): K1e and K2e against their plain versions on row bands,
+    face halves and the sharded ranks' bands of face shards of the
+    flagship and its variants (BAND_CASES), and on the inputs every rank of
+    paths (h2) and (h3) launches them on (rank_inputs), with the gates of
+    phase 1; then, kernels alone: each band's rows bitwise equal
+    to the full render's, the two halves' carries (the second offset by
+    its base_offset) merged after the background against the full render,
+    and the bands' gradients summed against the full backward.  Returns the
+    largest image and gradient errors against the plain versions."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    from gendr_tpu_torch.raster import torch_backend as TB
+    worst_img = worst_grad = 0.0
+    for name, cfg, params, f, t, aux in rank_inputs():
+        img_err, grad_err = check_kernels(name, cfg, params, f, t, aux)
+        worst_img = max(worst_img, img_err)
+        worst_grad = max(worst_grad, grad_err)
+    for name, kw, p, ts in BAND_CASES:
+        cfg, params, fv, tex = t_conorm_inputs(kw, p, ts)
+        halves = face_halves(cfg, fv, tex)
+        for label, f, t, aux in band_parts(cfg, params, fv, tex):
+            img_err, grad_err = check_kernels(f'{name} {label}', cfg, params,
+                                              f, t, aux)
+            worst_img = max(worst_img, img_err)
+            worst_grad = max(worst_grad, grad_err)
+        B, S = fv.shape[0], cfg.image_size
+        full, _ = CB.forward_partial(fv, tex, cfg, params)
+        differ = 0
+        for r0, hb in BANDS:
+            band, _ = CB.forward_partial(fv, tex, cfg, params,
+                                         row_band=(r0, hb))
+            pix = slice(r0 * S, (r0 + hb) * S)
+            differ += sum(int((a != b[:, pix]).sum())
+                          for a, b in zip(band, full))
+        soft, aggrs = CB.forward(fv, tex, cfg, params)
+        P = S * S
+        bg = params['background_color'].cuda().reshape(1, 1, 3) \
+            .expand(B, P, 3)
+        merged = TB.background_carry(B, P, bg, cfg, params)
+        for f, t, v, off in halves:
+            carry, _ = CB.forward_partial(f, t, cfg, params, base_offset=off,
+                                          fvalid=v)
+            merged = TB.merge_carries(merged, carry, cfg, params)
+        msoft, maggrs = TB.finalize(merged, cfg)
+        merge_err = float((msoft - soft).abs().max())
+        line = (f'[bands] {name}: band rows differing bitwise from the full '
+                f'render {differ}; merged face halves vs full render '
+                f'img_err={merge_err:.3g}')
+        if CB.render_mode(cfg) == CB.MODE_HARD:
+            covered = (maggrs[:, 1] >= 0) | (aggrs[:, 1] >= 0)
+            ids = float((maggrs[:, 1] == aggrs[:, 1])[covered].float()
+                        .mean())
+            line += f' winner ids agree {ids:.6f}'
+        else:
+            ids = 1.0
+        g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]], 1)
+        want = CB.backward_from_aux(fv, tex, None, soft, aggrs, g, cfg,
+                                    params)
+        got = None
+        for r0, hb in BANDS[:2]:
+            rows = slice(r0, r0 + hb)
+            gb = CB.backward_from_aux(
+                fv, tex, None, soft[:, :, rows].contiguous(),
+                aggrs[:, :, rows].contiguous(), g[:, :, rows].contiguous(),
+                cfg, params, row_band=(r0, hb))
+            got = gb if got is None else tuple(a + b for a, b in zip(got, gb))
+        torch.cuda.synchronize()
+        agree = [agreement(a, b) for a, b in zip(got, want)]
+        line += (f'; summed band gradients vs full backward: '
+                 f'grad_agree={agree[0]:.6f} texgrad_agree={agree[1]:.6f} '
+                 f'max_err={float((got[0] - want[0]).abs().max()):.3g}')
+        print(line, flush=True)
+        if differ or not merge_err < IMG_TOL or ids < WINNER_AGREE \
+                or min(agree) <= GRAD_AGREE:
+            raise AssertionError(f'bands {name}: {line}')
+    return worst_img, worst_grad
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def _render_loss(img):
+    return 0.5 * (img[:, 3] ** 2).sum() + 0.1 * img[:, :3].sum()
+
+
+def _sharded_render_rank(scenes, device):
+    """(h2) in one rank: each scene through render_sharded's autograd
+    (fp=2 x sp=2) and loss.backward(), against the unsharded
+    backend='cuda' render on the same card."""
+    import torch
+    from gendr_tpu_torch.parallel import sharding as S
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    from gendr_tpu_torch.raster.render import _Render
+    mesh = S.make_mesh({'fp': 2, 'sp': 2})
+    out = {}
+    for name, cfg, params, fv, tex in scenes:
+        fv, tex = fv.to(device), tex.to(device)
+        render_fn = S.make_sharded_render(cfg, mesh, None, 'fp', 'sp')
+        runs = []
+        for _ in range(3):  # launches from the first, times from the others
+            for k in CB.LAUNCHES:
+                CB.LAUNCHES[k] = 0
+            c0 = S.collective_seconds()
+            fvg = fv.clone().requires_grad_(True)
+            texg = tex.clone().requires_grad_(True)
+            _sync(device)
+            t0 = time.perf_counter()
+            img = render_fn(fvg, texg, params)
+            _render_loss(img).backward()
+            _sync(device)
+            runs.append((1e3 * (time.perf_counter() - t0),
+                         1e3 * (S.collective_seconds() - c0),
+                         dict(CB.LAUNCHES)))
+        fvr = fv.clone().requires_grad_(True)
+        texr = tex.clone().requires_grad_(True)
+        ref = _Render.apply(fvr, texr, cfg, params)
+        _render_loss(ref).backward()
+        _sync(device)
+        out[name] = dict(
+            shape=tuple(img.shape),
+            img_err=float((img.detach() - ref.detach()).abs().max()),
+            finite=bool(torch.isfinite(img).all()
+                        and torch.isfinite(fvg.grad).all()),
+            grad_agree=agreement(fvg.grad, fvr.grad),
+            texgrad_agree=agreement(texg.grad, texr.grad),
+            grad_scale=float(fvr.grad.abs().max()),
+            ms=[r[0] for r in runs[1:]], collective_ms=[r[1] for r in runs[1:]],
+            launches=runs[0][2])
+    return out
+
+
+def train_scene(device):
+    """(h3)'s scene: (cfg, params, template vertices [1, 642, 3], faces
+    [1, 1280, 3], SHARD_VIEWS eyes) of the dry run's loss at SHARD_SIZE^2."""
+    import torch
+    from gendr_tpu_torch import config as C, data
+    from gendr_tpu_torch.parallel import sharding as S
+    v, f = data.icosphere(3)
+    cfg = C.RenderConfig.create(image_size=SHARD_SIZE, dist_func='uniform',
+                                aggr_alpha_func='probabilistic',
+                                aggr_rgb_func='hard', backend='cuda')
+    params = C.RenderParams(dist_scale=3e-2, dist_eps=1e2).as_dict()
+    return (cfg, params, torch.as_tensor(v, device=device)[None] * 0.5,
+            torch.as_tensor(f, device=device)[None],
+            torch.as_tensor(S.dryrun_eyes(SHARD_VIEWS), device=device))
+
+
+def _sharded_train_rank(device):
+    """(h3) in one rank: SHARD_STEPS steps of the dry run's IoU loss with
+    Adam on a displacement of the 642-vertex template over dp=2 x fp=2 from
+    SHARD_VIEWS views at SHARD_SIZE^2, against a target of the template at
+    0.8 its size; the first step's gradient against the unsharded step's
+    (all views, backend='cuda')."""
+    import torch
+    from gendr_tpu_torch.parallel import sharding as S
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    from gendr_tpu_torch.raster.render import _Render
+    mesh = S.make_mesh({'dp': 2, 'fp': 2})
+    cfg, params, base_v, faces, eyes_all = train_scene(device)
+
+    def unsharded(fv, tex, p):
+        return _Render.apply(fv, tex, cfg, p)
+    with torch.no_grad():
+        target_all = unsharded(*S.silhouette_inputs(base_v * 0.8, faces,
+                                                    eyes_all), params)[:, 3]
+    d0 = torch.zeros_like(base_v, requires_grad=True)
+    S.silhouette_loss(unsharded, params, base_v + d0, faces, eyes_all,
+                      target_all).backward()
+    eyes, target = S.shard_batch((eyes_all, target_all), mesh)
+    render_fn = S.make_sharded_render(cfg, mesh, 'dp', 'fp')
+    displace = torch.zeros_like(base_v, requires_grad=True)
+    opt = torch.optim.Adam([displace], lr=SHARD_LR)
+    for k in CB.LAUNCHES:
+        CB.LAUNCHES[k] = 0
+    losses, step_ms, coll_ms = [], [], []
+    for i in range(SHARD_STEPS):
+        c0 = S.collective_seconds()
+        _sync(device)
+        t0 = time.perf_counter()
+        losses.append(S.train_step(lambda: S.silhouette_loss(
+            render_fn, params, base_v + displace, faces, eyes, target),
+            opt, displace, mesh))
+        _sync(device)
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        coll_ms.append(1e3 * (S.collective_seconds() - c0))
+        if i == 0:
+            g0 = displace.grad.clone()
+    return dict(losses=losses, step_ms=step_ms, collective_ms=coll_ms,
+                launches=dict(CB.LAUNCHES),
+                grad_agree=agreement(g0, d0.grad),
+                grad_rel=float((g0 - d0.grad).norm() / d0.grad.norm()),
+                grad_scale=float(d0.grad.abs().max()))
+
+
+def _shard_rank(rank, world, init_file, out_dir, scenes, device):
+    """One rank of paths (h2) and (h3): gloo over the default group, every
+    rank on the one card; saves its results to out_dir."""
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(2)
+    dist.init_process_group('gloo', init_method=f'file://{init_file}',
+                            world_size=world, rank=rank)
+    try:
+        res = dict(render=_sharded_render_rank(scenes, device),
+                   train=_sharded_train_rank(device))
+        torch.save(res, os.path.join(out_dir, f'rank{rank}.pt'))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(opt_shape_steps, scenes=None, device='cuda'):
+    """Paths (h2) and (h3): SHARD_RANKS ranks on the one card, gloo.
+    (h2): the flagship (256x256, 1280 faces, hard RGB) and the default
+    GenDR's inputs (4 views at 512x512, softmax, 25 texels) through the
+    sharded render and its gradient on fp=2 x sp=2, against the unsharded
+    backend='cuda' render; every rank must launch both kernels.  (h3): the
+    sharded training step; its loss must fall and its first gradient agree
+    with the unsharded step's (grad_agree and SHARD_GRAD_REL).  Returns the launches of each path summed
+    over the ranks and the timings.  scenes: (name, cfg, params, face
+    vertices, textures) of (h2) in place of those two."""
+    import tempfile
+    import torch
+    from gendr_tpu_torch import config as C
+    from gendr_tpu_torch.parallel import sharding as S
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    if scenes is None:
+        fv, tex = flagship_scene('cuda')
+        scenes = [('flagship', flagship_cfg(), C.RenderParams(
+            dist_scale=1e-2).as_dict(), fv.cpu(), tex.cpu())]
+        _, cfg, params, gfv, gtex = next(iter(gendr_inputs()))
+        scenes.append(('gendr', cfg, params, gfv.cpu(), gtex.cpu()))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        S.spawn_ranks(_shard_rank, SHARD_RANKS,
+                      (SHARD_RANKS, os.path.join(out_dir, 'init'), out_dir,
+                       scenes, device), SHARD_TIMEOUT)
+        ranks = [torch.load(os.path.join(out_dir, f'rank{r}.pt'),
+                            weights_only=False) for r in range(SHARD_RANKS)]
+    seconds = time.perf_counter() - t0
+    launches = {'sharded': {k: 0 for k in CB.LAUNCHES},
+                'sharded_training': {k: 0 for k in CB.LAUNCHES}}
+    failed = []
+    for scene, *_ in scenes:
+        res = [r['render'][scene] for r in ranks]
+        for r in res:
+            for k, n in r['launches'].items():
+                launches['sharded'][k] += n
+        print(f'[sharded render] {scene} {res[0]["shape"]}, fp=2 x sp=2 on '
+              f'{SHARD_RANKS} ranks of one card (gloo), forward + '
+              f'loss.backward() vs the unsharded backend=cuda render: '
+              f'img_err {[r["img_err"] for r in res]}, grad_agree '
+              f'{[round(r["grad_agree"], 6) for r in res]}, texgrad_agree '
+              f'{[round(r["texgrad_agree"], 6) for r in res]}, grad_scale '
+              f'{res[0]["grad_scale"]:.3g}; launches per rank '
+              f'{[r["launches"] for r in res]}; forward + backward ms per '
+              f'rank (host clock, synchronized; 2 runs after a warm-up) '
+              f'{[[round(x, 3) for x in r["ms"]] for r in res]}, of them '
+              f'collectives (CUDA events) {[[round(x, 3) for x in r["collective_ms"]] for r in res]}',
+              flush=True)
+        for r in res:
+            if not (r['finite'] and r['img_err'] < IMG_TOL
+                    and r['grad_agree'] > GRAD_AGREE
+                    and r['texgrad_agree'] > GRAD_AGREE
+                    and all(n >= 1 for n in r['launches'].values())):
+                failed.append(scene)
+    train = [r['train'] for r in ranks]
+    for r in train:
+        for k, n in r['launches'].items():
+            launches['sharded_training'][k] += n
+    t = train[0]
+    shard_med = float(np.median(t['step_ms'][1:]))
+    coll_med = float(np.median(t['collective_ms'][1:]))
+    opt_med = 1e3 * float(np.median(opt_shape_steps[1:]))
+    print(f'[sharded training] dry run loss (1 - IoU), Adam lr {SHARD_LR}, '
+          f'642-vertex template (1280 faces), {SHARD_VIEWS} views at '
+          f'{SHARD_SIZE}x{SHARD_SIZE}, dp=2 x fp=2 on {SHARD_RANKS} ranks: '
+          f'loss {t["losses"][0]:.6f} at step 1, {t["losses"][-1]:.6f} at '
+          f'step {SHARD_STEPS}; first gradient vs the unsharded step: '
+          f'grad_agree {[round(r["grad_agree"], 6) for r in train]}, '
+          f'norm-relative error {[r["grad_rel"] for r in train]}, scale '
+          f'{t["grad_scale"]:.3g}; median step {shard_med:.3f} ms (host '
+          f'clock, synchronized) of which collectives {coll_med:.3f} ms '
+          f'(CUDA events), '
+          f'beside opt_shape\'s {opt_med:.3f} ms (phase 3, one process); '
+          f'launches per rank {[r["launches"] for r in train]}; '
+          f'{seconds:.1f} s for (h2) + (h3) with the ranks\' start',
+          flush=True)
+    if any(r['losses'] != t['losses'] for r in train):
+        failed.append('ranks took different steps')
+    if not t['losses'][-1] < t['losses'][0]:
+        failed.append(f'loss did not fall: {t["losses"]}')
+    if not all(r['grad_agree'] > GRAD_AGREE
+               and r['grad_rel'] < SHARD_GRAD_REL for r in train):
+        failed.append('first gradient')
+    if not all(n >= 1 for r in train for n in r['launches'].values()):
+        failed.append('a training rank launched no kernel')
+    if failed:
+        raise AssertionError(f'sharded paths: {failed}')
+    return launches, dict(step_ms=shard_med, collective_ms=coll_med,
+                          render_ms={s[0]: ranks[0]['render'][s[0]]['ms']
+                                     for s in scenes})
+
+
 def _median_ms(fn, reps, warmup=3):
     import torch
     for _ in range(warmup):
@@ -1151,19 +1568,23 @@ def gated_pairs(aux, cfg):
     """(pixel, face) pairs inside each valid face's bbox + cull margin,
     the pairs both kernels run the pair math on, counted from the packed
     bbox rows: per face, the pixel centres in its x range times those in
-    its y range."""
+    its y range, over the rows of the aux's band."""
     import torch
     from gendr_tpu_torch.raster import pack, pairmath as PM
     pk = aux['packed'].double()
     m = float(aux['par'][PM.P_MARGIN])
     is_ = cfg.image_size
+    # row r has the y centre index is - 1 - r
+    ylo, yhi = is_ - aux['row0'] - aux['height'], is_ - 1 - aux['row0']
 
-    def centres(lo, hi):  # pixel centres (2c + 1 - is) / is in [lo, hi]
-        a = torch.ceil(((lo - m) * is_ + is_ - 1) / 2).clamp(0, is_)
-        b = torch.floor(((hi + m) * is_ + is_ - 1) / 2).clamp(-1, is_ - 1)
+    def centres(lo, hi, first=0, last=is_ - 1):
+        # centre indices c in [first, last] with (2c + 1 - is) / is in
+        # [lo - m, hi + m]
+        a = torch.ceil(((lo - m) * is_ + is_ - 1) / 2).clamp(first, last + 1)
+        b = torch.floor(((hi + m) * is_ + is_ - 1) / 2).clamp(first - 1, last)
         return (b - a + 1).clamp(min=0)
     nx = centres(pk[:, pack.R_BBOX + 0], pk[:, pack.R_BBOX + 1])
-    ny = centres(pk[:, pack.R_BBOX + 2], pk[:, pack.R_BBOX + 3])
+    ny = centres(pk[:, pack.R_BBOX + 2], pk[:, pack.R_BBOX + 3], ylo, yhi)
     return float((nx * ny * (pk[:, pack.R_FVALID] > 0)).sum())
 
 
@@ -1194,18 +1615,20 @@ def _input_bytes(tensors, packed, cfg, pairs):
 
 
 def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
-                 plain=(3, 1)):
+                 plain=(3, 1), fvalid=None, row_band=None):
     """Medians of each kernel (CUDA events, reps launches) and of its plain
-    version (plain = (calls, warm-up calls)), beside its bound.  Prints one
-    line; returns {kernel: dict}."""
+    version (plain = (calls, warm-up calls)), beside its bound, on the
+    faces fvalid marks and the rows of row_band (K1e/K2e; None: all).
+    Prints one line; returns {kernel: dict}."""
     import torch
     from gendr_tpu_torch.raster import cuda_backend as CB
-    aux = CB.prepass(fv, tex, cfg, params)
+    aux = CB.prepass(fv, tex, cfg, params, fvalid, row_band)
     TS = tex.shape[2]
     mode = CB.render_mode(cfg)
     pairs = gated_pairs(aux, cfg)
+    band = (aux['row0'], aux['height'])
     args = (aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
-            aux['perm'], cfg, TS)
+            aux['perm'], cfg, TS, *band)
     out = CB.rasterize_fwd(*args)
     fwd_flops, bwd_flops = flops_per_pair(cfg, mode)
     res = {'rasterize_fwd': dict(
@@ -1218,7 +1641,7 @@ def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
         g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]], 1)
         pix = CB.pixel_columns(soft, aggrs, g, cfg)
         bargs = (aux['chunk_counts'], aux['chunk_ids'], aux['par'],
-                 aux['packed'], aux['perm'], pix, cfg, TS)
+                 aux['packed'], aux['perm'], pix, cfg, TS, *band)
         rows = CB.rasterize_bwd(*bargs)
         res['rasterize_bwd'] = dict(
             ms=_median_ms(lambda: CB.rasterize_bwd(*bargs), reps),
@@ -1231,9 +1654,10 @@ def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
              f'bound {r["bound"][0]:.4f} ms ({r["bound"][1]})'
              for k, r in res.items()]
     B = fv.shape[0]
+    rows = '' if row_band is None else f' rows {band[0]}+{band[1]}'
     print(f'[timing] {smi}: {name} (B={B}, {cfg.image_size}x'
-          f'{cfg.image_size}, TS={TS}, {pairs:.6g} gated pairs, medians of '
-          f'{reps}): ' + '; '.join(parts), flush=True)
+          f'{cfg.image_size}{rows}, F={fv.shape[1]}, TS={TS}, {pairs:.6g} '
+          f'gated pairs, medians of {reps}): ' + '; '.join(parts), flush=True)
     return res
 
 
@@ -1275,6 +1699,7 @@ def timings(smi, cuda_steps, yager_steps, obj_file, reps=50):
     import torch
     from gendr_tpu_torch import config as C, render
     from gendr_tpu_torch.animations import panda_dist as PD
+    from gendr_tpu_torch.parallel import sharding as S
     fv, tex = flagship_scene('cuda')
     kw = dict(image_size=256, dist_func='uniform', dist_scale=1e-2,
               aggr_alpha_func='probabilistic', aggr_rgb_func='hard')
@@ -1364,6 +1789,22 @@ def timings(smi, cuda_steps, yager_steps, obj_file, reps=50):
     finally:
         del os.environ['GENDR_PANDA_OBJ']
     kt = {}
+    # the sharded slice (K1e/K2e): a 128-row band of the flagship over all
+    # faces, its first face half over all rows, and what each rank of path
+    # (h2)'s fp=2 x sp=2 split launches: a 128-row band of a 640-face shard
+    cfg = flagship_cfg()
+    kt['flagship band 128'] = time_kernels(
+        smi, 'flagship band 128', cfg, params, fv, tex, reps,
+        row_band=(128, 128))
+    hfv, htex, _, _ = face_halves(cfg, fv, tex)[0]
+    kt['flagship fp half'] = time_kernels(
+        smi, 'flagship fp half', cfg, params, hfv, htex, reps)
+    for i in range(2):
+        sfv, stex, valid, _ = S._face_shard(fv, tex, cfg, 2, i)
+        for j in range(2):
+            name = f'flagship shard fp{i} sp{j}'
+            kt[name] = time_kernels(smi, name, cfg, params, sfv, stex, reps,
+                                    fvalid=valid, row_band=(128 * j, 128))
     for name, cfg, params, sfv, stex in shapes:
         panda = name.startswith(('panda', 'tcn', 'obj panda'))
         kt[name] = time_kernels(smi, name, cfg, params, sfv, stex, reps,
@@ -1417,8 +1858,13 @@ def main():
         obj_file = make_obj(obj_dir)
         save_ms = 1e3 * (time.perf_counter() - t0)
         img_err, grad_err = compare_kernels(obj_file)
+        band_img_err, band_grad_err = band_phase()
+        img_err = max(img_err, band_img_err)
+        grad_err = max(grad_err, band_grad_err)
         by_path = dict(render=render_path())
         by_path['training'], cuda_steps = training_path()
+        sharded, shard_times = sharded_phase(cuda_steps)
+        by_path.update(sharded)
         by_path['panda'], _ = panda_path()
         panda_frame_vs_torch()
         for texture_type, launches in gendr_default_path().items():
@@ -1448,16 +1894,18 @@ def main():
                     ulp_elementwise='tools/ulp_check.py:47 and '
                     'tools/ulp_bisect.py:36',
                     ulp_param_vector='tools/ulp_smem.py:37')
-    envelopes = dict(rasterize_fwd='K1a+K1b+K1c+K1d',
-                     rasterize_bwd='K2a+K2b+K2c+K2d',
+    envelopes = dict(rasterize_fwd='K1a+K1b+K1c+K1d+K1e',
+                     rasterize_bwd='K2a+K2b+K2c+K2d+K2e',
                      ulp_elementwise='probe', ulp_param_vector='probe')
-    # each kernel's numbers at the shape of the big-texture slice's main
-    # path: the default GenDR on the OBJ's mesh at 256 texels per face for
-    # both render kernels, the yager fold for the probes; the earlier
-    # slices' are in by_shape
-    obj_shape = f'obj gendr softmax TS={OBJ_TEXTURE_RES ** 2}'
-    main_shape = dict(rasterize_fwd=obj_shape, rasterize_bwd=obj_shape,
-                      ulp_elementwise='probes', ulp_param_vector='probes')
+    # each kernel's numbers at the shape of the sharded slice's main path:
+    # for both render kernels, the flagship's rank of path (h2) that the
+    # kernel takes longest on (a 128-row band of a 640-face shard; the
+    # step waits for the slowest rank), the yager fold for the probes; the
+    # other shapes are in by_shape
+    ranks = [k for k in kt if k.startswith('flagship shard ')]
+    main_shape = dict(ulp_elementwise='probes', ulp_param_vector='probes',
+                      **{name: max(ranks, key=lambda k: kt[k][name]['ms'])
+                         for name in ('rasterize_fwd', 'rasterize_bwd')})
     by_path['probes'] = probe_launches
 
     def numbers(r):
@@ -1473,7 +1921,9 @@ def main():
         'max_abs_err': errs[name], 'shape': main_shape[name],
         **numbers(kt[main_shape[name]][name]), 'library_ms': None,
         'by_shape': {shape: numbers(r[name]) for shape, r in kt.items()
-                     if name in r}} for name in sources]}))
+                     if name in r}} for name in sources],
+        'sharded_step_ms': shard_times['step_ms'],
+        'sharded_collective_ms': shard_times['collective_ms']}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -57,17 +57,17 @@ _F = ctypes.c_float
 SIGNATURES = {
     'rasterize_fwd': {
         # tile_counts tile_ids kcap par packed perm out, then B NI Fp FC
-        # image_size dist_func dist_squared alpha_func mode double_side
-        # texture_type texture_res device, then stream
-        'gendr_rasterize_fwd': ((_P, _P, _I, _P, _P, _P, _P) + (_I,) * 13
+        # image_size row0 height dist_func dist_squared alpha_func mode
+        # double_side texture_type texture_res device, then stream
+        'gendr_rasterize_fwd': ((_P, _P, _I, _P, _P, _P, _P) + (_I,) * 15
                                 + (_P,), _I),
         'gendr_error_string': ((_I,), ctypes.c_char_p),
     },
     'rasterize_bwd': {
         # chunk_counts chunk_ids T par packed perm pix out, then B NI NO Fp
-        # FC image_size dist_func dist_squared alpha_func mode double_side
-        # texture_type texture_res device, then stream
-        'gendr_rasterize_bwd': ((_P, _P, _I, _P, _P, _P, _P, _P) + (_I,) * 14
+        # FC image_size row0 height dist_func dist_squared alpha_func mode
+        # double_side texture_type texture_res device, then stream
+        'gendr_rasterize_bwd': ((_P, _P, _I, _P, _P, _P, _P, _P) + (_I,) * 16
                                 + (_P,), _I),
         'gendr_error_string': ((_I,), ctypes.c_char_p),
     },

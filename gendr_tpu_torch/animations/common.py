@@ -54,7 +54,8 @@ def require_device(prog, device):
 
 
 def triangle_scene(device=None) -> Mesh:
-    """A single triangle in view (triangles_dist.py's subject)."""
+    """A single triangle in view (triangles_dist.py's subject), on
+    ``device`` (None: the card, device.resolve_device)."""
     verts = np.array([[-0.6, -0.5, 2.0], [0.7, -0.4, 2.5],
                       [0.0, 0.7, 3.0]], np.float32)
     faces = np.array([[0, 1, 2]], np.int32)
@@ -66,7 +67,8 @@ def textured_scene(texture_res=5, device=None) -> Mesh:
     reference's panda is an OBJ asset with an MTL and a texture image),
     loaded with texture_res^2 texels per face and normalized to the unit
     cube; without the variable, its procedural stand-in
-    (data.textured_scene)."""
+    (data.textured_scene); on ``device`` (None: the card,
+    device.resolve_device)."""
     path = os.environ.get('GENDR_PANDA_OBJ')
     if path:
         if not os.path.exists(path):

@@ -1,11 +1,16 @@
 // Backward rasterization kernel for Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces the TPU kernel gendr_tpu/raster/pallas_backend.py:_bwd_kernel
-// for the sub-kernels ROADMAP.md calls K2a to K2d: the gradient of the
-// K1a-K1d envelope, channels 'alpha', hard RGB and softmax RGB, over vertex
+// for the sub-kernels ROADMAP.md calls K2a to K2e: the gradient of the
+// K1a-K1e envelope, channels 'alpha', hard RGB and softmax RGB, over vertex
 // textures or R x R surface textures of any R, the alpha mode hard and all
 // nine t-conorms, any of the 18 CDFs as a runtime id, and dist_squared
-// either way.
+// either way; and (K2e) the sums over a band of image rows [row0, row0 +
+// height) alone (pallas_backend.py:1252-1256): the pixel columns are the
+// band's, a tile's rows band-local for reading them and global for the NDC
+// y and the tile skip.  The caller sums the bands' rows; a face shard's
+// winner ids are shifted back by its base_offset in the wrapper
+// (cuda_backend.pixel_columns), so the kernel compares local input ids.
 //
 // What it computes, per (pixel, face) pair: the recomputed coverage, the
 // aggregate-inverse alpha rule (pallas_backend.py:1282-1288; hard alpha
@@ -107,9 +112,9 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
     const int* __restrict__ perm,          // [B, Fp] input id per sorted slot
     const float* __restrict__ pix,         // [B, NPIX, P]
     float* __restrict__ out,               // [B, NO, Fp]
-    int NI, int NO, int Fp, int FC, int image_size, int tiles_x,
-    int dist_func, int dist_squared, int alpha_func, int double_side,
-    int texture_type, int texture_res, int tex_store) {
+    int NI, int NO, int Fp, int FC, int image_size, int tiles_x, int row0,
+    int height, int dist_func, int dist_squared, int alpha_func,
+    int double_side, int texture_type, int texture_res, int tex_store) {
   constexpr int NPIX = npix(MODE);
   constexpr int NZ = MODE == MODE_SOFTMAX ? 3 : 0;
   extern __shared__ float smem[];
@@ -122,8 +127,8 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
   const int f = threadIdx.x;
   const int gf = k * FC + f;  // sorted face slot
   const int is = image_size;
-  const int T = tiles_x * tiles_x;
-  const size_t P = (size_t)is * is;
+  const int T = tiles_x * ((height + TILE - 1) / TILE);  // the band's tiles
+  const size_t P = (size_t)height * is;
   const int R = texture_res;
   const bool vertex = texture_type == TEXTURE_VERTEX;
   const int ntex = NO - 6 - NZ;  // texture gradient rows (0 for alpha)
@@ -198,13 +203,13 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
 
   for (int j = 0; j < n; ++j) {
     const int t = my_tiles[j];
-    const int r0 = (t / tiles_x) * TILE;
+    const int r0 = (t / tiles_x) * TILE;  // band-local; row0 + r0 in the image
     const int c0 = (t % tiles_x) * TILE;
     __syncthreads();  // every thread is done with the previous tile
     for (int i = f; i < NPIX * THREADS; i += FC) {
       const int c = i / THREADS, l = i - c * THREADS;
       const int prow = r0 + l / TILE, pcol = c0 + l % TILE;
-      cols[i] = (prow < is && pcol < is)
+      cols[i] = (prow < height && pcol < is)
                     ? px[(size_t)c * P + (size_t)prow * is + pcol]
                     : 0.0f;
     }
@@ -215,15 +220,15 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
     // the pairs', so the skip is exact)
     if (pixel_x(c0 + TILE - 1, is) < row(R_BBOX + 0) - margin ||
         pixel_x(c0, is) > row(R_BBOX + 1) + margin ||
-        pixel_y(r0, is) < row(R_BBOX + 2) - margin ||
-        pixel_y(r0 + TILE - 1, is) > row(R_BBOX + 3) + margin)
+        pixel_y(row0 + r0, is) < row(R_BBOX + 2) - margin ||
+        pixel_y(row0 + r0 + TILE - 1, is) > row(R_BBOX + 3) + margin)
       continue;
 
     for (int l = 0; l < THREADS; ++l) {
       const int prow = r0 + l / TILE, pcol = c0 + l % TILE;
-      if (prow >= is || pcol >= is) continue;  // ragged edge tile
+      if (prow >= height || pcol >= is) continue;  // ragged edge tile
       const float xp = pixel_x(pcol, is);
-      const float yp = pixel_y(prow, is);
+      const float yp = pixel_y(row0 + prow, is);
       if (!in_gate(row, xp, yp, margin)) continue;
       const float w[3] = {affine(row, R_INV + 0, xp, yp),
                           affine(row, R_INV + 3, xp, yp),
@@ -351,8 +356,9 @@ struct Args {
   const int* perm;
   const float* pix;
   float* out;
-  int NI, NO, Fp, FC, image_size, tiles_x, dist_func, dist_squared,
-      alpha_func, double_side, texture_type, texture_res, tex_store;
+  int NI, NO, Fp, FC, image_size, tiles_x, row0, height, dist_func,
+      dist_squared, alpha_func, double_side, texture_type, texture_res,
+      tex_store;
 };
 
 template <int ALPHA, int MODE>
@@ -366,9 +372,9 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
   }
   kernel<<<grid, a.FC, smem, stream>>>(
       a.chunk_counts, a.chunk_ids, a.par, a.packed, a.perm, a.pix, a.out,
-      a.NI, a.NO, a.Fp, a.FC, a.image_size, a.tiles_x, a.dist_func,
-      a.dist_squared, a.alpha_func, a.double_side, a.texture_type,
-      a.texture_res, a.tex_store);
+      a.NI, a.NO, a.Fp, a.FC, a.image_size, a.tiles_x, a.row0, a.height,
+      a.dist_func, a.dist_squared, a.alpha_func, a.double_side,
+      a.texture_type, a.texture_res, a.tex_store);
   return cudaGetLastError();
 }
 
@@ -401,21 +407,27 @@ cudaError_t launch_family(dim3 grid, size_t smem, cudaStream_t stream,
 // rows of out, must be the layout's: 6, the 3 z rows for softmax, and for
 // RGB the 9 vertex-colour or 3 R^2 texel rows.  A surface texture of R > 1
 // sums its texel gradients in the shared block while that fits MAX_SMEM
-// beside the pixel columns, and in the output rows above.
+// beside the pixel columns, and in the output rows above.  The launch sums
+// over image rows [row0, row0 + height): pix is [B, NPIX, height *
+// image_size] and T = ceil(image_size / 16) x ceil(height / 16) the band's
+// tiles.
 extern "C" int gendr_rasterize_bwd(
     const int* chunk_counts, const int* chunk_ids, int T, const float* par,
     const float* packed, const int* perm, const float* pix, float* out, int B,
-    int NI, int NO, int Fp, int FC, int image_size, int dist_func,
-    int dist_squared, int alpha_func, int mode, int double_side,
-    int texture_type, int texture_res, int device, void* stream) {
+    int NI, int NO, int Fp, int FC, int image_size, int row0, int height,
+    int dist_func, int dist_squared, int alpha_func, int mode,
+    int double_side, int texture_type, int texture_res, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int tiles_x = (image_size + TILE - 1) / TILE;
+  const int tiles_y = (height + TILE - 1) / TILE;
   const int ntex = mode == MODE_ALPHA ? 0
                    : texture_type == TEXTURE_VERTEX
                        ? 9
                        : 3 * texture_res * texture_res;
-  if (FC < 1 || FC > MAX_FC || Fp % FC != 0 || T != tiles_x * tiles_x ||
+  if (FC < 1 || FC > MAX_FC || Fp % FC != 0 || T != tiles_x * tiles_y ||
+      row0 < 0 || height < 1 || row0 + height > image_size ||
       NI < R_TEX + ntex || texture_res < 1 ||
       NO != 6 + (mode == MODE_SOFTMAX ? 3 : 0) + ntex)
     return (int)cudaErrorInvalidValue;
@@ -429,11 +441,12 @@ extern "C" int gendr_rasterize_bwd(
                                                           : TEX_GLOBAL;
   const size_t smem = pix_smem + (tex_store == TEX_SHARED ? tex_smem : 0);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{chunk_counts, chunk_ids,  par,          packed,
-               perm,         pix,        out,          NI,
-               NO,           Fp,         FC,           image_size,
-               tiles_x,      dist_func,  dist_squared, alpha_func,
-               double_side,  texture_type, texture_res, tex_store};
+  const Args a{chunk_counts, chunk_ids,    par,          packed,
+               perm,         pix,          out,          NI,
+               NO,           Fp,           FC,           image_size,
+               tiles_x,      row0,         height,       dist_func,
+               dist_squared, alpha_func,   double_side,  texture_type,
+               texture_res,  tex_store};
   switch (mode) {
     case MODE_ALPHA:
       return (int)launch_family<MODE_ALPHA>(grid, smem, s, a);

@@ -1,11 +1,17 @@
 // Forward rasterization kernel for Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces the TPU kernel gendr_tpu/raster/pallas_backend.py:_fwd_kernel
-// for the sub-kernels ROADMAP.md calls K1a to K1d: channels 'alpha', hard
+// for the sub-kernels ROADMAP.md calls K1a to K1e: channels 'alpha', hard
 // RGB and softmax RGB, over vertex textures or R x R surface textures of
 // any R (the wrapper caps softmax RGB at 1024 texels per face, as the JAX
 // package does), the alpha mode hard and all nine t-conorms, and any of
-// the 18 CDFs as a runtime id.
+// the 18 CDFs as a runtime id; and (K1e) a band of image rows [row0, row0
+// + height) alone, for the pixel-sharded path: the grid covers the band's
+// tiles, a block's rows are band-local for the output and global for the
+// NDC y, so a band is bitwise the same rows of a full render
+// (pallas_backend.py:293-297).  A face shard's external fvalid is the
+// packed R_FVALID row, and its base_offset is added to the winner ids by
+// the wrapper (cuda_backend.forward_partial), so neither needs the kernel.
 //
 // What bounds it on the card: per-pair ALU work.  At the flagship size
 // (256x256 pixels, 1280 faces, 56 packed rows) it reads about 0.3 MB of
@@ -82,9 +88,9 @@ __global__ void __launch_bounds__(THREADS) rasterize_fwd_kernel(
     const float* __restrict__ packed,     // [B, NI, Fp]
     const int* __restrict__ perm,         // [B, Fp] input id per sorted slot
     float* __restrict__ out,              // [B, NO, P], NO = 6 or 1
-    int NI, int Fp, int FC, int image_size, int tiles_x, int dist_func,
-    int dist_squared, int alpha_func, int double_side, int texture_type,
-    int texture_res) {
+    int NI, int Fp, int FC, int image_size, int tiles_x, int row0,
+    int height, int dist_func, int dist_squared, int alpha_func,
+    int double_side, int texture_type, int texture_res) {
   extern __shared__ float smem[];
   float* rows = smem;                                       // [NI_BASE, FC]
   int* ids = reinterpret_cast<int*>(smem + NI_BASE * FC);   // [FC]
@@ -94,11 +100,12 @@ __global__ void __launch_bounds__(THREADS) rasterize_fwd_kernel(
   const int b = blockIdx.y;
   const int lane = threadIdx.x;
   const int is = image_size;
+  // prow: the pixel's row in the band; row0 + prow: its row in the image
   const int prow = (t / tiles_x) * TILE + lane / TILE;
   const int pcol = (t % tiles_x) * TILE + lane % TILE;
-  const bool in_image = prow < is && pcol < is;
+  const bool in_image = prow < height && pcol < is;
   const float xp = pixel_x(pcol, is);
-  const float yp = pixel_y(prow, is);
+  const float yp = pixel_y(row0 + prow, is);
 
   const float scale = par[P_SCALE], shape = par[P_SHAPE];
   const float shift = par[P_SHIFT], thr = par[P_THR];
@@ -221,7 +228,7 @@ __global__ void __launch_bounds__(THREADS) rasterize_fwd_kernel(
   }
 
   if (!in_image) return;
-  const size_t P = (size_t)is * is;
+  const size_t P = (size_t)height * is;
   const size_t NO = MODE == MODE_ALPHA ? 1 : 6;
   float* o = out + (size_t)b * NO * P + (size_t)prow * is + pcol;
   o[0] = ALPHA == PROBABILISTIC_TCN ? 1.0f - acc : acc;
@@ -248,8 +255,8 @@ struct Args {
   const float* packed;
   const int* perm;
   float* out;
-  int NI, Fp, FC, image_size, tiles_x, dist_func, dist_squared, alpha_func,
-      double_side, texture_type, texture_res;
+  int NI, Fp, FC, image_size, tiles_x, row0, height, dist_func,
+      dist_squared, alpha_func, double_side, texture_type, texture_res;
 };
 
 template <int ALPHA, int MODE>
@@ -257,8 +264,9 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
                    const Args& a) {
   rasterize_fwd_kernel<ALPHA, MODE><<<grid, THREADS, smem, stream>>>(
       a.tile_counts, a.tile_ids, a.kcap, a.par, a.packed, a.perm, a.out,
-      a.NI, a.Fp, a.FC, a.image_size, a.tiles_x, a.dist_func, a.dist_squared,
-      a.alpha_func, a.double_side, a.texture_type, a.texture_res);
+      a.NI, a.Fp, a.FC, a.image_size, a.tiles_x, a.row0, a.height,
+      a.dist_func, a.dist_squared, a.alpha_func, a.double_side,
+      a.texture_type, a.texture_res);
   return cudaGetLastError();
 }
 
@@ -287,30 +295,34 @@ cudaError_t launch_family(dim3 grid, size_t smem, cudaStream_t stream,
 // C interface, loaded with ctypes (gendr_tpu_torch/_build.py).  Launches on
 // `stream` and returns the launch's error (0 on success); never
 // synchronizes and allocates nothing.  texture_res is R of an R x R surface
-// texture (1 for one texel).
+// texture (1 for one texel).  The launch renders image rows [row0, row0 +
+// height) into out [B, NO, height * image_size]; the hit lists are the
+// band's tiles, ceil(image_size / 16) x ceil(height / 16) of them.
 extern "C" int gendr_rasterize_fwd(
     const int* tile_counts, const int* tile_ids, int kcap, const float* par,
     const float* packed, const int* perm, float* out, int B, int NI, int Fp,
-    int FC, int image_size, int dist_func, int dist_squared, int alpha_func,
-    int mode, int double_side, int texture_type, int texture_res, int device,
-    void* stream) {
+    int FC, int image_size, int row0, int height, int dist_func,
+    int dist_squared, int alpha_func, int mode, int double_side,
+    int texture_type, int texture_res, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int tiles_x = (image_size + TILE - 1) / TILE;
+  const int tiles_y = (height + TILE - 1) / TILE;
   const size_t smem = ((size_t)NI_BASE * sizeof(float) + sizeof(int)) * FC;
-  if (NI < NI_BASE || texture_res < 1 || smem > STATIC_SMEM ||
+  if (NI < NI_BASE || texture_res < 1 || smem > STATIC_SMEM || row0 < 0 ||
+      height < 1 || row0 + height > image_size ||
       (mode != MODE_ALPHA &&
        NI < R_TEX + (texture_type == TEXTURE_VERTEX
                           ? 9
                           : 3 * texture_res * texture_res)))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(tiles_x * tiles_x, B);
+  const dim3 grid(tiles_x * tiles_y, B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{tile_counts, tile_ids,   kcap,         par,
-               packed,      perm,       out,          NI,
-               Fp,          FC,         image_size,   tiles_x,
-               dist_func,   dist_squared, alpha_func, double_side,
-               texture_type, texture_res};
+  const Args a{tile_counts, tile_ids,     kcap,         par,
+               packed,      perm,         out,          NI,
+               Fp,          FC,           image_size,   tiles_x,
+               row0,        height,       dist_func,    dist_squared,
+               alpha_func,  double_side,  texture_type, texture_res};
   switch (mode) {
     case MODE_ALPHA:
       return (int)launch_family<MODE_ALPHA>(grid, smem, s, a);

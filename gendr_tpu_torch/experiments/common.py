@@ -88,7 +88,7 @@ def load_or_make_mesh(model_obj, data_dir=None):
         candidates.append(os.path.join(data_dir, name))
     for path in candidates:
         if os.path.exists(path):
-            vertices, faces = obj_io.load_obj(path)
+            vertices, faces = obj_io.load_obj(path, device='cpu')
             return vertices.numpy(), faces.numpy()
     if name.startswith('sphere_'):
         return data.sphere(int(name.split('_')[1].split('.')[0]))

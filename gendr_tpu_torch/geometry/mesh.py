@@ -13,6 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gendr_tpu_torch.device import resolve_device
 from gendr_tpu_torch.geometry import core
 
 
@@ -31,7 +32,9 @@ class Mesh(nn.Module):
                texture_type='surface', device=None) -> 'Mesh':
         """Normalizing constructor (mirrors gendr/mesh.py:17-58): promotes
         numpy inputs and unbatched 2D tensors, and fills default white
-        textures when none are given."""
+        textures when none are given.  ``device=None``: the device of a
+        tensor argument, else the card (device.resolve_device)."""
+        device = resolve_device(device, vertices, faces, textures)
         vertices = torch.as_tensor(vertices, dtype=torch.float32,
                                    device=device)
         faces = torch.as_tensor(faces, dtype=torch.int32,
@@ -69,7 +72,8 @@ class Mesh(nn.Module):
     def from_obj(cls, filename_obj, normalization=False, load_texture=False,
                  texture_res=1, texture_type='surface',
                  device=None) -> 'Mesh':
-        """Load a Wavefront .obj (mesh.py:60-77)."""
+        """Load a Wavefront .obj (mesh.py:60-77) onto ``device`` (None: the
+        card, device.resolve_device)."""
         from gendr_tpu_torch.geometry import obj_io
         loaded = obj_io.load_obj(
             filename_obj, normalization=normalization,
@@ -77,7 +81,7 @@ class Mesh(nn.Module):
             texture_type=texture_type, device=device)
         textures = loaded[2] if load_texture else None
         return cls.create(loaded[0], loaded[1], textures, texture_res,
-                          texture_type, device=device)
+                          texture_type)
 
     def save_obj(self, filename_obj, save_texture=False, texture_res_out=16):
         from gendr_tpu_torch.geometry import obj_io

@@ -15,8 +15,8 @@ CUDA kernels:
 Parsing uses the native C++ tokenizer of ``gendr_tpu_torch.native`` where
 it can be built and a Python parser that computes the same elsewhere.
 Texture images are PNG files, read and written with the standard library
-(``gendr_tpu_torch.utils.png``).  ``load_obj`` returns torch tensors on an
-explicit ``device``; the savers take tensors or numpy arrays.
+(``gendr_tpu_torch.utils.png``).  ``load_obj`` returns torch tensors on the
+card unless another ``device`` is named; the savers take tensors or numpy arrays.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import os
 import numpy as np
 import torch
 
+from gendr_tpu_torch.device import resolve_device
 from gendr_tpu_torch.utils import png
 
 
@@ -177,8 +178,10 @@ def sample_textures_from_image(image, face_uvs, texture_res, device=None):
 
     Bilinear weights match load_textures_cuda_kernel.cu:51-63 (truncation
     indexing); the +1 neighbours are clamped to the last row/column, which
-    only differs for out-of-range UVs.
+    only differs for out-of-range UVs.  ``device=None``: the device of a
+    tensor argument, else the card (device.resolve_device).
     """
+    device = resolve_device(device, image, face_uvs)
     H, W = image.shape[:2]
     img = torch.as_tensor(np.ascontiguousarray(image), dtype=torch.float32,
                           device=device)
@@ -205,7 +208,9 @@ def sample_textures_from_image(image, face_uvs, texture_res, device=None):
 def load_textures(filename_obj, filename_mtl, texture_res, device=None,
                   parser=None):
     """Build [nf, R^2, 3] per-face textures from an OBJ+MTL pair
-    (load_obj.py:33-106), a float32 tensor on ``device``."""
+    (load_obj.py:33-106), a float32 tensor on ``device`` (None: the card,
+    device.resolve_device)."""
+    device = resolve_device(device)
     parsed = parse_obj(filename_obj, parser)
     vt = parsed['vt']
     tex_faces = np.maximum(parsed['tex_faces'], 0)
@@ -242,10 +247,10 @@ def load_obj(filename_obj, normalization=False, load_texture=False,
     """Load a Wavefront .obj (load_obj.py:109-172): (vertices [nv, 3]
     float32, faces [nf, 3] int32) and, with load_texture, the textures
     ([nf, texture_res^2, 3] surface texels sampled from the .mtl's image,
-    or [nv, 3] vertex colours), as tensors on ``device`` (None: the CPU,
-    as torch's factories; a mesh made from them renders where they lie, so
-    name the card to render with the kernels)."""
+    or [nv, 3] vertex colours), as tensors on ``device`` (None: the card,
+    device.resolve_device; name ``'cpu'`` to load onto the CPU)."""
     assert texture_type in ['surface', 'vertex']
+    device = resolve_device(device)
     parsed = parse_obj(filename_obj, parser)
     vertices = parsed['vertices']
     faces = parsed['faces']

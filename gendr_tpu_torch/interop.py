@@ -16,6 +16,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from gendr_tpu_torch.device import resolve_device
 from gendr_tpu_torch.geometry.mesh import Mesh
 
 
@@ -26,7 +27,8 @@ def mesh_from_numpy(vertices, faces, textures=None, texture_type='surface',
     ``gendr_tpu.Mesh``'s arrays, or what the JAX package's ``load_obj``
     returns (unbatched: vertices [nv, 3], faces [nf, 3], textures
     [nf, texture_res^2, 3]), which becomes a batch of one.  The mesh's
-    ``texture_res`` follows from the texel count, as in ``Mesh.from_obj``."""
+    ``texture_res`` follows from the texel count, as in ``Mesh.from_obj``;
+    it lies on ``device`` (None: the card, device.resolve_device)."""
     return Mesh.create(np.array(vertices, np.float32),
                        np.array(faces, np.int32),
                        None if textures is None
@@ -55,9 +57,11 @@ def shape_params_from_jax(params: Dict) -> Dict:
 def camera_poses_from_numpy(poses, device=None, requires_grad=False):
     """A pose batch of ``experiments/opt_camera.py`` (``poses_gt`` or the
     initial poses, numpy [B, 4]: distance, elevation, azimuth, field of
-    view) -> the port's float32 tensor on ``device``; with requires_grad
-    the leaf that ``CameraExperiment.train_step`` optimizes."""
+    view) -> the port's float32 tensor on ``device`` (None: the card,
+    device.resolve_device); with requires_grad the leaf that
+    ``CameraExperiment.train_step`` optimizes."""
     poses = np.array(poses, np.float32)
     if poses.ndim != 2 or poses.shape[1] != 4:
         raise ValueError(f'poses must be [B, 4], got {poses.shape}')
-    return torch.tensor(poses, device=device, requires_grad=requires_grad)
+    return torch.tensor(poses, device=resolve_device(device),
+                        requires_grad=requires_grad)

@@ -17,7 +17,14 @@ Port of ``gendr_tpu/raster/pallas_backend.py``:
   :func:`rasterize_bwd`, on the pixel columns :func:`pixel_columns` builds
   from the image gradient, then the un-permute to input face order.
 
-The kernels cover the sub-kernels K1a-K1d and K2a-K2d of ROADMAP.md
+For the sharded render (``gendr_tpu_torch.parallel.sharding``),
+:func:`forward_partial` returns a face shard's carry without the background
+fold, its hard-RGB winner ids offset by the shard's ``base_offset``, and
+:func:`backward_from_aux` takes the same ``base_offset``, the caller's
+``fvalid`` and a ``row_band`` of image rows: the kernels render or sum one
+band of rows (K1e, K2e).
+
+The kernels cover the sub-kernels K1a-K1e and K2a-K2e of ROADMAP.md
 Queue 2: channels 'alpha', hard RGB and softmax RGB over vertex textures
 or square surface textures (R x R texels per face: any R for hard RGB, up
 to ``SOFTMAX_TS_CAP`` texels for softmax RGB, as in the JAX package), with
@@ -113,15 +120,23 @@ def _spread(v):
     return v
 
 
-def _sorted_faces(face_vertices, textures, FC):
+def _sorted_faces(face_vertices, textures, FC, fvalid_in=None):
     """Pad to a chunk multiple and Morton-sort faces by projected bbox
     centre (tight chunk bboxes make the tile x chunk cull selective).
 
     Returns (fv, tex, fvalid, perm) with sorted[i] = input[perm[i]]; padded
-    faces sort to the end with fvalid False.  The sort is stable, as JAX's
-    argsort is, so the order is a function of the inputs alone.
+    faces sort to the end with fvalid False, and so do the faces that
+    ``fvalid_in`` ([F] bool: the face-sharded path pads globally before it
+    slices a shard) marks False (pallas_backend.py:1002-1058).  The sort is
+    stable, as JAX's argsort is, so the order is a function of the inputs
+    alone.
     """
+    F = face_vertices.shape[1]
     fv, tex, fvalid, _, _ = TB._pad_faces(face_vertices, textures, FC)
+    if fvalid_in is not None:
+        fvalid = fvalid & torch.nn.functional.pad(
+            fvalid_in.to(device=fvalid.device, dtype=torch.bool),
+            (0, fvalid.shape[0] - F))
     xs = fv[..., 0::3]
     ys = fv[..., 1::3]
     cx = 0.5 * (xs.amin(-1) + xs.amax(-1))
@@ -136,23 +151,38 @@ def _sorted_faces(face_vertices, textures, FC):
     return fv[bidx, perm], tex[bidx, perm], fvalid[perm], perm
 
 
-def prepass(face_vertices, textures, cfg: C.RenderConfig, params: Dict):
+def _band(cfg: C.RenderConfig, row_band):
+    """(row0, height) of a row band, the whole image for None."""
+    row0, height = row_band if row_band is not None else (0, cfg.image_size)
+    if not (0 <= row0 and 1 <= height and row0 + height <= cfg.image_size):
+        raise ValueError(f'row band {row_band} is not inside the '
+                         f'{cfg.image_size}-row image')
+    return int(row0), int(height)
+
+
+def prepass(face_vertices, textures, cfg: C.RenderConfig, params: Dict,
+            fvalid=None, row_band=None):
     """Sort, pack and build the hit lists: the kernels' inputs (per tile
     its hit chunks for the forward, per chunk its hit tiles for the
-    backward)."""
+    backward).  ``fvalid`` ([F] bool) marks the faces a caller padded;
+    ``row_band=(row0, height)`` lists the tiles of those image rows alone
+    (the aux records the band as 'row0' and 'height')."""
     FC = cfg.face_chunk
-    fv, tex, fvalid, perm = _sorted_faces(face_vertices, textures, FC)
+    row0, height = _band(cfg, row_band)
+    fv, tex, fvalid, perm = _sorted_faces(face_vertices, textures, FC,
+                                          fvalid)
     packed = pack.pack_faces(fv, tex, fvalid, cfg,
                              with_tex=cfg.channels != 'alpha')
     margin = pack.cull_margin(cfg, params).to(packed.device)
     mask = pack.tile_chunk_mask(packed, cfg.image_size, TILE, TILE, FC,
-                                margin)
+                                margin, height, row0)
     tile_counts, tile_ids, chunk_counts, chunk_ids = pack.compact_hits(mask)
     return dict(packed=packed, perm=perm.to(torch.int32),
                 tile_counts=tile_counts, tile_ids=tile_ids,
                 chunk_counts=chunk_counts,
                 chunk_ids=chunk_ids.contiguous(),
-                par=PM._params_vec(params, cfg, packed.device))
+                par=PM._params_vec(params, cfg, packed.device),
+                row0=row0, height=height)
 
 
 def _check_tensors(dev, *named):
@@ -176,7 +206,13 @@ def _check_rows(NI, cfg: C.RenderConfig, TS):
                          f'type {cfg.texture_type} and TS={TS}')
 
 
-def _check_inputs(tile_counts, tile_ids, par, packed, perm, cfg, TS):
+def _num_tiles(cfg: C.RenderConfig, height):
+    """16x16 tiles of a band of height rows (ragged edge tiles count)."""
+    return -(-cfg.image_size // TILE) * -(-height // TILE)
+
+
+def _check_inputs(tile_counts, tile_ids, par, packed, perm, cfg, TS, row0,
+                  height):
     _check_tensors(packed.device,
                    ('tile_counts', tile_counts, torch.int32),
                    ('tile_ids', tile_ids, torch.int32),
@@ -184,8 +220,8 @@ def _check_inputs(tile_counts, tile_ids, par, packed, perm, cfg, TS):
                    ('packed', packed, torch.float32),
                    ('perm', perm, torch.int32))
     B, NI, Fp = packed.shape
-    tx = -(-cfg.image_size // TILE)
-    T = tx * tx
+    _band(cfg, (row0, height))
+    T = _num_tiles(cfg, height)
     if Fp % cfg.face_chunk:
         raise ValueError(f'packed face count {Fp} is not a multiple of '
                          f'face_chunk {cfg.face_chunk}')
@@ -203,21 +239,25 @@ def _check_inputs(tile_counts, tile_ids, par, packed, perm, cfg, TS):
 
 
 def rasterize_fwd(tile_counts, tile_ids, par, packed, perm,
-                  cfg: C.RenderConfig, TS=1):
+                  cfg: C.RenderConfig, TS=1, row0=0, height=None):
     """The forward kernel: [B, NO, P] float32 in row-major pixel order,
     NO = 1 (alpha) for channels 'alpha', else 6: alpha, depth, winner
     input id, r, g, b for hard RGB, or alpha, ssum, smax and the
     softmax-weighted r, g, b before the background merge for softmax RGB.
-    TS: texels per face of surface textures.
+    TS: texels per face of surface textures.  The launch renders image rows
+    [row0, row0 + height) (height None: the whole image), P = height x
+    image_size, from the hit lists of that band's tiles.
 
     CUDA tensors launch ``csrc/rasterize_fwd.cu`` on the current stream;
     CPU tensors run :func:`rasterize_fwd_plain`.
     """
-    _check_inputs(tile_counts, tile_ids, par, packed, perm, cfg, TS)
+    height = cfg.image_size if height is None else height
+    _check_inputs(tile_counts, tile_ids, par, packed, perm, cfg, TS, row0,
+                  height)
     check_envelope(cfg, TS)
     if packed.device.type == 'cpu':
         return rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
-                                   cfg, TS)
+                                   cfg, TS, row0, height)
     if packed.device.type != 'cuda':
         raise ValueError(f'no forward kernel for device {packed.device}')
 
@@ -225,14 +265,15 @@ def rasterize_fwd(tile_counts, tile_ids, par, packed, perm,
     lib = _build.load('rasterize_fwd')
     B, NI, Fp = packed.shape
     mode = render_mode(cfg)
-    P = cfg.image_size * cfg.image_size
+    P = height * cfg.image_size
     out = torch.empty((B, 1 if mode == MODE_ALPHA else 6, P),
                       dtype=torch.float32, device=packed.device)
     stream = torch.cuda.current_stream(packed.device)
     err = lib.gendr_rasterize_fwd(
         tile_counts.data_ptr(), tile_ids.data_ptr(), tile_ids.shape[2],
         par.data_ptr(), packed.data_ptr(), perm.data_ptr(), out.data_ptr(),
-        B, NI, Fp, cfg.face_chunk, cfg.image_size, cfg.dist_func,
+        B, NI, Fp, cfg.face_chunk, cfg.image_size, row0, height,
+        cfg.dist_func,
         int(cfg.dist_squared), cfg.aggr_alpha_func, mode,
         int(cfg.double_side), cfg.texture_type, texture_res(TS),
         packed.device.index or 0, stream.cuda_stream)
@@ -265,8 +306,9 @@ def _hit(counts, ids, n):
 
 
 def rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
-                        cfg: C.RenderConfig, TS=1):
-    """The kernel's function in plain PyTorch, on any device.
+                        cfg: C.RenderConfig, TS=1, row0=0, height=None):
+    """The kernel's function in plain PyTorch, on any device, over image
+    rows [row0, row0 + height) (None: all).
 
     A pixel folds the chunks its tile lists, in ascending chunk order, and
     within a chunk the faces in ascending sorted order, as a kernel thread
@@ -284,12 +326,13 @@ def rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
     tid = cfg.aggr_alpha_func
     gamma, near, far = par[PM.P_GAMMA], par[PM.P_NEAR], par[PM.P_FAR]
 
+    height = is_ if height is None else height
     hit = _hit(tile_counts, tile_ids, K)                    # [B, T, K]
-    idx = torch.arange(is_ * is_, device=dev)
+    P = height * is_
+    idx = torch.arange(P, device=dev)                       # band-local
     ptile = (idx // is_ // TILE) * tx + idx % is_ // TILE   # [P]
-    xp, yp = TB.pixel_grid(is_, dev)
+    xp, yp = TB.pixel_grid(is_, height, row0, dev)
 
-    P = is_ * is_
     acc = torch.full((B, P), 1.0 if tid == C.PROBABILISTIC_TCN else 0.0,
                      device=dev)
     best = torch.full((B, P), NEG_INF, device=dev)
@@ -380,9 +423,11 @@ def rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
 def _finalize_soa(out, cfg: C.RenderConfig, params: Dict):
     """Background fold + finalize on the channel-major kernel output
     ([B, NO, P]): (soft_colors [B,4,H,W], aggrs_info [B,2,H,W]), the
-    torch backend's contract."""
+    torch backend's contract; H is the band's height for a band's
+    output."""
     B, _, P = out.shape
     is_ = cfg.image_size
+    h = P // is_
     dev = out.device
     bg = params['background_color'].to(dev).reshape(1, 3, 1)
     alpha = out[:, 0:1]
@@ -407,8 +452,8 @@ def _finalize_soa(out, cfg: C.RenderConfig, params: Dict):
         rgb = bg * (torch.exp(eps / gamma) * sa) + out[:, 3:6] * sb
         rgb_final = rgb / ssum
         aggr0, aggr1 = ssum, m
-    soft_colors = torch.cat([rgb_final, alpha], dim=1).reshape(B, 4, is_, is_)
-    aggrs_info = torch.cat([aggr0, aggr1], dim=1).reshape(B, 2, is_, is_)
+    soft_colors = torch.cat([rgb_final, alpha], dim=1).reshape(B, 4, h, is_)
+    aggrs_info = torch.cat([aggr0, aggr1], dim=1).reshape(B, 2, h, is_)
     return soft_colors, aggrs_info
 
 
@@ -432,6 +477,38 @@ def forward(face_vertices, textures, cfg: C.RenderConfig, params: Dict):
     soft_colors, aggrs_info, _ = forward_with_aux(face_vertices, textures,
                                                   cfg, params)
     return soft_colors, aggrs_info
+
+
+def forward_partial(face_vertices, textures, cfg: C.RenderConfig,
+                    params: Dict, aux=None, base_offset=0, fvalid=None,
+                    row_band=None):
+    """A face shard's aggregation carry from the forward kernel, with no
+    background fold: a ``torch_backend.empty_carry``-compatible state
+    (alpha, smax, ssum, rgb, depth, fidx) that ``torch_backend.
+    merge_carries`` merges (pallas_backend.py:860-916).  ``fvalid`` ([F]
+    bool) marks faces the caller padded; ``row_band=(row0, height)``
+    renders those image rows alone; hard-RGB winner ids are this shard's
+    input ids plus ``base_offset``, so they are global across face shards.
+    Returns (carry, aux); aux (the prepass) serves backward_from_aux."""
+    TS = textures.shape[2]
+    check_envelope(cfg, TS)
+    if aux is None:
+        aux = prepass(face_vertices, textures, cfg, params, fvalid, row_band)
+    out = rasterize_fwd(aux['tile_counts'], aux['tile_ids'], aux['par'],
+                        aux['packed'], aux['perm'], cfg, TS, aux['row0'],
+                        aux['height'])
+    alpha = out[:, 0]
+    mode = render_mode(cfg)
+    empty = TB.empty_carry(alpha.shape[0], alpha.shape[1], cfg,
+                           alpha.device)
+    if mode == MODE_ALPHA:
+        return (alpha,) + empty[1:], aux
+    rgb = out[:, 3:6].transpose(1, 2)
+    if mode == MODE_HARD:
+        fidx = out[:, 2].to(torch.int32)
+        fidx = torch.where(fidx >= 0, fidx + base_offset, fidx)
+        return (alpha, empty[1], empty[2], rgb, out[:, 1], fidx), aux
+    return (alpha, out[:, 2], out[:, 1], rgb, empty[4], empty[5]), aux
 
 
 # pixel columns of the backward kernel, rows of its [B, NPIX, P] input:
@@ -471,7 +548,7 @@ def _bwd_smem(cfg: C.RenderConfig, TS):
 
 
 def _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
-                      TS):
+                      TS, row0, height):
     _check_tensors(packed.device,
                    ('chunk_counts', chunk_counts, torch.int32),
                    ('chunk_ids', chunk_ids, torch.int32),
@@ -481,8 +558,8 @@ def _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
                    ('pix', pix, torch.float32))
     B, NI, Fp = packed.shape
     FC = cfg.face_chunk
-    tx = -(-cfg.image_size // TILE)
-    T = tx * tx
+    _band(cfg, (row0, height))
+    T = _num_tiles(cfg, height)
     if Fp % FC:
         raise ValueError(f'packed face count {Fp} is not a multiple of '
                          f'face_chunk {FC}')
@@ -499,7 +576,7 @@ def _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
         raise ValueError(f'perm must be [{B}, {Fp}] and par [{PM.NPAR}]')
     _check_rows(NI, cfg, TS)
     npix, _ = _bwd_layout(cfg, TS)
-    P = cfg.image_size * cfg.image_size
+    P = height * cfg.image_size
     if tuple(pix.shape) != (B, npix, P):
         raise ValueError(f'pix must be [{B}, {npix}, {P}] for '
                          f'channels={cfg.channels!r}, got '
@@ -507,21 +584,24 @@ def _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
 
 
 def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
-                  cfg: C.RenderConfig, TS=1):
+                  cfg: C.RenderConfig, TS=1, row0=0, height=None):
     """The backward kernel: per-face gradient rows [B, NO, Fp] float32 in
     sorted face order (see _bwd_layout), from the pixel columns pix
     [B, NPIX, P] (PIX_*) in row-major pixel order.  TS: texels per face of
-    surface textures.
+    surface textures.  The sums run over image rows [row0, row0 + height)
+    (None: all), P = height x image_size, with the hit lists of that
+    band's tiles.
 
     CUDA tensors launch ``csrc/rasterize_bwd.cu`` on the current stream;
     CPU tensors run :func:`rasterize_bwd_plain`.
     """
+    height = cfg.image_size if height is None else height
     check_envelope(cfg, TS)
     _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
-                      TS)
+                      TS, row0, height)
     if packed.device.type == 'cpu':
         return rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed,
-                                   perm, pix, cfg, TS)
+                                   perm, pix, cfg, TS, row0, height)
     if packed.device.type != 'cuda':
         raise ValueError(f'no backward kernel for device {packed.device}')
 
@@ -535,7 +615,8 @@ def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
         chunk_counts.data_ptr(), chunk_ids.data_ptr(), chunk_ids.shape[2],
         par.data_ptr(), packed.data_ptr(), perm.data_ptr(), pix.data_ptr(),
         out.data_ptr(), B, NI, NO, Fp, cfg.face_chunk, cfg.image_size,
-        cfg.dist_func, int(cfg.dist_squared), cfg.aggr_alpha_func,
+        row0, height, cfg.dist_func, int(cfg.dist_squared),
+        cfg.aggr_alpha_func,
         render_mode(cfg), int(cfg.double_side), cfg.texture_type,
         texture_res(TS), packed.device.index or 0,
         stream.cuda_stream)
@@ -547,8 +628,9 @@ def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
 
 
 def rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed, perm, pix,
-                        cfg: C.RenderConfig, TS=1):
-    """The backward kernel's function in plain PyTorch, on any device.
+                        cfg: C.RenderConfig, TS=1, row0=0, height=None):
+    """The backward kernel's function in plain PyTorch, on any device,
+    over image rows [row0, row0 + height) (None: all).
 
     For each chunk, every pixel of a tile on the chunk's hit list meets
     every face of the chunk: the recomputed coverage, the aggregate-inverse
@@ -569,10 +651,11 @@ def rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed, perm, pix,
     _, NO = _bwd_layout(cfg, TS)
     t0 = 9 if mode == MODE_SOFTMAX else 6  # first texture row
 
-    hit = _hit(chunk_counts, chunk_ids, tx * tx)            # [B, K, T]
-    idx = torch.arange(is_ * is_, device=dev)
+    height = is_ if height is None else height
+    hit = _hit(chunk_counts, chunk_ids, _num_tiles(cfg, height))  # [B,K,T]
+    idx = torch.arange(height * is_, device=dev)            # band-local
     ptile = (idx // is_ // TILE) * tx + idx % is_ // TILE   # [P]
-    xp, yp = TB.pixel_grid(is_, dev)
+    xp, yp = TB.pixel_grid(is_, height, row0, dev)
 
     def col(i):
         return pix[:, i, :, None]                           # [B, P, 1]
@@ -663,18 +746,23 @@ def rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed, perm, pix,
 
 
 def pixel_columns(soft_colors, aggrs_info, grad_soft_colors,
-                  cfg: C.RenderConfig):
+                  cfg: C.RenderConfig, base_offset=0):
     """The backward kernel's pix input [B, NPIX, P] (PIX_*) from the
-    row-major [B, 4, H, W] / [B, 2, H, W] image tensors."""
-    B = soft_colors.shape[0]
-    P = cfg.image_size * cfg.image_size
+    row-major [B, 4, H, W] / [B, 2, H, W] image tensors (H a band's height
+    for a band).  Hard-RGB winner ids are global (a face shard's input ids
+    plus its base_offset): they are shifted back by ``base_offset`` so the
+    kernel compares this shard's input ids (pallas_backend.py:1475-1485);
+    ids are exact small integers in float32, and a pixel no face of the
+    shard won moves to another id outside it."""
+    B, _, H, W = soft_colors.shape
+    P = H * W
     g = grad_soft_colors.reshape(B, 4, P)
     fin = soft_colors.reshape(B, 4, P)
     ag = aggrs_info.reshape(B, 2, P)
     cols = [g[:, 3:4], fin[:, 3:4]]
     mode = render_mode(cfg)
     if mode == MODE_HARD:
-        cols += [g[:, :3], ag[:, 1:2]]
+        cols += [g[:, :3], ag[:, 1:2] - float(base_offset)]
     elif mode == MODE_SOFTMAX:
         cols += [g[:, :3], fin[:, :3], ag]
     return torch.cat(cols, dim=1).to(torch.float32).contiguous()
@@ -708,12 +796,25 @@ def unpermute_grads(rows, perm, textures, cfg: C.RenderConfig):
 
 
 def backward_from_aux(face_vertices, textures, aux, soft_colors, aggrs_info,
-                      grad_soft_colors, cfg: C.RenderConfig, params: Dict):
+                      grad_soft_colors, cfg: C.RenderConfig, params: Dict,
+                      base_offset=0, fvalid=None, row_band=None):
     """(grad_face_vertices [B,F,9], grad_textures [B,F,TS,3]) through the
-    backward kernel, reusing the forward's prepass (aux)."""
+    backward kernel, reusing the forward's prepass (aux; None: made here
+    with ``fvalid`` and ``row_band``).  For a face shard's band (the
+    sharded path) the image tensors hold the band's rows, their winner ids
+    are global (``base_offset``), and the sums cover the band alone: the
+    caller adds the bands'."""
     TS = textures.shape[2]
     check_envelope(cfg, TS)
-    pix = pixel_columns(soft_colors, aggrs_info, grad_soft_colors, cfg)
+    if aux is None:
+        aux = prepass(face_vertices, textures, cfg, params, fvalid, row_band)
+    elif row_band is not None and _band(cfg, row_band) != (aux['row0'],
+                                                            aux['height']):
+        raise ValueError(f'row band {row_band} is not the prepass\'s '
+                         f'({aux["row0"]}, {aux["height"]})')
+    pix = pixel_columns(soft_colors, aggrs_info, grad_soft_colors, cfg,
+                        base_offset)
     rows = rasterize_bwd(aux['chunk_counts'], aux['chunk_ids'], aux['par'],
-                         aux['packed'], aux['perm'], pix, cfg, TS)
+                         aux['packed'], aux['perm'], pix, cfg, TS,
+                         aux['row0'], aux['height'])
     return unpermute_grads(rows, aux['perm'], textures, cfg)

@@ -230,16 +230,21 @@ def cull_margin(cfg, params):
     return torch.minimum(thr_margin, r)
 
 
-def tile_chunk_mask(packed, image_size, tile_w, tile_h, face_chunk, margin):
+def tile_chunk_mask(packed, image_size, tile_w, tile_h, face_chunk, margin,
+                    height=None, row0=0):
     """[B, T, K] int32 mask: does face-chunk k (bbox union + margin) overlap
     2D pixel tile t?  The replacement for the reference's per-thread
     early-exit culls (cu:747, 769, 784).
 
-    Tiles are numbered row-major over a ceil(size / tile) grid, so a size
-    that the tile does not divide gets ragged edge tiles; their NDC
+    ``height``/``row0`` restrict the tiles to the band of image rows
+    [row0, row0 + height) (the pixel-sharded path); NDC stays global, as in
+    ``gendr_tpu``'s ``_tile_rects`` (pack.py:419-435).  Tiles are numbered
+    row-major over a ceil(width / tile_w) x ceil(height / tile_h) grid, so
+    a size that the tile does not divide gets ragged edge tiles; their NDC
     rectangle is the full tile's, which only over-covers (a conservative
-    cull), and the kernel masks the pixels that lie outside the image.
-    For sizes the tile divides this is ``gendr_tpu``'s mask exactly."""
+    cull), and the kernel masks the pixels that lie outside the image or
+    the band.  For sizes the tile divides this is ``gendr_tpu``'s mask
+    exactly."""
     B = packed.shape[0]
     Fp = packed.shape[2]
     K = Fp // face_chunk
@@ -257,12 +262,13 @@ def tile_chunk_mask(packed, image_size, tile_w, tile_h, face_chunk, margin):
     cymin = torch.where(fval, ymin, big).amin(-1)
     cymax = torch.where(fval, ymax, -big).amax(-1)
 
+    height = is_ if height is None else height
     tx_n = -(-is_ // tile_w)
-    ty_n = -(-is_ // tile_h)
+    ty_n = -(-height // tile_h)
     t_idx = torch.arange(tx_n * ty_n, device=dev)
     ty, tx = t_idx // tx_n, t_idx % tx_n
     c0 = tx * tile_w
-    r0 = ty * tile_h
+    r0 = row0 + ty * tile_h
     tx_min = (2.0 * c0 + 1.0 - is_) / is_
     tx_max = (2.0 * (c0 + tile_w - 1) + 1.0 - is_) / is_
     # y decreases with row index (vertical flip, cu:716-719)

@@ -24,8 +24,8 @@ from gendr_tpu_torch.ops import distributions as D
 from gendr_tpu_torch.raster import pack
 
 # parameter-vector slots (the kernel reads them from a [16] device vector);
-# P_ROW0 is the global image row of a rendered band's first row, 0 for a
-# full render (row bands come with the multi-device path)
+# P_ROW0 stays 0: the kernels and the plain path take a row band's first
+# row as an argument
 (P_SCALE, P_SHAPE, P_SHIFT, P_THR, P_TCP, P_EPS, P_GAMMA, P_NEAR, P_FAR,
  P_GINV1, P_GINV, P_BG0, P_BG1, P_BG2, P_ROW0, P_MARGIN) = range(16)
 NPAR = 16

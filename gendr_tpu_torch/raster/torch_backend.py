@@ -10,6 +10,14 @@ chunk recomputes its pairs and reduces its gradient over the pixels
 (deterministic: no atomics).  The ``lax.scan`` of the JAX package is a
 Python loop here.
 
+The image is walked in bands of rows, so that no step holds more than
+``PAIR_BUDGET`` pair elements whatever the image size; a caller may also
+render one band of the image alone (``row_band``, the pixel-sharded path
+of ``gendr_tpu_torch.parallel``).  The forward carry is exposed as
+``empty_carry`` / ``background_carry`` / ``forward_carry`` /
+``merge_carries`` / ``finalize`` so that face shards fold their own carries
+and merge them.
+
 It covers every alpha family, both RGB modes and both texture types: it is
 the oracle the CUDA kernel (``cuda_backend``) is held against, and the
 backend a user picks explicitly for configurations the kernel does not
@@ -31,14 +39,29 @@ from gendr_tpu_torch.raster import pairmath as PM
 
 BIG_DEPTH = 10000000.0  # cu:739
 NEG_INF = -1e30
+# The most [B, P_band, CF] pair elements one step of forward_carry or
+# backward evaluates; the image is walked in bands of whole rows under it.
+# A step holds some 190 bytes per pair element: a 1536x1536 frame of the
+# panda_dist sweep (3.0e8 elements in one step) peaked at 52.6 GiB, in
+# bands under this budget at 3.10 GiB (NVIDIA H100 80GB HBM3, 700.00 W;
+# chip_smoke.py).
+PAIR_BUDGET = 1 << 24
 
 
-def pixel_grid(image_size: int, device=None):
-    """NDC pixel centers, flattened row-major over the output image
-    (cu:712-719: yi = is-1-row is the vertical flip)."""
+def _band_rows(B, image_size, cf):
+    """Rows of the image per step under PAIR_BUDGET (at least one)."""
+    return max(1, PAIR_BUDGET // (B * image_size * cf))
+
+
+def pixel_grid(image_size: int, height=None, row0=0, device=None):
+    """NDC pixel centers, flattened row-major over rows [row0, row0 +
+    height) of the output image (cu:712-719: yi = is-1-row is the vertical
+    flip).  NDC stays global, so a band's pixels are bitwise the same rows
+    of the full image's."""
     is_ = image_size
-    idx = torch.arange(is_ * is_, dtype=torch.int32, device=device)
-    rows, cols = idx // is_, idx % is_
+    height = is_ if height is None else height
+    idx = torch.arange(height * is_, dtype=torch.int32, device=device)
+    rows, cols = row0 + idx // is_, idx % is_
     yi = (is_ - 1 - rows).to(torch.float32)
     xi = cols.to(torch.float32)
     return (2.0 * xi + 1.0 - is_) / is_, (2.0 * yi + 1.0 - is_) / is_
@@ -149,24 +172,93 @@ def background_carry(B, P, bg, cfg: C.RenderConfig, params: Dict):
     return (alpha0, smax0, ssum0, rgb0, depth0, fidx0)
 
 
+def empty_carry(B, P, cfg: C.RenderConfig, device=None):
+    """The identity aggregation state (no background) that a face shard
+    folds its faces into (xla_backend.py:205-212)."""
+    del cfg  # one layout for every mode
+    return (torch.zeros((B, P), dtype=torch.float32, device=device),
+            torch.full((B, P), NEG_INF, dtype=torch.float32, device=device),
+            torch.zeros((B, P), dtype=torch.float32, device=device),
+            torch.zeros((B, P, 3), dtype=torch.float32, device=device),
+            torch.full((B, P), BIG_DEPTH, dtype=torch.float32,
+                       device=device),
+            torch.full((B, P), -1, dtype=torch.int32, device=device))
+
+
+def merge_carries(a, b, cfg: C.RenderConfig, params: Dict):
+    """Merge two aggregation states; ``a`` covers faces that precede ``b``
+    (xla_backend.py:215-238): the t-conorm folds the two alphas, the
+    streaming softmax rescales both sums to the larger max, and the hard-RGB
+    z-argmin keeps ``a``'s winner on a tie (strict <)."""
+    alpha_a, smax_a, ssum_a, rgb_a, depth_a, fidx_a = a
+    alpha_b, smax_b, ssum_b, rgb_b, depth_b, fidx_b = b
+    dev = alpha_a.device
+    gamma = params['aggr_rgb_gamma'].to(dev)
+    if cfg.aggr_alpha_func == C.ALPHA_HARD:
+        alpha = torch.maximum(alpha_a, alpha_b)
+    else:
+        alpha = T.fold_step(cfg.aggr_alpha_func, alpha_a, alpha_b,
+                            params['aggr_alpha_t_conorm_p'].to(dev))
+    m = torch.maximum(smax_a, smax_b)
+    sa = torch.exp((smax_a - m) / gamma)
+    sb = torch.exp((smax_b - m) / gamma)
+    ssum = ssum_a * sa + ssum_b * sb
+    better = depth_b < depth_a
+    depth = torch.where(better, depth_b, depth_a)
+    fidx = torch.where(better, fidx_b, fidx_a)
+    if cfg.aggr_rgb_func == C.RGB_HARD:
+        rgb = torch.where(better[..., None], rgb_b, rgb_a)
+    else:
+        rgb = rgb_a * sa[..., None] + rgb_b * sb[..., None]
+    return (alpha, m, ssum, rgb, depth, fidx)
+
+
 def forward_carry(face_vertices, textures, fvalid, carry0,
-                  cfg: C.RenderConfig, params: Dict):
+                  cfg: C.RenderConfig, params: Dict, base_offset=0,
+                  row_band=None):
     """Fold all face chunks into ``carry0``.  Inputs must already be padded
-    to a multiple of the chunk size; fvalid: [Fp] bool."""
+    to a multiple of the chunk size; fvalid: [Fp] bool.  ``base_offset``
+    shifts the face ids recorded for hard RGB (a face shard's first global
+    id); ``row_band=(row0, height)`` renders only those rows of the image
+    (carry0 then holds height * image_size pixels).
+
+    The rows are walked in bands of at most PAIR_BUDGET pair elements per
+    step; each pixel folds the same faces in the same order whatever the
+    band, so the result is bitwise that of one band."""
     B, Fp = face_vertices.shape[:2]
     dev = face_vertices.device
-    xp, yp = pixel_grid(cfg.image_size, dev)
+    is_ = cfg.image_size
+    row0, height = row_band if row_band is not None else (0, is_)
     cf = min(cfg.face_chunk, max(Fp, 1))
-    nc = Fp // cf
-    gamma = params['aggr_rgb_gamma']
     par = PM._params_vec(params, cfg, dev)
     packed = pack.pack_faces(face_vertices, textures, fvalid, cfg,
                              with_tex=False)
+    step = _band_rows(B, is_, cf)
+    parts = []
+    for r in range(0, height, step):
+        h = min(step, height - r)
+        pix = slice(r * is_, (r + h) * is_)
+        xp, yp = pixel_grid(is_, h, row0 + r, dev)
+        parts.append(_fold_chunks(packed, textures, tuple(
+            c[:, pix] for c in carry0), xp, yp, cf, cfg, params, par,
+            base_offset))
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(c, dim=1) for c in zip(*parts))
+
+
+def _fold_chunks(packed, textures, carry, xp, yp, cf, cfg: C.RenderConfig,
+                 params: Dict, par, base_offset):
+    """forward_carry on the pixels (xp, yp): every chunk, in order."""
+    B, _, Fp = packed.shape
+    dev = packed.device
+    nc = Fp // cf
+    gamma = params['aggr_rgb_gamma']
     tid = cfg.aggr_alpha_func
     bidx = torch.arange(B, device=dev)[:, None]
     pidx = torch.arange(xp.shape[0], device=dev)[None, :]
 
-    alpha, smax, ssum, rgb, depth_min, fidx = carry0
+    alpha, smax, ssum, rgb, depth_min, fidx = carry
     for k in range(nc):
         pk = packed[:, :, k * cf:(k + 1) * cf]
         tex = textures[:, k * cf:(k + 1) * cf]
@@ -195,8 +287,8 @@ def forward_carry(face_vertices, textures, fvalid, carry0,
             color_win = _sample_winner_color(tex, win_cf, w_clip_win, cfg)
             better = zmin_chunk < depth_min
             depth_min = torch.where(better, zmin_chunk, depth_min)
-            fidx = torch.where(better, k * cf + win_cf.to(torch.int32),
-                               fidx)
+            fidx = torch.where(better, base_offset + k * cf
+                               + win_cf.to(torch.int32), fidx)
             rgb = torch.where(better[..., None], color_win, rgb)
         else:
             # streaming softmax over zp_norm weighted by coverage
@@ -219,10 +311,13 @@ def forward_carry(face_vertices, textures, fvalid, carry0,
 
 
 def finalize(carry, cfg: C.RenderConfig):
-    """Carry -> (soft_colors [B,4,H,W], aggrs_info [B,2,H,W])."""
+    """Carry -> (soft_colors [B,4,H,W], aggrs_info [B,2,H,W]); H follows
+    from the carry's pixel count (a band's height on the pixel-sharded
+    path), W = cfg.image_size."""
     alpha, smax, ssum, rgb, depth_min, fidx = carry
     B = alpha.shape[0]
     is_ = cfg.image_size
+    h = alpha.shape[1] // is_
     if cfg.channels == 'alpha' or cfg.aggr_rgb_func == C.RGB_HARD:
         # alpha-only carries the background untouched
         rgb_final = rgb
@@ -231,8 +326,8 @@ def finalize(carry, cfg: C.RenderConfig):
         rgb_final = rgb / ssum[..., None]
         aggr0, aggr1 = ssum, smax
     soft_colors = torch.cat([rgb_final, alpha[..., None]], dim=-1)
-    soft_colors = soft_colors.reshape(B, is_, is_, 4).permute(0, 3, 1, 2)
-    aggrs_info = torch.stack([aggr0, aggr1], dim=1).reshape(B, 2, is_, is_)
+    soft_colors = soft_colors.reshape(B, h, is_, 4).permute(0, 3, 1, 2)
+    aggrs_info = torch.stack([aggr0, aggr1], dim=1).reshape(B, 2, h, is_)
     return soft_colors.contiguous(), aggrs_info
 
 
@@ -266,24 +361,30 @@ def forward_with_aux(face_vertices, textures, cfg: C.RenderConfig,
 
 
 def backward(face_vertices, textures, soft_colors, aggrs_info,
-             grad_soft_colors, cfg: C.RenderConfig, params: Dict):
+             grad_soft_colors, cfg: C.RenderConfig, params: Dict,
+             base_offset=0, row_band=None):
     """Returns (grad_face_vertices [B,F,9], grad_textures [B,F,TS,3]).
 
     Semantics of ``backward_render_cuda_kernel`` (cu:866-1065): recompute
     the per-pair coverage, apply the aggregate-inverse t-conorm rule, the
     softmax RGB chain and the closest-point distance chain, and reduce
-    each chunk's pairs over the pixels.
+    each chunk's pairs over the pixels.  ``base_offset`` and ``row_band``
+    as in forward_carry: the image tensors then hold only that band, and
+    the hard-RGB winner ids are global (this shard's ids + base_offset).
+
+    The rows are walked in bands of at most PAIR_BUDGET pair elements per
+    step and the bands' sums added: with more than one band the pixel sum
+    is grouped otherwise than in one, so the gradient agrees with a
+    one-band run within float32 rounding, not bitwise.
     """
     B, F = face_vertices.shape[:2]
-    TS = textures.shape[2]
     dev = face_vertices.device
+    is_ = cfg.image_size
+    row0, height = row_band if row_band is not None else (0, is_)
     P = soft_colors.shape[2] * soft_colors.shape[3]
-    xp, yp = pixel_grid(cfg.image_size, dev)
     cf = min(cfg.face_chunk, max(F, 1))
-    gamma = params['aggr_rgb_gamma']
-    near, far = params['near'], params['far']
 
-    fv_p, tex_p, fvalid, nc, Fp = _pad_faces(face_vertices, textures, cf)
+    fv_p, tex_p, fvalid, _, _ = _pad_faces(face_vertices, textures, cf)
     par = PM._params_vec(params, cfg, dev)
     packed = pack.pack_faces(fv_p, tex_p, fvalid, cfg, with_tex=False)
 
@@ -291,6 +392,32 @@ def backward(face_vertices, textures, soft_colors, aggrs_info,
     g = grad_soft_colors.permute(0, 2, 3, 1).reshape(B, P, 4)
     final = soft_colors.permute(0, 2, 3, 1).reshape(B, P, 4)
     aggr = aggrs_info.reshape(B, 2, P)
+    step = _band_rows(B, is_, cf)
+    grad_faces = grad_tex = None
+    for r in range(0, height, step):
+        h = min(step, height - r)
+        pix = slice(r * is_, (r + h) * is_)
+        xp, yp = pixel_grid(is_, h, row0 + r, dev)
+        gf, gt = _backward_chunks(packed, tex_p, xp, yp, g[:, pix],
+                                  final[:, pix], aggr[:, :, pix], cf, cfg,
+                                  params, par, base_offset)
+        if grad_faces is None:
+            grad_faces, grad_tex = gf, gt
+        else:
+            grad_faces, grad_tex = grad_faces + gf, grad_tex + gt
+    return grad_faces[:, :F], grad_tex[:, :F]
+
+
+def _backward_chunks(packed, tex_p, xp, yp, g, final, aggr, cf,
+                     cfg: C.RenderConfig, params: Dict, par, base_offset):
+    """backward's per-face sums over the pixels (xp, yp), whose [B, P, .]
+    image columns are g, final and aggr: [B, Fp, 9] and [B, Fp, TS, 3]."""
+    B, _, Fp = packed.shape
+    TS = tex_p.shape[2]
+    dev = packed.device
+    nc = Fp // cf
+    gamma = params['aggr_rgb_gamma']
+    near, far = params['near'], params['far']
     aggr0, aggr1 = aggr[:, 0], aggr[:, 1]  # (ssum, smax) or (depth, idx)
     gA = g[..., 3]
 
@@ -321,7 +448,8 @@ def backward(face_vertices, textures, soft_colors, aggrs_info,
             # texture grad only to the winning face (cu:997-1004); winner
             # ids are input face ids
             zmask = valid & q['zvalid']
-            cf_ids = k * cf + torch.arange(cf, device=dev)[None, None, :]
+            cf_ids = base_offset + k * cf \
+                + torch.arange(cf, device=dev)[None, None, :]
             win = zmask & (aggr1[..., None].to(torch.int32) == cf_ids)
             gtex_coef = torch.where(win[..., None], g[:, :, None, :3], 0.0)
         else:
@@ -372,7 +500,7 @@ def backward(face_vertices, textures, soft_colors, aggrs_info,
 
         # texture gradients (backward_sample_texture, cu:194-214)
         if gtex_coef is None:
-            gtex = torch.zeros((B, cf) + textures.shape[2:], device=dev)
+            gtex = torch.zeros((B, cf) + tex_p.shape[2:], device=dev)
         elif cfg.texture_type == C.TEXTURE_VERTEX:
             gtex = torch.stack([torch.einsum('bpc,bpck->bck', w_clip[j],
                                              gtex_coef) for j in range(3)],
@@ -388,13 +516,12 @@ def backward(face_vertices, textures, soft_colors, aggrs_info,
                 1, idx, gtex_coef.reshape(B, -1, 3)).reshape(B, cf, TS, 3)
         gtexs.append(gtex)
 
-    grad_faces = torch.cat(gfaces, dim=1)[:, :F]
-    grad_tex = torch.cat(gtexs, dim=1)[:, :F]
-    return grad_faces, grad_tex
+    return torch.cat(gfaces, dim=1), torch.cat(gtexs, dim=1)
 
 
 def backward_from_aux(face_vertices, textures, aux, soft_colors, aggrs_info,
-                      grad_soft_colors, cfg: C.RenderConfig, params: Dict):
+                      grad_soft_colors, cfg: C.RenderConfig, params: Dict,
+                      base_offset=0, row_band=None):
     del aux  # None: see forward_with_aux
     return backward(face_vertices, textures, soft_colors, aggrs_info,
-                    grad_soft_colors, cfg, params)
+                    grad_soft_colors, cfg, params, base_offset, row_band)

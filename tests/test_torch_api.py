@@ -92,7 +92,7 @@ def test_enum_int_duality():
 def test_forward_tensors_matches_mesh_call():
     from gendr_tpu_torch import data
     v, f = data.icosphere(1)
-    mesh = G.Mesh.create(v * 0.5, f)
+    mesh = G.Mesh.create(v * 0.5, f, device='cpu')
     t = G.LookAt()
     t.set_eyes_from_angles(2.732, 30.0, 0.0)
     mesh = t(mesh)
@@ -139,7 +139,8 @@ NEW_MODULES = [
     'native/__init__.py', 'native/objparse.py', 'functional/__init__.py',
     'utils/__init__.py', 'utils/metrics.py', 'utils/profiling.py',
     'utils/png.py', 'experiments/opt_camera.py', 'experiments/common.py',
-    'animations/common.py', 'interop.py', '_build.py']
+    'animations/common.py', 'interop.py', '_build.py', 'device.py',
+    'parallel/__init__.py', 'parallel/sharding.py']
 
 
 def _imports(path):
@@ -177,3 +178,54 @@ def test_native_source_is_the_ports_own_copy():
     strip = lambda t: [ln for ln in t.splitlines()  # noqa: E731
                        if not ln.startswith('//')]
     assert strip(src.read_text()) == strip(jax_copy.read_text())
+
+
+def _tiny_obj(tmp_path):
+    path = tmp_path / 'tri.obj'
+    path.write_text('v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n')
+    return str(path)
+
+
+# each entry point that makes tensors, called without a device
+NO_DEVICE_CALLS = {
+    'Mesh.create': lambda p: G.Mesh.create(np.eye(3), [[0, 1, 2]]),
+    'Mesh.from_obj': lambda p: G.Mesh.from_obj(_tiny_obj(p)),
+    'load_obj': lambda p: F.load_obj(_tiny_obj(p)),
+    'sample_textures_from_image': lambda p: __import__(
+        'gendr_tpu_torch.geometry.obj_io', fromlist=['x'])
+    .sample_textures_from_image(np.ones((2, 2, 3)), np.zeros((1, 3, 2)), 1),
+    'mesh_from_numpy': lambda p: __import__(
+        'gendr_tpu_torch.interop', fromlist=['x'])
+    .mesh_from_numpy(np.eye(3), [[0, 1, 2]]),
+    'camera_poses_from_numpy': lambda p: __import__(
+        'gendr_tpu_torch.interop', fromlist=['x'])
+    .camera_poses_from_numpy(np.ones((1, 4))),
+    'triangle_scene': lambda p: __import__(
+        'gendr_tpu_torch.animations.common', fromlist=['x']).triangle_scene(),
+    'textured_scene': lambda p: __import__(
+        'gendr_tpu_torch.animations.common', fromlist=['x'])
+    .textured_scene(2),
+}
+
+
+@pytest.mark.parametrize('name', sorted(NO_DEVICE_CALLS))
+def test_entry_point_without_a_device_wants_the_card(name, tmp_path,
+                                                     monkeypatch):
+    """device=None means the card: without one the entry point raises and
+    names device='cpu'; it never carries on on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NO_DEVICE_CALLS[name](tmp_path)
+
+
+def test_resolve_device_rule(monkeypatch):
+    from gendr_tpu_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    assert resolve_device() == torch.device('cuda')
+    assert resolve_device('cpu') == torch.device('cpu')
+    # a tensor argument names the device: a CPU mesh stays on the CPU
+    assert resolve_device(None, np.ones(3), torch.ones(3)) \
+        == torch.device('cpu')
+    mesh = G.Mesh.create(torch.eye(3), [[0, 1, 2]])
+    assert mesh.vertices.device.type == 'cpu'
+    assert mesh.faces.device.type == 'cpu'

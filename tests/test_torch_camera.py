@@ -33,8 +33,8 @@ def test_transform_cameras_matches_jax(with_goal):
     poses = OC.initial_poses(B, 15, 35)
     goal = OC.goal_poses(B) if with_goal else None
     got = OC.transform_cameras(
-        torch.from_numpy(verts), interop.camera_poses_from_numpy(poses),
-        None if goal is None else interop.camera_poses_from_numpy(goal))
+        torch.from_numpy(verts), interop.camera_poses_from_numpy(poses, 'cpu'),
+        None if goal is None else interop.camera_poses_from_numpy(goal, 'cpu'))
     want = JOC.transform_cameras(
         jnp.asarray(verts), jnp.asarray(poses),
         None if goal is None else jnp.asarray(goal))
@@ -57,10 +57,10 @@ def test_pose_batches_follow_the_jax_experiment():
     assert ((ang > 35 - 1e-3) & (ang < 55 + 1e-3)).all()
     assert ((init[:, 0] >= 2) & (init[:, 0] <= 10)).all()
     assert ((init[:, 3] >= 10) & (init[:, 3] <= 30)).all()
-    p = interop.camera_poses_from_numpy(init, requires_grad=True)
+    p = interop.camera_poses_from_numpy(init, 'cpu', requires_grad=True)
     assert p.requires_grad and p.is_leaf and tuple(p.shape) == (B, 4)
     with pytest.raises(ValueError, match=r'\[B, 4\]'):
-        interop.camera_poses_from_numpy(init[:, :3])
+        interop.camera_poses_from_numpy(init[:, :3], 'cpu')
 
 
 def test_goal_render_matches_jax():
@@ -100,7 +100,7 @@ def test_a_few_steps_on_the_cpu():
     assert exp.diff_renderer.dist_scale == pytest.approx(1e-7)
     # the first step's loss is the JAX experiment's IoU loss of the same
     # render: sum over the batch of 1 - IoU
-    loss0, pred = exp.loss_fn(interop.camera_poses_from_numpy(init), 0.1)
+    loss0, pred = exp.loss_fn(interop.camera_poses_from_numpy(init, 'cpu'), 0.1)
     assert float(loss0) == pytest.approx(losses[0], rel=1e-6)
     assert tuple(pred.shape) == (4, 4, 16, 16)
 

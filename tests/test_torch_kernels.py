@@ -21,9 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (BIG_TEXTURE_CASES, CASES, GRAD_AGREE, GRAD_ATOL,
-                        T_CONORM_CASES, TEXTURE_CASES, agreement,
-                        check_kernels,
+from chip_smoke import (BAND_CASES, BANDS, BIG_TEXTURE_CASES, CASES,
+                        GRAD_AGREE, GRAD_ATOL, T_CONORM_CASES, TEXTURE_CASES,
+                        agreement, band_parts, check_kernels, face_halves,
                         flagship_cfg, flagship_scene, gendr_inputs,
                         grads_through, panda_inputs, t_conorm_inputs,
                         training_inputs)
@@ -335,7 +335,7 @@ def test_voxelization_on_the_card_equals_the_cpu(cuda, vs):
     from gendr_tpu_torch import data
     v, f = data.icosphere(2)
     got = G.Mesh.create(v * 0.4, f, device=cuda).voxelize(vs)
-    want = G.Mesh.create(v * 0.4, f).voxelize(vs)
+    want = G.Mesh.create(v * 0.4, f, device='cpu').voxelize(vs)
     assert got.is_cuda and torch.equal(got.cpu(), want)
     assert int(want[0, vs // 2, vs // 2, vs // 2]) == 1
 
@@ -349,3 +349,37 @@ def test_opt_camera_steps_launch_the_kernels(cuda):
     rec = exp.run(OC.initial_poses(8, 15, 35))
     assert CB.LAUNCHES == {k: n + 10 for k, n in launches.items()}
     assert np.isfinite(rec['losses']).all() and np.isfinite(rec['poses']).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name,kw,p,ts', BAND_CASES,
+                         ids=[c[0] for c in BAND_CASES])
+def test_band_and_shard_kernels_match_plain(cuda, name, kw, p, ts):
+    """K1e and K2e: each row band of BANDS (one ragged) and each face half
+    (the second with caller-padded faces) against the plain versions; the
+    kernel's band rows bitwise its full render's; an offset shard's winner
+    ids are the plain version's input ids plus its base_offset."""
+    cfg, params, fv, tex = t_conorm_inputs(kw, p, ts, cuda)
+    for label, f, t, aux in band_parts(cfg, params, fv, tex):
+        check_kernels(f'{name} {label}', cfg, params, f, t, aux)
+    full, _ = CB.forward_partial(fv, tex, cfg, params)
+    size = cfg.image_size
+    for r0, hb in BANDS:
+        band, _ = CB.forward_partial(fv, tex, cfg, params, row_band=(r0, hb))
+        pix = slice(r0 * size, (r0 + hb) * size)
+        assert all(torch.equal(a, b[:, pix]) for a, b in zip(band, full))
+    f, t, valid, offset = face_halves(cfg, fv, tex)[1]
+    carry, aux = CB.forward_partial(f, t, cfg, params, base_offset=offset,
+                                    fvalid=valid)
+    plain = CB.rasterize_fwd_plain(aux['tile_counts'], aux['tile_ids'],
+                                   aux['par'], aux['packed'], aux['perm'],
+                                   cfg, ts)
+    torch.cuda.synchronize()
+    assert float((carry[0] - plain[:, 0]).abs().max()) <= IMG_ATOL
+    if CB.render_mode(cfg) == CB.MODE_HARD:
+        ids = plain[:, 2].to(torch.int32)
+        want = torch.where(ids >= 0, ids + offset, ids)
+        covered = (carry[5] >= 0) | (want >= 0)
+        assert int(covered.sum()) > 0 and int(carry[5].max()) >= offset
+        assert float((carry[5] == want)[covered].float().mean()) \
+            >= WINNER_AGREE

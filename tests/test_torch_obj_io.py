@@ -42,7 +42,7 @@ def test_save_load_roundtrip(tmp_path):
     v, f = data.icosphere(1)
     path = str(tmp_path / 'mesh.obj')
     obj_io.save_obj(path, v, f)
-    v2, f2 = obj_io.load_obj(path)
+    v2, f2 = obj_io.load_obj(path, device='cpu')
     assert isinstance(v2, torch.Tensor) and v2.dtype == torch.float32
     assert f2.dtype == torch.int32
     np.testing.assert_allclose(v2.numpy(), v, atol=1e-6)
@@ -51,10 +51,10 @@ def test_save_load_roundtrip(tmp_path):
 
 def test_mesh_class_roundtrip(tmp_path):
     v, f = data.test_meshes('cube')
-    mesh = Mesh.create(v, f)
+    mesh = Mesh.create(v, f, device='cpu')
     path = str(tmp_path / 'cube.obj')
     mesh.save_obj(path)
-    mesh2 = Mesh.from_obj(path)
+    mesh2 = Mesh.from_obj(path, device='cpu')
     np.testing.assert_allclose(mesh2.vertices.numpy(),
                                mesh.vertices.numpy(), atol=1e-6)
     np.testing.assert_array_equal(mesh2.faces.numpy(), mesh.faces.numpy())
@@ -65,7 +65,7 @@ def test_normalization(tmp_path):
     v = v * 3.0 + 5.0
     path = str(tmp_path / 'c.obj')
     obj_io.save_obj(path, v, f)
-    v2, _ = obj_io.load_obj(path, normalization=True)
+    v2, _ = obj_io.load_obj(path, normalization=True, device='cpu')
     assert np.abs(v2.numpy()).max() <= 1.0 + 1e-5
     want, _ = JIO.load_obj(path, normalization=True)
     np.testing.assert_array_equal(v2.numpy(), np.asarray(want))
@@ -77,7 +77,7 @@ def test_quad_triangulation(tmp_path):
         fh.write('v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\n')
         fh.write('f 1 2 3 4\n')  # quad -> 2 triangles (fan)
     for parser in PARSERS:
-        v, f = obj_io.load_obj(path, parser=parser)
+        v, f = obj_io.load_obj(path, parser=parser, device='cpu')
         np.testing.assert_array_equal(f.numpy(), [[0, 1, 2], [0, 2, 3]])
 
 
@@ -107,7 +107,8 @@ def test_textured_pipeline(tmp_path):
     """mtl Kd colors + map_Kd texture image sampling
     (load_obj.py:33-106 / load_textures CUDA kernel)."""
     path = _write_textured(tmp_path)
-    v, f, tex = obj_io.load_obj(path, load_texture=True, texture_res=2)
+    v, f, tex = obj_io.load_obj(path, load_texture=True, texture_res=2,
+                                device='cpu')
     tex = tex.numpy()
     assert tex.shape == (3, 4, 3)
     # face 0 red-dominant, face 1 green-dominant, face 2 exactly blue
@@ -127,7 +128,8 @@ def test_save_textured_roundtrip(tmp_path):
     obj_io.save_obj(path, v, f, textures=tex, texture_res=8)
     assert os.path.exists(str(tmp_path / 'textured.png'))
     assert os.path.exists(str(tmp_path / 'textured.mtl'))
-    v2, f2, tex2 = obj_io.load_obj(path, load_texture=True, texture_res=2)
+    v2, f2, tex2 = obj_io.load_obj(path, load_texture=True, texture_res=2,
+                                   device='cpu')
     # colors survive the bake -> sample roundtrip approximately
     err = np.abs(tex2.numpy().mean(axis=1) - tex.mean(axis=1)).max()
     assert err < 0.25, err
@@ -140,16 +142,18 @@ def test_vertex_color_obj(tmp_path):
         fh.write('f 1 2 3\n')
     for parser in PARSERS:
         v, f, tex = obj_io.load_obj(path, load_texture=True,
-                                    texture_type='vertex', parser=parser)
+                                    texture_type='vertex', parser=parser,
+                                    device='cpu')
         np.testing.assert_allclose(tex.numpy(), np.eye(3), atol=1e-6)
-    mesh = Mesh.from_obj(path, load_texture=True, texture_type='vertex')
+    mesh = Mesh.from_obj(path, load_texture=True, texture_type='vertex',
+                         device='cpu')
     assert mesh.texture_type == 'vertex'
     assert tuple(mesh.textures.shape) == (1, 3, 3)
     # and saved again with its colours
     out = str(tmp_path / 'vc2.obj')
     obj_io.save_obj(out, v, f, textures=tex, texture_type='vertex')
     _, _, tex2 = obj_io.load_obj(out, load_texture=True,
-                                 texture_type='vertex')
+                                 texture_type='vertex', device='cpu')
     np.testing.assert_allclose(tex2.numpy(), np.eye(3), atol=1e-6)
 
 
@@ -158,7 +162,7 @@ def test_save_voxel(tmp_path):
     vox[1, 2, 3] = 1
     path = str(tmp_path / 'vox.obj')
     obj_io.save_voxel(path, torch.from_numpy(vox))
-    v, f = obj_io.load_obj(path)
+    v, f = obj_io.load_obj(path, device='cpu')
     assert tuple(v.shape) == (1, 3)
     np.testing.assert_allclose(v.numpy(), [[0.25, 0.5, 0.75]])
     assert tuple(f.shape) == (0, 3)
@@ -185,9 +189,11 @@ def test_wrapped_uv_texture_load(tmp_path):
         return path
 
     _, _, tex_base = obj_io.load_obj(write_obj('a.obj', 0.0),
-                                     load_texture=True, texture_res=3)
+                                     load_texture=True, texture_res=3,
+                                     device='cpu')
     _, _, tex_wrap = obj_io.load_obj(write_obj('b.obj', 1.0),
-                                     load_texture=True, texture_res=3)
+                                     load_texture=True, texture_res=3,
+                                     device='cpu')
     np.testing.assert_allclose(tex_wrap.numpy(), tex_base.numpy(), atol=1e-6)
     # and the samples really came from the image, not the default white
     assert tex_base.numpy().std() > 0.01
@@ -349,7 +355,7 @@ def test_create_texture_image_and_save_obj_equal_jax(tmp_path, res_in,
         _, _, want = JIO.load_obj(path, load_texture=True,
                                   texture_res=res_in)
         _, _, got = obj_io.load_obj(path, load_texture=True,
-                                    texture_res=res_in)
+                                    texture_res=res_in, device='cpu')
         assert tuple(got.shape) == (f.shape[0], res_in ** 2, 3)
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    atol=NOISE_ATOL)
@@ -362,7 +368,7 @@ def test_sample_textures_from_image_equals_jax():
     uvs = rng.rand(7, 3, 2).astype(np.float32)
     uvs[0] = [[0, 0], [1, 0], [1, 1]]          # the image's corners
     for res in (1, 2, 4, 16):
-        got = obj_io.sample_textures_from_image(image, uvs, res)
+        got = obj_io.sample_textures_from_image(image, uvs, res, 'cpu')
         want = JIO.sample_textures_from_image(image, uvs, res)
         assert tuple(got.shape) == (7, res * res, 3)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
@@ -386,9 +392,10 @@ def test_missing_material_library_is_an_error(tmp_path):
     path = tmp_path / 'plain.obj'
     path.write_text('v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n')
     with pytest.raises(Exception, match='textures'):
-        obj_io.load_obj(str(path), load_texture=True)
+        obj_io.load_obj(str(path), load_texture=True, device='cpu')
     with pytest.raises(Exception, match='vertex colors'):
-        obj_io.load_obj(str(path), load_texture=True, texture_type='vertex')
+        obj_io.load_obj(str(path), load_texture=True, texture_type='vertex',
+                        device='cpu')
 
 
 # -- the PNG reader --------------------------------------------------------------
@@ -496,7 +503,7 @@ def test_panda_obj_and_load_or_make_mesh_read_a_written_obj(tmp_path,
                                 texture_res=4)
 
     monkeypatch.setenv('GENDR_PANDA_OBJ', path)
-    mesh = TA.textured_scene(4)
+    mesh = TA.textured_scene(4, 'cpu')
     assert mesh.texture_res == 4 and mesh.texture_type == 'surface'
     assert tuple(mesh.textures.shape) == (1, 1280, 16, 3)
     np.testing.assert_array_equal(mesh.vertices[0].numpy(), np.asarray(jv))
@@ -504,7 +511,7 @@ def test_panda_obj_and_load_or_make_mesh_read_a_written_obj(tmp_path,
     np.testing.assert_allclose(mesh.textures[0].numpy(), np.asarray(jtex),
                                atol=1e-6)
     carried = interop.mesh_from_numpy(np.asarray(jv), np.asarray(jf),
-                                      np.asarray(jtex))
+                                      np.asarray(jtex), device='cpu')
     assert carried.texture_res == 4 and carried.batch_size == 1
     np.testing.assert_allclose(carried.face_textures.numpy(),
                                mesh.face_textures.numpy(), atol=1e-6)

@@ -49,7 +49,7 @@ def _pipelines(texture_type, seed=0, level=2):
     tmesh = interop.mesh_from_numpy(np.asarray(jmesh.vertices),
                                     np.asarray(jmesh.faces),
                                     np.asarray(jmesh.textures),
-                                    texture_type=texture_type)
+                                    texture_type=texture_type, device='cpu')
     jlook = gendr_tpu.LookAt(viewing_angle=30)
     jlook.set_eyes_from_angles(2.732, 30.0, 45.0)
     tlook = gendr_tpu_torch.LookAt(viewing_angle=30)
@@ -83,7 +83,8 @@ def test_slice_matches_gendr_tpu(kw, texture_type, backend):
     got = renderer(tmesh)
     carried = renderer(interop.mesh_from_numpy(
         np.asarray(jmesh.vertices), np.asarray(jmesh.faces),
-        np.asarray(jmesh.textures), texture_type=texture_type))
+        np.asarray(jmesh.textures), texture_type=texture_type,
+        device='cpu'))
     assert CB.LAUNCHES['rasterize_fwd'] == launches  # CPU: never a launch
     _assert_close_images(got, want)
     _assert_close_images(carried, want, flip_budget=0.0)
@@ -145,10 +146,11 @@ def test_geometry_layer_matches_gendr_tpu():
 
 def test_mesh_lighting_and_lookat_modules():
     v, f = data.icosphere(1)
-    mesh = gendr_tpu_torch.Mesh.create(v, f, texture_res=2)
+    mesh = gendr_tpu_torch.Mesh.create(v, f, texture_res=2, device='cpu')
     assert mesh.textures.shape == (1, f.shape[0], 4, 3)
     assert mesh.repeat(3).vertices.shape == (3, v.shape[0], 3)
-    vmesh = gendr_tpu_torch.Mesh.create(v, f, texture_type='vertex')
+    vmesh = gendr_tpu_torch.Mesh.create(v, f, texture_type='vertex',
+                                        device='cpu')
     assert vmesh.face_textures.shape == (1, f.shape[0], 3, 3)
     lit = gendr_tpu_torch.Lighting()(vmesh)
     assert lit is not vmesh and float(lit.textures.max()) <= 1.0 + 1e-6

@@ -231,12 +231,12 @@ def test_textured_scene_equals_the_jax_stand_in(monkeypatch):
         np.testing.assert_array_equal(v, np.asarray(want.vertices)[0])
         np.testing.assert_array_equal(f, np.asarray(want.faces)[0])
         np.testing.assert_array_equal(tex, np.asarray(want.textures))
-        mesh = TA.textured_scene(res)
+        mesh = TA.textured_scene(res, 'cpu')
         assert mesh.texture_res == res and mesh.texture_type == 'surface'
         np.testing.assert_array_equal(mesh.textures.numpy(), tex)
     monkeypatch.setenv('GENDR_PANDA_OBJ', '/nonexistent/panda.obj')
     with pytest.raises(FileNotFoundError, match='GENDR_PANDA_OBJ'):
-        TA.textured_scene(5)
+        TA.textured_scene(5, 'cpu')
 
 
 @pytest.mark.parametrize('texture_type,res', [('surface', 3),
@@ -253,7 +253,7 @@ def test_mesh_from_numpy_carries_textures(texture_type, res):
     tm = interop.mesh_from_numpy(np.asarray(jm.vertices),
                                  np.asarray(jm.faces),
                                  np.asarray(jm.textures),
-                                 texture_type=texture_type)
+                                 texture_type=texture_type, device='cpu')
     assert tm.texture_type == texture_type and tm.texture_res == res
     np.testing.assert_array_equal(tm.face_textures.numpy(),
                                   np.asarray(jm.face_textures))

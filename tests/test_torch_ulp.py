@@ -214,7 +214,28 @@ def test_torch_expression_matches_jax(case):
                                   np.isfinite(want[keep]))
     err = np.abs(got[both].astype(np.float64) - want[both])
     bound = TOL[kind] * np.maximum(np.abs(want[both]), 1.0)
-    assert (err <= bound).all(), (err.max(), np.abs(want[both]).max())
+    assert (err <= bound).all(), _worst_element(case, x, y, q, got, want,
+                                                both, err, bound)
+
+
+def _worst_element(case, x, y, q, got, want, both, err, bound):
+    """The failure message: the worst element's inputs and both sides'
+    values, and which side gives another value when run again (a one-off
+    failure once left that unsaid)."""
+    i = int(np.argmax(err - bound))
+    again = dict(
+        torch=_ulp.OPS[case.op].torch(torch.from_numpy(x),
+                                      torch.from_numpy(y), q).numpy(),
+        jax=np.asarray(JAX_OPS[case.op](jnp.asarray(x), jnp.asarray(y), q)))
+    moved = [side for side, first in (('torch', got), ('jax', want))
+             if not np.array_equal(again[side], first, equal_nan=True)]
+    return (f'{case.name}: {int((err > bound).sum())} of {err.size} '
+            f'elements beyond the bound; the worst at x={float(x[both][i])!r}'
+            f' y={float(y[both][i])!r}: got (the port, torch) '
+            f'{float(got[both][i])!r}, want (the reference, jax) '
+            f'{float(want[both][i])!r}, |difference| {err[i]:.3g} against '
+            f'{bound[i]:.3g}; run again, the side that moves: '
+            f'{moved or "neither"}')
 
 
 def test_wrappers_run_the_torch_expression_on_cpu_tensors():

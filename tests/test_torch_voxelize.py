@@ -14,7 +14,7 @@ from gendr_tpu_torch.geometry.mesh import Mesh
 
 def test_sphere_is_solid():
     v, f = data.icosphere(3)
-    mesh = Mesh.create(v * 0.4, f)  # reference convention: verts in [-0.5, 0.5]
+    mesh = Mesh.create(v * 0.4, f, device='cpu')  # reference convention: verts in [-0.5, 0.5]
     vox = mesh.voxelize(32)
     assert tuple(vox.shape) == (1, 32, 32, 32) and vox.dtype == torch.int32
     vox = vox.numpy()
