@@ -104,11 +104,12 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    beside the probabilistic fold at the same shapes, the probe kernels,
    path (e)'s mesh at 25, 256 and 1024 texels per face under softmax and
    hard RGB (forward and backward at 4 views of 512x512, forward at a
-   1536x1536 frame), the backward's texel sums in shared against global
-   memory at 36 and 144 texels, ``load_obj`` and ``voxelization`` on the
-   host clock, the panda frames' render alone, the forward render and the forward +
-   backward through both backends, and the median training step through
-   both backends.
+   1536x1536 frame; each backward line also gives the slices S its
+   chunk lists are cut into, the longest slice in tiles and the
+   workspace's size),
+   ``load_obj`` and ``voxelization`` on the host clock, the panda frames'
+   render alone, the forward render and the forward + backward through
+   both backends, and the median training step through both backends.
 
 Every failure raises, and the script then exits non-zero.  It exits
 non-zero with no result where there is no CUDA device.  The last line of
@@ -233,13 +234,15 @@ def smi_line():
 def ptxas_summary(report):
     """Per kernel instantiation of a ptxas -v report, one line: the
     kernel's template arguments (for the render kernels ALPHA, MODE of
-    csrc/pairmath.cuh), its registers and its spills."""
+    csrc/pairmath.cuh) or, for a kernel that has none, its entry name, its
+    registers and its spills."""
     import re
     lines, entry = [], ''
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            entry = '<' + ', '.join(re.findall(r'Li(\d+)E', m.group(1))) + '>'
+            args = re.findall(r'Li(\d+)E', m.group(1))
+            entry = '<' + ', '.join(args) + '>' if args else m.group(1)
         elif 'spill' in line:
             lines.append(f'{entry} {line.split(":", 1)[-1].strip()}')
         elif 'registers' in line:
@@ -1643,15 +1646,27 @@ def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
         bargs = (aux['chunk_counts'], aux['chunk_ids'], aux['par'],
                  aux['packed'], aux['perm'], pix, cfg, TS, *band)
         rows = CB.rasterize_bwd(*bargs)
+        # the kernel's slices: a block walks at most `longest` tiles of the
+        # longest chunk list; the workspace holds S slots where S > 1
+        B, NO, Fp = rows.shape
+        nslices = CB.bwd_slice_count(B, NO, Fp, aux['chunk_ids'].shape[2])
+        n_max = int(aux['chunk_counts'].max())
+        ws_mib = (nslices > 1) * nslices * _nbytes(rows) / 2**20
         res['rasterize_bwd'] = dict(
             ms=_median_ms(lambda: CB.rasterize_bwd(*bargs), reps),
             plain_ms=_median_ms(lambda: CB.rasterize_bwd_plain(*bargs),
                                 *plain),
             bound=bound(_input_bytes(bargs[:6], aux['packed'], cfg, pairs)
-                        + _nbytes(rows), pairs * bwd_flops))
+                        + _nbytes(rows), pairs * bwd_flops),
+            slices=nslices, longest_list=n_max, workspace_mib=ws_mib,
+            longest_slice=max(e - s for s, e in CB.bwd_slices(n_max,
+                                                              nslices)))
     torch.cuda.empty_cache()
     parts = [f'{k} {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, '
              f'bound {r["bound"][0]:.4f} ms ({r["bound"][1]})'
+             + (f', S={r["slices"]}, longest slice {r["longest_slice"]} '
+                f'of a {r["longest_list"]}-tile list, workspace '
+                f'{r["workspace_mib"]:.1f} MiB' if 'slices' in r else '')
              for k, r in res.items()]
     B = fv.shape[0]
     rows = '' if row_band is None else f' rows {band[0]}+{band[1]}'

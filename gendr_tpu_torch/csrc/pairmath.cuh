@@ -380,12 +380,23 @@ __device__ inline float aggregate_backward(int tid, float a_all, float b,
 
 // bbox gate (pairmath.py P_MARGIN): outside it a pair's true coverage is
 // below the probability cull, and a sliver face's fp32 barycentrics are
-// not evaluated at all
+// not evaluated at all.  It is a rectangle: a test on x and one on y
+template <class Row>
+__device__ __forceinline__ bool gate_x(const Row& row, float xp,
+                                       float margin) {
+  return xp >= row(R_BBOX + 0) - margin && xp <= row(R_BBOX + 1) + margin;
+}
+
+template <class Row>
+__device__ __forceinline__ bool gate_y(const Row& row, float yp,
+                                       float margin) {
+  return yp >= row(R_BBOX + 2) - margin && yp <= row(R_BBOX + 3) + margin;
+}
+
 template <class Row>
 __device__ __forceinline__ bool in_gate(const Row& row, float xp, float yp,
                                         float margin) {
-  return xp >= row(R_BBOX + 0) - margin && xp <= row(R_BBOX + 1) + margin &&
-         yp >= row(R_BBOX + 2) - margin && yp <= row(R_BBOX + 3) + margin;
+  return gate_x(row, xp, margin) && gate_y(row, yp, margin);
 }
 
 // an affine per-face value a*x + b*y + c (pack.py)

@@ -27,45 +27,82 @@
 // (pallas_backend.py:1365-1384).  Each face sums its pairs into 6 vertex xy
 // gradients, 3 vertex z gradients (softmax) and its texture gradients.
 //
-// What bounds it on the card: per-pair ALU work and how few blocks there
-// are.  The input is small (the chunk's packed rows, 2, 6 or 10 pixel
-// columns of 4 bytes per pixel); every pair the bbox gate admits costs some
-// 100 flops of pair math, CDF and PDF, and some 60 more on the softmax
-// path.  One block per (batch, face chunk) gives B * K blocks, 10 at the
-// flagship (1280 faces, B=1): the card's 132 SMs are mostly idle there.
-// That is the price of the design below and is left for a later redesign.
+// How the pairs are spread over the card.  The TPU kernel runs a
+// sequential grid over (batch, face chunk, hit tile) and carries each
+// face's sums from one tile to the next; a step computes a whole 256 pixel
+// x 128 face slab in lanes.  Here one thread owns one face of a chunk and
+// walks pixels in series, so a block's time is the length of the tile list
+// it walks.  Each chunk's hit-tile list of n entries is therefore cut into
+// S slices, one block per (chunk k, batch element b, slice s): block s
+// walks list positions [floor(s n / S), floor((s + 1) n / S)) in list
+// order.  n is read on the device, so the host reads nothing back; S is a
+// function of shapes alone (cuda_backend.bwd_slice_count: up to 128, fewer
+// where the workspace below would pass 256 MiB).  Each block writes its
+// sums, zeros included and even for an empty slice, into its own slot of a
+// workspace [B, S, NO, Fp] that the wrapper allocates, and a second
+// kernel, rasterize_bwd_reduce, sums the slots of each output entry in the
+// fixed order s = 0, 1, ..., S - 1 (the wrapper's launch count,
+// LAUNCHES['rasterize_bwd'], counts one per call for both passes).  Where
+// S = 1 the one slot is the output itself and the second pass is not
+// launched, so the largest shapes need no memory beside the output.  No
+// atomics: each sum has one owner and a fixed order, and S and the
+// partition depend on shapes and n alone, so the same inputs give
+// bitwise-equal gradients.  At the flagship (1280 faces, 256x256, B=1)
+// that is 1280 blocks, none walking more than one tile, where one block
+// per chunk gave 10 blocks and a walk of 48.
 //
-// What the design does: one block per (batch element, face chunk), one
-// thread per face of the chunk, holding its face's geometry rows and its
-// gradient sums in registers.  The block walks the chunk's hit-tile list;
-// for each tile it stages the tile's 256 pixel columns in shared memory
-// (at most 10 KB) and every thread walks them in a fixed order.  A thread
-// skips a whole tile whose rectangle misses its face's bbox + P_MARGIN,
-// and any pair outside that gate.  A surface texture of TS > 1 texels has
-// 3 TS sums per face, too many for registers.  While a chunk's fit (TS up
-// to 144 at FC 128, by opting in above 48 KB) they live in a shared-memory
-// block [3 TS, FC] whose column f only thread f touches (TEX_SHARED).
-// Above that (K2d: TS 256 is 393 KB a chunk, TS 1024 1.5 MB) thread f sums
-// straight into its own column of the output rows in global memory, which
-// it zeroes first (TEX_GLOBAL): a 4-byte read-modify-write per admitted
-// pair and channel that stays in the L2 cache, where the TPU kernel made
-// passes over blocks of 8 texels with one-hot masks and, for hard RGB,
-// left the sums to a segment-sum after the kernel.  Either way a sum has
-// one owner and a fixed order, and the results are bitwise equal; the C
-// entry picks by size alone.  Where both fit, global memory was 1.02x
-// (TS 36) and 1.06x (TS 144) the shared block's time on the flagship scene
-// from 4 views at 512x512, softmax RGB (NVIDIA H100 80GB HBM3, 700.00 W;
-// PERF.md).  Hard RGB adds only a pixel's winning pair.
-// The 9 vertex-colour sums and the 3 of one texel stay in registers, which
-// is faster: holding them in the shared block too cost 10 % at the flagship
-// and 6 % at the default GenDR with vertex colours (NVIDIA H100 80GB HBM3,
-// 700.00 W; PERF.md).
-// The six parametric t-conorms (K2c) share one instantiation per mode,
+// Within a block: each thread holds its face's geometry rows and its
+// gradient sums in registers.  The tile's NPIX x 256 pixel columns (2, 6
+// or 10 floats a pixel) are staged in shared memory through a two-stage
+// ring of cp.async copies (cuda_pipeline.h): the next tile's columns are
+// in flight while the current tile is computed, as the Pallas kernel
+// double-buffers them by DMA (pallas_backend.py:1213-1250).  Of a staged
+// tile, a thread walks the pixels inside its face's bbox + P_MARGIN (the
+// gate): a rectangle of the tile's columns and rows that it finds with the
+// gate's own expressions, walked in the tile's row-major order, so a warp
+// steps through as many pixels as its largest face's rectangle holds, not
+// all 256 of the tile's.  A surface texture of TS > 1 texels has 3 TS
+// sums per face, too many for registers.  While a chunk's fit beside the
+// ring (TS up to 121 at FC 128, by opting in above 48 KB) they live in a
+// shared-memory block [3 TS, FC] whose column f only thread f touches
+// (TEX_SHARED); above that thread f sums straight into its own column of
+// its workspace slot in global memory, which it zeroes first (TEX_GLOBAL):
+// a 4-byte read-modify-write per admitted pair and channel, in the L2
+// cache.  Either way a sum has one owner and a fixed order; the C entry
+// picks by size alone.  Hard RGB adds only a pixel's winning pair.  The 9
+// vertex-colour sums and the 3 of one texel stay in registers.  The six
+// parametric t-conorms (K2c) share one instantiation per mode,
 // ALPHA_PARAMETRIC, and switch on the family at run time as the forward
 // kernel does (rasterize_fwd.cu says why); their aggregate-inverse rule is
 // pairmath.cuh's parametric_aggregate_backward, up to four powf per pair.
-// No atomics: each sum has one owner and a fixed order, so the same inputs
-// give bitwise-equal gradients.
+//
+// What bounds it on the card.  The pair math is a branchy closest-feature
+// search, a CDF and a PDF per pair and a sum over pixels: no product of
+// matrices appears, so the tensor cores do not apply, and every gated pair
+// costs some 110-190 fp32 operations, some of them transcendental.  The
+// inputs are small (the chunk's packed rows, the pixel columns), so the
+// kernel is bound by latency: each warp's pixels run one dependent chain
+// after another, and what hides that is how many warps an SM holds.
+// Uncapped, the instantiations took 161-227 registers a thread, two blocks
+// of 128 threads an SM; __maxnreg__(168) fits three with 0 spills in every
+// instantiation (chip_smoke.py prints ptxas's report), 1.2-1.4x faster at
+// the default GenDR.  (__launch_bounds__ cannot say it: its minimum of
+// blocks counts blocks of MAX_FC = 256 threads, and two of those cap a
+// thread at 128 registers, where the softmax ones spill 52-84 bytes.)  A
+// shared block of the geometry rows in place of registers cost 5-25 %;
+// the cp.async ring moved times by less than the noise against a one-stage
+// build, since a tile's columns are 10 KB against tens of microseconds of
+// pair math, and it takes the shared memory that held texel sums from TS
+// 122 to 144 (at TS 144 the kernel is still 5x the unsplit one's, which
+// kept them there).  The reduce pass moves S x B x NO x Fp floats and is
+// bound by memory: microseconds where S x NO is small, about 0.1 ms at
+// 1024 texels per face, where the workspace allows S = 4 and the longest
+// slice (30 tiles at 512x512) bounds the kernel.  Measured against the
+// unsplit kernel, NVIDIA H100 80GB HBM3 at 700.00 W, in one run
+// (gendr_tpu_torch/tools/bwd_times.py; PERF.md): the flagship 0.25-0.29
+// ms against 3.24-3.31, the default GenDR (4 views at 512x512, 25 texels)
+// 1.76-1.80 ms against 16.9-17.2, with vertex colours 1.21-1.25 against
+// 15.3-15.4, at 1024 texels 10.3-10.5 against 24.6-24.8.
 //
 // Semantics follow raster/pairmath.py (closest-feature branch) and
 // raster/torch_backend.py:backward; raster/cuda_backend.py:
@@ -73,6 +110,7 @@
 // winners are INPUT face ids (the forward kernel reports them so), so a
 // face compares the winner with perm[b, k * FC + f], its input id.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "pairmath.cuh"
@@ -82,10 +120,12 @@ namespace {
 using namespace gendr;
 
 constexpr int MAX_FC = 256;  // threads per block: one per face of a chunk
+constexpr int STAGES = 2;  // tiles of pixel columns in the cp.async ring
+constexpr int REDUCE_THREADS = 256;
 constexpr size_t STATIC_SMEM = 48 * 1024;  // above it a launch opts in
 constexpr size_t MAX_SMEM = 232448;        // the most a block may opt in to
 // where a face's texture gradients are summed: registers, the shared
-// block, or the output rows themselves
+// block, or the workspace slot itself
 constexpr int TEX_REGS = 0, TEX_SHARED = 1, TEX_GLOBAL = 2;
 // pixel columns (raster/cuda_backend.py PIX_*): alpha gradient, final
 // alpha, then for RGB the colour gradient, and the winner's input id (hard)
@@ -97,33 +137,36 @@ __host__ __device__ constexpr int npix(int mode) {
   return mode == MODE_SOFTMAX ? 10 : mode == MODE_HARD ? 6 : 2;
 }
 
-// One block per face chunk blockIdx.x of batch element blockIdx.y; one
-// thread per face.  ALPHA: the alpha family, or ALPHA_PARAMETRIC with the
-// family in alpha_func; MODE: alpha only, hard RGB or
-// softmax RGB.  out rows (NO of them): x0 y0 x1 y1 x2 y2, then z0 z1 z2
-// (softmax), then the texture gradients (RGB: 9 for vertex textures, 3 TS
-// for surface), one column per sorted face.
+// One block per face chunk blockIdx.x of batch element blockIdx.y and
+// slice blockIdx.z of the chunk's hit-tile list; one thread per face.
+// ALPHA: the alpha family, or ALPHA_PARAMETRIC with the family in
+// alpha_func; MODE: alpha only, hard RGB or softmax RGB.  Its slot of ws
+// [B, S, NO, Fp] gets NO rows: x0 y0 x1 y1 x2 y2, then z0 z1 z2 (softmax),
+// then the texture gradients (RGB: 9 for vertex textures, 3 TS for
+// surface), one column per sorted face.
 template <int ALPHA, int MODE>
-__global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
+__global__ void __maxnreg__(168) rasterize_bwd_kernel(
     const int* __restrict__ chunk_counts,  // [B, K]
     const int* __restrict__ chunk_ids,     // [B, K, T]
     const float* __restrict__ par,         // [16]
     const float* __restrict__ packed,      // [B, NI, Fp]
     const int* __restrict__ perm,          // [B, Fp] input id per sorted slot
     const float* __restrict__ pix,         // [B, NPIX, P]
-    float* __restrict__ out,               // [B, NO, Fp]
+    float* __restrict__ ws,                // [B, S, NO, Fp]
     int NI, int NO, int Fp, int FC, int image_size, int tiles_x, int row0,
     int height, int dist_func, int dist_squared, int alpha_func,
     int double_side, int texture_type, int texture_res, int tex_store) {
   constexpr int NPIX = npix(MODE);
   constexpr int NZ = MODE == MODE_SOFTMAX ? 3 : 0;
+  constexpr int STAGE = NPIX * THREADS;  // floats of one staged tile
   extern __shared__ float smem[];
-  float* cols = smem;                   // [NPIX, THREADS] the tile's pixels
-  float* tsum = smem + NPIX * THREADS;  // [3 TS, FC] surface texel sums
+  float* ring = smem;                   // [STAGES, NPIX, THREADS]
+  float* tsum = smem + STAGES * STAGE;  // [3 TS, FC] surface texel sums
 
-  const int K = gridDim.x;
+  const int K = gridDim.x, S = gridDim.z;
   const int k = blockIdx.x;
   const int b = blockIdx.y;
+  const int s = blockIdx.z;
   const int f = threadIdx.x;
   const int gf = k * FC + f;  // sorted face slot
   const int is = image_size;
@@ -133,10 +176,10 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
   const bool vertex = texture_type == TEXTURE_VERTEX;
   const int ntex = NO - 6 - NZ;  // texture gradient rows (0 for alpha)
   // texture sums in registers (vertex colours, one texel), in shared
-  // memory or in this face's column of the output's texture rows
+  // memory or in this face's column of the slot's texture rows
   const bool tex_in_regs = tex_store == TEX_REGS;
-  float* otex =
-      out + ((size_t)b * NO + 6 + NZ) * Fp + gf;  // row i at otex[i * Fp]
+  float* slot = ws + ((size_t)b * S + s) * NO * Fp + gf;  // row i: [i * Fp]
+  float* otex = slot + (size_t)(6 + NZ) * Fp;
 
   const float scale = par[P_SCALE], shape = par[P_SHAPE];
   const float shift = par[P_SHIFT], thr = par[P_THR];
@@ -197,39 +240,74 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
     }
   };
 
+  // this block's slice of the chunk's list
   const int n = chunk_counts[b * K + k];
+  const int j0 = (int)((long long)s * n / S);
+  const int j1 = (int)((long long)(s + 1) * n / S);
   const int* my_tiles = chunk_ids + ((size_t)b * K + k) * T;
   const float* px = pix + (size_t)b * NPIX * P;
 
-  for (int j = 0; j < n; ++j) {
+  // start the copies of list position j's pixel columns into a ring stage:
+  // 4 bytes a copy (a tile row need not be 16-byte aligned); the ragged
+  // edge tile's missing pixels are zeros
+  const auto stage_tile = [&](int j) {
+    const int t = my_tiles[j];
+    const int r0 = (t / tiles_x) * TILE, c0 = (t % tiles_x) * TILE;
+    float* dst = ring + ((j - j0) % STAGES) * STAGE;
+    for (int i = f; i < STAGE; i += FC) {
+      const int c = i / THREADS, l = i - c * THREADS;
+      const int prow = r0 + l / TILE, pcol = c0 + l % TILE;
+      if (prow < height && pcol < is)
+        __pipeline_memcpy_async(
+            dst + i, px + (size_t)c * P + (size_t)prow * is + pcol,
+            sizeof(float));
+      else
+        dst[i] = 0.0f;
+    }
+  };
+
+  for (int j = j0; j < j0 + STAGES - 1 && j < j1; ++j) stage_tile(j);
+  __pipeline_commit();
+  for (int j = j0; j < j1; ++j) {
+    __syncthreads();  // every thread is done with the stage refilled next
+    if (j + STAGES - 1 < j1) stage_tile(j + STAGES - 1);
+    __pipeline_commit();  // a group per position, empty ones included
+    __pipeline_wait_prior(STAGES - 1);  // this thread's copies of tile j
+    __syncthreads();                    // and every other thread's
+    if (!face_valid) continue;
+    const float* cols = ring + ((j - j0) % STAGES) * STAGE;
     const int t = my_tiles[j];
     const int r0 = (t / tiles_x) * TILE;  // band-local; row0 + r0 in the image
     const int c0 = (t % tiles_x) * TILE;
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = f; i < NPIX * THREADS; i += FC) {
-      const int c = i / THREADS, l = i - c * THREADS;
-      const int prow = r0 + l / TILE, pcol = c0 + l % TILE;
-      cols[i] = (prow < height && pcol < is)
-                    ? px[(size_t)c * P + (size_t)prow * is + pcol]
-                    : 0.0f;
+    // the gate (in_gate) is a rectangle in NDC and pixel_x, pixel_y are
+    // monotone, so the tile's pixels it admits are the columns [x0, x1]
+    // times the rows [y0, y1] found by its halves, gate_x and gate_y; the
+    // ragged edge tile's missing pixels are outside.  The walk visits
+    // exactly them, in the tile's row-major order, and a warp's lanes each
+    // walk their own face's rectangle
+    int x0 = TILE, x1 = -1, y0 = TILE, y1 = -1;
+    for (int i = 0; i < TILE; ++i) {
+      const float xp = pixel_x(c0 + i, is);
+      if (c0 + i < is && gate_x(row, xp, margin)) {
+        x0 = min(x0, i);
+        x1 = i;
+      }
+      const float yp = pixel_y(row0 + r0 + i, is);
+      if (r0 + i < height && gate_y(row, yp, margin)) {
+        y0 = min(y0, i);
+        y1 = i;
+      }
     }
-    __syncthreads();
-    if (!face_valid) continue;
-    // the tile's pixel-centre rectangle against the gate: a tile that
-    // misses it holds no pair the gate admits (the same NDC expressions as
-    // the pairs', so the skip is exact)
-    if (pixel_x(c0 + TILE - 1, is) < row(R_BBOX + 0) - margin ||
-        pixel_x(c0, is) > row(R_BBOX + 1) + margin ||
-        pixel_y(row0 + r0, is) < row(R_BBOX + 2) - margin ||
-        pixel_y(row0 + r0 + TILE - 1, is) > row(R_BBOX + 3) + margin)
-      continue;
+    const int npx = x1 < x0 || y1 < y0 ? 0 : (x1 - x0 + 1) * (y1 - y0 + 1);
 
-    for (int l = 0; l < THREADS; ++l) {
-      const int prow = r0 + l / TILE, pcol = c0 + l % TILE;
-      if (prow >= height || pcol >= is) continue;  // ragged edge tile
-      const float xp = pixel_x(pcol, is);
-      const float yp = pixel_y(row0 + prow, is);
-      if (!in_gate(row, xp, yp, margin)) continue;
+    for (int i = 0, tx = x0, ty = y0; i < npx; ++i) {
+      const int l = ty * TILE + tx;
+      const float xp = pixel_x(c0 + tx, is);
+      const float yp = pixel_y(row0 + r0 + ty, is);
+      if (++tx > x1) {
+        tx = x0;
+        ++ty;
+      }
       const float w[3] = {affine(row, R_INV + 0, xp, yp),
                           affine(row, R_INV + 3, xp, yp),
                           affine(row, R_INV + 6, xp, yp)};
@@ -334,18 +412,30 @@ __global__ void __launch_bounds__(MAX_FC) rasterize_bwd_kernel(
     }
   }
 
-  float* o = out + (size_t)b * NO * Fp + gf;
 #pragma unroll
-  for (int c = 0; c < 6 + NZ; ++c) o[(size_t)c * Fp] = acc[c];
-  o += (size_t)(6 + NZ) * Fp;
+  for (int c = 0; c < 6 + NZ; ++c) slot[(size_t)c * Fp] = acc[c];
   if (MODE == MODE_ALPHA) return;
   if (tex_in_regs) {
 #pragma unroll
     for (int c = 0; c < 9; ++c)
-      if (c < ntex) o[(size_t)c * Fp] = tacc[c];
+      if (c < ntex) otex[(size_t)c * Fp] = tacc[c];
   } else if (tex_store == TEX_SHARED) {
-    for (int i = 0; i < ntex; ++i) o[(size_t)i * Fp] = tsum[i * FC + f];
+    for (int i = 0; i < ntex; ++i) otex[(size_t)i * Fp] = tsum[i * FC + f];
   }
+}
+
+// out[b, e] = sum over s of ws[b, s, e] in the order s = 0, 1, ..., S - 1,
+// one thread per entry e of a batch element's per_b = NO x Fp
+__global__ void __launch_bounds__(REDUCE_THREADS) rasterize_bwd_reduce(
+    const float* __restrict__ ws, float* __restrict__ out, int S,
+    size_t per_b, size_t total) {
+  const size_t i = (size_t)blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  if (i >= total) return;
+  const size_t b = i / per_b;
+  const float* w = ws + b * S * per_b + (i - b * per_b);
+  float sum = w[0];
+  for (int s = 1; s < S; ++s) sum += w[(size_t)s * per_b];
+  out[i] = sum;
 }
 
 struct Args {
@@ -355,7 +445,7 @@ struct Args {
   const float* packed;
   const int* perm;
   const float* pix;
-  float* out;
+  float* ws;
   int NI, NO, Fp, FC, image_size, tiles_x, row0, height, dist_func,
       dist_squared, alpha_func, double_side, texture_type, texture_res,
       tex_store;
@@ -371,7 +461,7 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
     if (err != cudaSuccess) return err;
   }
   kernel<<<grid, a.FC, smem, stream>>>(
-      a.chunk_counts, a.chunk_ids, a.par, a.packed, a.perm, a.pix, a.out,
+      a.chunk_counts, a.chunk_ids, a.par, a.packed, a.perm, a.pix, a.ws,
       a.NI, a.NO, a.Fp, a.FC, a.image_size, a.tiles_x, a.row0, a.height,
       a.dist_func, a.dist_squared, a.alpha_func, a.double_side,
       a.texture_type, a.texture_res, a.tex_store);
@@ -398,25 +488,39 @@ cudaError_t launch_family(dim3 grid, size_t smem, cudaStream_t stream,
   return cudaErrorInvalidValue;
 }
 
+cudaError_t launch_mode(int mode, dim3 grid, size_t smem, cudaStream_t s,
+                        const Args& a) {
+  switch (mode) {
+    case MODE_ALPHA: return launch_family<MODE_ALPHA>(grid, smem, s, a);
+    case MODE_HARD: return launch_family<MODE_HARD>(grid, smem, s, a);
+    case MODE_SOFTMAX: return launch_family<MODE_SOFTMAX>(grid, smem, s, a);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// C interface, loaded with ctypes (gendr_tpu_torch/_build.py).  Launches on
-// `stream` and returns the launch's error (0 on success); never
-// synchronizes and allocates nothing.  T is the row length of chunk_ids;
-// texture_res is R of an R x R surface texture (1 for one texel); NO, the
-// rows of out, must be the layout's: 6, the 3 z rows for softmax, and for
-// RGB the 9 vertex-colour or 3 R^2 texel rows.  A surface texture of R > 1
-// sums its texel gradients in the shared block while that fits MAX_SMEM
-// beside the pixel columns, and in the output rows above.  The launch sums
+// C interface, loaded with ctypes (gendr_tpu_torch/_build.py).  Launches
+// both passes on `stream` and returns the first launch error (0 on
+// success); never synchronizes and allocates nothing.  T is the row length
+// of chunk_ids; S (1 to 65535) the slices each chunk's list is cut into;
+// ws the workspace [B, S, NO, Fp], out the result [B, NO, Fp].  With S = 1
+// ws must be out: the one slice writes the result and the second pass is
+// not launched (with S > 1 ws must not be out).  texture_res is R of an
+// R x R surface texture (1 for one texel); NO, the rows of out, must be the
+// layout's: 6, the 3 z rows for softmax, and for RGB the 9 vertex-colour
+// or 3 R^2 texel rows.  A surface texture of R > 1 sums its
+// texel gradients in the shared block while that fits MAX_SMEM beside the
+// ring of pixel columns, and in the workspace slot above.  The launch sums
 // over image rows [row0, row0 + height): pix is [B, NPIX, height *
 // image_size] and T = ceil(image_size / 16) x ceil(height / 16) the band's
 // tiles.
 extern "C" int gendr_rasterize_bwd(
     const int* chunk_counts, const int* chunk_ids, int T, const float* par,
-    const float* packed, const int* perm, const float* pix, float* out, int B,
-    int NI, int NO, int Fp, int FC, int image_size, int row0, int height,
-    int dist_func, int dist_squared, int alpha_func, int mode,
-    int double_side, int texture_type, int texture_res, int device,
+    const float* packed, const int* perm, const float* pix, float* ws,
+    float* out, int B, int NI, int NO, int Fp, int FC, int S, int image_size,
+    int row0, int height, int dist_func, int dist_squared, int alpha_func,
+    int mode, int double_side, int texture_type, int texture_res, int device,
     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -427,35 +531,34 @@ extern "C" int gendr_rasterize_bwd(
                        ? 9
                        : 3 * texture_res * texture_res;
   if (FC < 1 || FC > MAX_FC || Fp % FC != 0 || T != tiles_x * tiles_y ||
-      row0 < 0 || height < 1 || row0 + height > image_size ||
-      NI < R_TEX + ntex || texture_res < 1 ||
-      NO != 6 + (mode == MODE_SOFTMAX ? 3 : 0) + ntex)
+      S < 1 || S > 65535 || (S == 1) != (ws == out) || row0 < 0 ||
+      height < 1 || row0 + height > image_size || NI < R_TEX + ntex ||
+      texture_res < 1 || NO != 6 + (mode == MODE_SOFTMAX ? 3 : 0) + ntex)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(Fp / FC, B);
+  const dim3 grid(Fp / FC, B, S);
   const bool big = ntex > 0 && texture_type == TEXTURE_SURFACE &&
                    texture_res > 1;
-  const size_t pix_smem = (size_t)npix(mode) * THREADS * sizeof(float);
+  const size_t ring_smem =
+      (size_t)STAGES * npix(mode) * THREADS * sizeof(float);
   const size_t tex_smem = (size_t)ntex * FC * sizeof(float);
-  const int tex_store = !big                              ? TEX_REGS
-                        : pix_smem + tex_smem <= MAX_SMEM ? TEX_SHARED
-                                                          : TEX_GLOBAL;
-  const size_t smem = pix_smem + (tex_store == TEX_SHARED ? tex_smem : 0);
+  const int tex_store = !big                               ? TEX_REGS
+                        : ring_smem + tex_smem <= MAX_SMEM ? TEX_SHARED
+                                                           : TEX_GLOBAL;
+  const size_t smem = ring_smem + (tex_store == TEX_SHARED ? tex_smem : 0);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{chunk_counts, chunk_ids,    par,          packed,
-               perm,         pix,          out,          NI,
+               perm,         pix,          ws,           NI,
                NO,           Fp,           FC,           image_size,
                tiles_x,      row0,         height,       dist_func,
                dist_squared, alpha_func,   double_side,  texture_type,
                texture_res,  tex_store};
-  switch (mode) {
-    case MODE_ALPHA:
-      return (int)launch_family<MODE_ALPHA>(grid, smem, s, a);
-    case MODE_HARD:
-      return (int)launch_family<MODE_HARD>(grid, smem, s, a);
-    case MODE_SOFTMAX:
-      return (int)launch_family<MODE_SOFTMAX>(grid, smem, s, a);
-  }
-  return (int)cudaErrorInvalidValue;
+  err = launch_mode(mode, grid, smem, s, a);
+  if (err != cudaSuccess || S == 1) return (int)err;
+  const size_t per_b = (size_t)NO * Fp, total = (size_t)B * per_b;
+  rasterize_bwd_reduce<<<(unsigned)((total + REDUCE_THREADS - 1) /
+                                    REDUCE_THREADS),
+                         REDUCE_THREADS, 0, s>>>(ws, out, S, per_b, total);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* gendr_error_string(int code) {

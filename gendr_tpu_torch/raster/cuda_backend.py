@@ -30,10 +30,12 @@ or square surface textures (R x R texels per face: any R for hard RGB, up
 to ``SOFTMAX_TS_CAP`` texels for softmax RGB, as in the JAX package), with
 the alpha mode hard and all nine t-conorms (the six parametric families
 fold serially, a pair at a time, with ``aggr_alpha_t_conorm_p`` read from
-the parameter vector at run time).  The backward kernel keeps a surface
-texture's 3 TS gradient sums per face in shared memory while a chunk's
-fit there (``_bwd_smem``) and in its own columns of the output in global
-memory above that.
+the parameter vector at run time).  The backward kernel cuts each chunk's
+hit-tile list into slices, one block each, and sums the slices' partial
+rows in a fixed order in a second pass (:func:`bwd_slice_count`,
+:func:`bwd_slices`); it keeps a surface texture's 3 TS gradient sums per
+face in shared memory while a chunk's fit there (``_bwd_smem``) and in its
+own columns of its slice's workspace rows in global memory above that.
 
 :func:`rasterize_fwd_plain` and :func:`rasterize_bwd_plain` are the
 kernels' functions in plain PyTorch: same inputs, same outputs.  The
@@ -76,6 +78,11 @@ MODE_ALPHA, MODE_HARD, MODE_SOFTMAX = 0, 1, 2
 LAUNCHES = {'rasterize_fwd': 0, 'rasterize_bwd': 0}
 # the backward kernel's block is one thread per face of a chunk
 MAX_BWD_CHUNK = 256
+# the backward cuts each chunk's hit-tile list into at most BWD_SLICE_CAP
+# slices, one block each, whose sums fill a workspace of at most
+# BWD_WORKSPACE_BYTES (bwd_slice_count)
+BWD_SLICE_CAP = 128
+BWD_WORKSPACE_BYTES = 256 << 20
 # softmax RGB samples surface textures of up to this many texels per face
 # (gendr_tpu's SOFTMAX_TS_CAP: texture_res 32, four times load_obj's 16);
 # hard RGB has no cap
@@ -534,17 +541,45 @@ def _bwd_layout(cfg: C.RenderConfig, TS=1):
 
 
 def _bwd_smem(cfg: C.RenderConfig, TS):
-    """Bytes of shared memory a backward block needs to hold a tile's pixel
-    columns and, for a surface texture of TS > 1 texels, its [3 TS, FC]
-    gradient sums.  The kernel keeps the sums there while this fits
-    SMEM_LIMIT (TS <= 144 at face_chunk 128) and in its columns of the
-    output in global memory above; vertex colours and one texel are summed
-    in registers."""
+    """Bytes of shared memory a backward block needs to hold its ring of
+    two tiles' pixel columns and, for a surface texture of TS > 1 texels,
+    its [3 TS, FC] gradient sums.  The kernel keeps the sums there
+    while this fits SMEM_LIMIT (TS <= 121 at face_chunk 128) and in its
+    columns of its workspace slot in global memory above; vertex colours
+    and one texel are summed in registers."""
     npix, _ = _bwd_layout(cfg, TS)
     surface = render_mode(cfg) != MODE_ALPHA \
         and cfg.texture_type == C.TEXTURE_SURFACE and TS > 1
     tex = 3 * TS * cfg.face_chunk if surface else 0
-    return (npix * TILE * TILE + tex) * 4
+    return (2 * npix * TILE * TILE + tex) * 4
+
+
+def bwd_slice_count(B, NO, Fp, T):
+    """S, the slices the backward kernel cuts each chunk's hit-tile list
+    into (one block each): BWD_SLICE_CAP, or the T tiles of a shorter
+    list, or fewer where the workspace [B, S, NO, Fp] of float32 would
+    pass BWD_WORKSPACE_BYTES; 1 where a single slice passes it, and then
+    the kernel needs no workspace (:func:`_bwd_workspace`).  A
+    function of shapes alone, so a run's sum order is too."""
+    slot = B * NO * Fp * 4
+    return max(1, min(BWD_SLICE_CAP, T, BWD_WORKSPACE_BYTES // slot))
+
+
+def _bwd_workspace(out, S):
+    """The backward kernel's workspace [B, S, NO, Fp] for the result out
+    [B, NO, Fp]: out itself where S = 1 (its one slice writes the result
+    and the C entry launches no second pass), else a new tensor."""
+    if S == 1:
+        return out
+    B, NO, Fp = out.shape
+    return torch.empty((B, S, NO, Fp), dtype=out.dtype, device=out.device)
+
+
+def bwd_slices(n, S):
+    """The kernel's partition of a list of n hit tiles into S slices:
+    [(start, end)] of list positions, slice s = [s n // S, (s + 1) n // S)
+    (n an int or an integer tensor)."""
+    return [(s * n // S, (s + 1) * n // S) for s in range(S)]
 
 
 def _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
@@ -592,7 +627,12 @@ def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
     (None: all), P = height x image_size, with the hit lists of that
     band's tiles.
 
-    CUDA tensors launch ``csrc/rasterize_bwd.cu`` on the current stream;
+    CUDA tensors launch ``csrc/rasterize_bwd.cu`` on the current stream:
+    its two passes, one block per (chunk, batch element, slice of the
+    chunk's hit list) into a workspace [B, S, NO, Fp] (S =
+    :func:`bwd_slice_count`), then the slices summed in a fixed order;
+    where S = 1, the one pass straight into the result.
+    ``LAUNCHES['rasterize_bwd']`` counts one per call, for both passes.
     CPU tensors run :func:`rasterize_bwd_plain`.
     """
     height = cfg.image_size if height is None else height
@@ -609,13 +649,16 @@ def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
     lib = _build.load('rasterize_bwd')
     B, NI, Fp = packed.shape
     _, NO = _bwd_layout(cfg, TS)
+    T = chunk_ids.shape[2]
+    S = bwd_slice_count(B, NO, Fp, T)
     out = torch.empty((B, NO, Fp), dtype=torch.float32, device=packed.device)
+    ws = _bwd_workspace(out, S)
     stream = torch.cuda.current_stream(packed.device)
     err = lib.gendr_rasterize_bwd(
-        chunk_counts.data_ptr(), chunk_ids.data_ptr(), chunk_ids.shape[2],
+        chunk_counts.data_ptr(), chunk_ids.data_ptr(), T,
         par.data_ptr(), packed.data_ptr(), perm.data_ptr(), pix.data_ptr(),
-        out.data_ptr(), B, NI, NO, Fp, cfg.face_chunk, cfg.image_size,
-        row0, height, cfg.dist_func, int(cfg.dist_squared),
+        ws.data_ptr(), out.data_ptr(), B, NI, NO, Fp, cfg.face_chunk, S,
+        cfg.image_size, row0, height, cfg.dist_func, int(cfg.dist_squared),
         cfg.aggr_alpha_func,
         render_mode(cfg), int(cfg.double_side), cfg.texture_type,
         texture_res(TS), packed.device.index or 0,

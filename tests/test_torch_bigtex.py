@@ -165,30 +165,32 @@ def test_packed_rows_pad_texels_to_a_block(ts, rows):
 
 
 @pytest.mark.parametrize('rgb,ts,fc,store,smem', [
-    # registers: vertex colours and one texel are not in this table's path
-    ('softmax', 25, 128, 'shared', (10 * 256 + 75 * 128) * 4),
-    ('softmax', 36, 128, 'shared', (10 * 256 + 108 * 128) * 4),
-    ('softmax', 49, 128, 'shared', (10 * 256 + 147 * 128) * 4),
-    ('softmax', 144, 128, 'shared', 231424),
-    ('hard', 144, 128, 'shared', (6 * 256 + 432 * 128) * 4),
-    ('softmax', 169, 128, 'global', 10 * 256 * 4),
-    ('softmax', 256, 128, 'global', 10 * 256 * 4),
-    ('hard', 256, 128, 'global', 6 * 256 * 4),
-    ('softmax', 1024, 128, 'global', 10 * 256 * 4),
-    ('hard', 1089, 128, 'global', 6 * 256 * 4),
-    ('softmax', 256, 64, 'shared', (10 * 256 + 768 * 64) * 4),
-    ('softmax', 256, 256, 'global', 10 * 256 * 4),
+    # registers: vertex colours and one texel are not in this table's path;
+    # a block's pixel columns are a ring of two tiles
+    ('softmax', 25, 128, 'shared', (2 * 10 * 256 + 75 * 128) * 4),
+    ('softmax', 36, 128, 'shared', (2 * 10 * 256 + 108 * 128) * 4),
+    ('softmax', 49, 128, 'shared', (2 * 10 * 256 + 147 * 128) * 4),
+    ('softmax', 121, 128, 'shared', 206336),
+    ('softmax', 144, 128, 'global', 2 * 10 * 256 * 4),
+    ('hard', 144, 128, 'global', 2 * 6 * 256 * 4),
+    ('softmax', 169, 128, 'global', 2 * 10 * 256 * 4),
+    ('softmax', 256, 128, 'global', 2 * 10 * 256 * 4),
+    ('hard', 256, 128, 'global', 2 * 6 * 256 * 4),
+    ('softmax', 1024, 128, 'global', 2 * 10 * 256 * 4),
+    ('hard', 1089, 128, 'global', 2 * 6 * 256 * 4),
+    ('softmax', 256, 64, 'shared', (2 * 10 * 256 + 768 * 64) * 4),
+    ('softmax', 256, 256, 'global', 2 * 10 * 256 * 4),
 ])
 def test_backward_texel_sum_store(rgb, ts, fc, store, smem):
     """Where the backward kernel keeps a surface texture's 3 TS sums per
     face: in the shared [3 TS, FC] block while it fits the 232448 bytes a
-    Hopper block may opt in to, beside the tile's pixel columns; in global
-    memory above, where a block holds the pixel columns alone."""
+    Hopper block may opt in to, beside the ring of two tiles' pixel
+    columns; in global memory above, where a block holds the ring alone."""
     cfg = C.RenderConfig.create(image_size=16, aggr_rgb_func=rgb,
                                 face_chunk=fc, backend='cuda')
     npix, _ = CB._bwd_layout(cfg, ts)
     need = CB._bwd_smem(cfg, ts)
-    assert need == (npix * 256 + 3 * ts * fc) * 4
+    assert need == (2 * npix * 256 + 3 * ts * fc) * 4
     assert (need <= CB.SMEM_LIMIT) == (store == 'shared')
     assert (need if store == 'shared' else CB._bwd_smem(cfg, 1)) == smem
 
@@ -200,9 +202,9 @@ def test_backward_texel_sums_in_registers_need_no_block():
                                 texture_type='vertex', backend='cuda')
     alpha = C.RenderConfig.create(image_size=16, channels='alpha',
                                   backend='cuda')
-    assert CB._bwd_smem(cfg, 1) == 10 * 256 * 4
-    assert CB._bwd_smem(vtx, 3) == 10 * 256 * 4
-    assert CB._bwd_smem(alpha, 256) == 2 * 256 * 4
+    assert CB._bwd_smem(cfg, 1) == 2 * 10 * 256 * 4
+    assert CB._bwd_smem(vtx, 3) == 2 * 10 * 256 * 4
+    assert CB._bwd_smem(alpha, 256) == 2 * 2 * 256 * 4
     # the wrapper takes a surface texture whose block fits and one whose
     # block does not, with the same layout of the result
     fv, tex, g, kw, jp, tp = _scene('softmax', 49)

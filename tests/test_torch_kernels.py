@@ -383,3 +383,54 @@ def test_band_and_shard_kernels_match_plain(cuda, name, kw, p, ts):
         assert int(covered.sum()) > 0 and int(carry[5].max()) >= offset
         assert float((carry[5] == want)[covered].float().mean()) \
             >= WINNER_AGREE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ts,slices', [(25, 128), (1024, 4)])
+def test_split_bwd_kernel_on_lists_longer_than_their_slices(cuda, ts,
+                                                            slices):
+    """K2 split into slices at 4 views of 512x512, softmax RGB: at 25
+    texels per face S = 128 and the longest list is longer, so a block
+    walks two tiles; at 1024 the workspace cuts S to 4.  Kernel vs plain
+    and bitwise repeats (check_kernels)."""
+    cfg = flagship_cfg(512, aggr_rgb_func='softmax')
+    params = C.RenderParams(dist_scale=1e-2).as_dict()
+    fv, tex = flagship_scene(cuda, 4, TS=ts)
+    aux = CB.prepass(fv, tex, cfg, params)
+    B, _, Fp = aux['packed'].shape
+    S = CB.bwd_slice_count(B, CB._bwd_layout(cfg, ts)[1], Fp,
+                           aux['chunk_ids'].shape[2])
+    assert S == slices and int(aux['chunk_counts'].max()) > S
+    check_kernels(f'split ts{ts}', cfg, params, fv, tex, aux)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('size,face_chunk', [(16, 128), (40, 64)])
+def test_split_bwd_kernel_with_empty_slices(cuda, size, face_chunk):
+    """One tile (T = 1, so S = 1), and a ragged 40x40 image (T = S = 9)
+    whose chunks of 64 faces list a few tiles each, so most slices are
+    empty: their blocks write zeros that the second pass adds."""
+    params = C.RenderParams(dist_scale=1e-2).as_dict()
+    for channels in ('rgba', 'alpha'):
+        cfg = flagship_cfg(size, face_chunk=face_chunk, channels=channels,
+                           dist_func='logistic')
+        fv, tex = flagship_scene(cuda, 2)
+        aux = CB.prepass(fv, tex, cfg, params)
+        B, K = aux['chunk_counts'].shape
+        T = aux['chunk_ids'].shape[2]
+        S = CB.bwd_slice_count(B, CB._bwd_layout(cfg)[1], K * face_chunk, T)
+        assert S == T
+        if T > 1:
+            assert int(aux['chunk_counts'].sum()) < B * K * S // 2
+        _bwd_kernel_vs_plain(cfg, params, 2, cuda)
+
+
+@pytest.mark.cuda
+def test_split_bwd_kernel_on_a_band_of_a_face_shard(cuda):
+    """K2e split into slices: the second face half (offset, with
+    caller-padded faces) over the ragged band of rows 37-136."""
+    cfg, params, fv, tex = t_conorm_inputs({}, 0.0, 1, cuda)
+    f, t, valid, _ = face_halves(cfg, fv, tex)[1]
+    aux = CB.prepass(f, t, cfg, params, valid, (37, 100))
+    assert int(aux['chunk_counts'].max()) > 1
+    check_kernels('split band', cfg, params, f, t, aux)
