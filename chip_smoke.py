@@ -104,9 +104,11 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    beside the probabilistic fold at the same shapes, the probe kernels,
    path (e)'s mesh at 25, 256 and 1024 texels per face under softmax and
    hard RGB (forward and backward at 4 views of 512x512, forward at a
-   1536x1536 frame; each backward line also gives the slices S its
-   chunk lists are cut into, the longest slice in tiles and the
-   workspace's size),
+   1536x1536 frame; each forward line also gives the longest tile list
+   in chunks and the pairs the kernel visits after its per-tile cull
+   beside those a walk of every face of the listed chunks would visit,
+   each backward line the slices S its chunk lists are cut into, the
+   longest slice in tiles and the workspace's size),
    ``load_obj`` and ``voxelization`` on the host clock, the panda frames'
    render alone, the forward render and the forward + backward through
    both backends, and the median training step through both backends.
@@ -1591,6 +1593,27 @@ def gated_pairs(aux, cfg):
     return float((nx * ny * (pk[:, pack.R_FVALID] > 0)).sum())
 
 
+def visited_pairs(aux, cfg):
+    """What the forward kernel walks on the aux's inputs: (the longest
+    tile list in chunks, the pairs a walk of every face of each listed
+    chunk visits, the pairs the kernel visits), a pair being a pixel of a
+    tile inside the image and the band and a face the tile walks; the
+    kernel walks the faces cuda_backend.tile_face_survivors keeps."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB, pairmath as PM
+    is_, height = cfg.image_size, aux['height']
+    tx = -(-is_ // CB.TILE)
+    t = torch.arange(aux['tile_counts'].shape[1], device=aux['par'].device)
+    c0, r0 = t % tx * CB.TILE, t // tx * CB.TILE
+    pixels = ((torch.clamp(c0 + CB.TILE, max=is_) - c0)
+              * (torch.clamp(r0 + CB.TILE, max=height) - r0)).double()
+    survivors, _ = CB.tile_face_survivors(
+        aux['packed'], cfg, aux['par'][PM.P_MARGIN], aux['row0'], height)
+    listed = aux['tile_counts'].double() * cfg.face_chunk
+    return (int(aux['tile_counts'].max()), float((listed * pixels).sum()),
+            float((survivors.double() * pixels).sum()))
+
+
 def bound(nbytes, flops):
     """(ms, 'bytes' or 'operations'): the least time the card could take,
     the larger of the bytes over HBM bandwidth and the operations over
@@ -1634,11 +1657,13 @@ def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
             aux['perm'], cfg, TS, *band)
     out = CB.rasterize_fwd(*args)
     fwd_flops, bwd_flops = flops_per_pair(cfg, mode)
+    longest, walked, visited = visited_pairs(aux, cfg)
     res = {'rasterize_fwd': dict(
         ms=_median_ms(lambda: CB.rasterize_fwd(*args), reps),
         plain_ms=_median_ms(lambda: CB.rasterize_fwd_plain(*args), *plain),
         bound=bound(_input_bytes(args[:5], aux['packed'], cfg, pairs)
-                    + _nbytes(out), pairs * fwd_flops))}
+                    + _nbytes(out), pairs * fwd_flops),
+        longest_list=longest, walked_pairs=walked, visited_pairs=visited)}
     if bwd:
         soft, aggrs = CB._finalize_soa(out, cfg, params)
         g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]], 1)
@@ -1664,6 +1689,10 @@ def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
     torch.cuda.empty_cache()
     parts = [f'{k} {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, '
              f'bound {r["bound"][0]:.4f} ms ({r["bound"][1]})'
+             + (f', longest tile list {r["longest_list"]} chunks, '
+                f'{r["visited_pairs"]:.6g} visited pairs (every face of '
+                f'the listed chunks: {r["walked_pairs"]:.6g})'
+                if 'visited_pairs' in r else '')
              + (f', S={r["slices"]}, longest slice {r["longest_slice"]} '
                 f'of a {r["longest_list"]}-tile list, workspace '
                 f'{r["workspace_mib"]:.1f} MiB' if 'slices' in r else '')

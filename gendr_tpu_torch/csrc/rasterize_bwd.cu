@@ -99,7 +99,7 @@
 // 1024 texels per face, where the workspace allows S = 4 and the longest
 // slice (30 tiles at 512x512) bounds the kernel.  Measured against the
 // unsplit kernel, NVIDIA H100 80GB HBM3 at 700.00 W, in one run
-// (gendr_tpu_torch/tools/bwd_times.py; PERF.md): the flagship 0.25-0.29
+// (gendr_tpu_torch/tools/kernel_times.py; PERF.md): the flagship 0.25-0.29
 // ms against 3.24-3.31, the default GenDR (4 views at 512x512, 25 texels)
 // 1.76-1.80 ms against 16.9-17.2, with vertex colours 1.21-1.25 against
 // 15.3-15.4, at 1024 texels 10.3-10.5 against 24.6-24.8.

@@ -9,7 +9,9 @@ Port of ``gendr_tpu/raster/pallas_backend.py``:
   (each 16x16 pixel tile's list of hit chunks, and each chunk's list of
   hit tiles for the backward);
 * the forward kernel, ``csrc/rasterize_fwd.cu``, through
-  :func:`rasterize_fwd`;
+  :func:`rasterize_fwd`: one block per tile, which culls each listed
+  chunk's faces against the tile (:func:`tile_face_survivors` is that
+  cull in Python) and walks the survivors;
 * the epilogue ``_finalize_soa``: the background fold (for softmax RGB
   the streaming-softmax merge with the background state) and the reshape
   to [B, 4, H, W], in plain torch;
@@ -44,11 +46,11 @@ versions only for CPU tensors.
 
 The TPU workarounds are gone: no 128-aligned tiling (the kernel masks the
 ragged edge tile, so any image size runs), no split of the hit lists
-between SMEM and HBM (a block reads its own list row), no per-tile face
-compaction yet (ROADMAP.md), no one-hot texel selection (a pair gathers
-its texel).  Configurations outside the kernels' envelope (softmax RGB
-over more than ``SOFTMAX_TS_CAP`` texels per face; a texel count that is
-not a square) raise ``ValueError``; ``backend='torch'`` renders them.
+between SMEM and HBM (a block reads its own list row), no one-hot texel
+selection (a pair gathers its texel).  Configurations outside the
+kernels' envelope (softmax RGB over more than ``SOFTMAX_TS_CAP`` texels
+per face; a texel count that is not a square) raise ``ValueError``;
+``backend='torch'`` renders them.
 """
 
 from __future__ import annotations
@@ -66,10 +68,13 @@ from gendr_tpu_torch.raster import pairmath as PM
 from gendr_tpu_torch.raster import torch_backend as TB
 from gendr_tpu_torch.raster.torch_backend import BIG_DEPTH, NEG_INF
 
-TILE = 16  # pixel tile edge: one CUDA block of 16x16 threads per tile
+TILE = 16  # pixel tile edge: one CUDA block per 16x16 tile
 # shared memory of a forward block (static budget), and the most a backward
 # block may use on Hopper (dynamic, opted in above 48 KB)
 FWD_SMEM_LIMIT = 48 * 1024
+# the forward block's cull keeps one ballot mask per 32 faces of a chunk,
+# room for chunks of up to this many faces
+FWD_MAX_CHUNK = 256
 SMEM_LIMIT = 232448
 # what a launch aggregates beside alpha (csrc/pairmath.cuh MODE_*)
 MODE_ALPHA, MODE_HARD, MODE_SOFTMAX = 0, 1, 2
@@ -239,10 +244,17 @@ def _check_inputs(tile_counts, tile_ids, par, packed, perm, cfg, TS, row0,
     if tuple(perm.shape) != (B, Fp) or tuple(par.shape) != (PM.NPAR,):
         raise ValueError(f'perm must be [{B}, {Fp}] and par [{PM.NPAR}]')
     _check_rows(NI, cfg, TS)
-    # a block stages a chunk's geometry rows and input ids
-    if (pack.NI_BASE + 1) * cfg.face_chunk * 4 > FWD_SMEM_LIMIT:
+    if _fwd_smem(cfg.face_chunk) > FWD_SMEM_LIMIT:
         raise ValueError(f'face_chunk {cfg.face_chunk} exceeds the '
                          f'{FWD_SMEM_LIMIT}-byte shared-memory stage')
+
+
+def _fwd_smem(FC):
+    """Bytes of shared memory a forward block stages a chunk of FC faces
+    in (csrc/rasterize_fwd.cu fwd_smem): the survivors' geometry rows,
+    their input ids and slots, two chunks' ballot masks of the cull and
+    the tile's rectangle of pixel centres."""
+    return ((pack.NI_BASE + 2) * FC + 2 * (FWD_MAX_CHUNK // 32) + 4) * 4
 
 
 def rasterize_fwd(tile_counts, tile_ids, par, packed, perm,
@@ -289,6 +301,67 @@ def rasterize_fwd(tile_counts, tile_ids, par, packed, perm,
                            + lib.gendr_error_string(err).decode())
     LAUNCHES['rasterize_fwd'] += 1
     return out
+
+
+def tile_face_survivors(packed, cfg: C.RenderConfig, margin, row0=0,
+                        height=None):
+    """The forward kernel's cull, in plain PyTorch: of each chunk a tile
+    lists (``pack.tile_chunk_mask`` with this margin, as the prepass
+    builds the lists), the faces the kernel's block keeps and walks.
+
+    A face survives when its fvalid row is set and its bbox + margin
+    meets the tile's rectangle of pixel centres, clipped to the image
+    and to the band of rows [row0, row0 + height) (None: all rows), with
+    the per-pixel gate's expressions (``row - margin <= x <= row +
+    margin``) at the tile's least and greatest centre.  Every pair the
+    gate admits therefore has its face among its tile's survivors.  The
+    survivors are compacted as the kernel compacts them, by a prefix count
+    of the flags: in ascending sorted slot, chunk after chunk.
+
+    Returns (counts [B, T] int32, ids [B, T, Fp] int32): tile t of batch
+    element b walks sorted slots ids[b, t, :counts[b, t]], -1 past them.
+    """
+    B, _, Fp = packed.shape
+    FC = cfg.face_chunk
+    is_ = cfg.image_size
+    height = is_ if height is None else height
+    dev = packed.device
+    margin = torch.as_tensor(margin, dtype=torch.float32, device=dev)
+    listed = pack.tile_chunk_mask(packed, is_, TILE, TILE, FC, margin,
+                                  height, row0)
+    listed = listed.repeat_interleave(FC, dim=2) > 0        # [B, T, Fp]
+
+    tx = -(-is_ // TILE)
+    t = torch.arange(_num_tiles(cfg, height), device=dev)
+    c0, r0 = t % tx * TILE, t // tx * TILE
+
+    def ndc(i):
+        # csrc/pairmath.cuh pixel_x of column i; pixel_y of image row r is
+        # ndc(is - 1 - r)
+        return (2.0 * i.to(torch.float32) + 1.0 - is_) / is_
+    # the tile's extreme centres in the image and the band (y falls as the
+    # row rises)
+    xlo = ndc(c0)
+    xhi = ndc(torch.clamp(c0 + TILE - 1, max=is_ - 1))
+    yhi = ndc(is_ - 1 - (row0 + r0))
+    ylo = ndc(is_ - 1 - (row0 + torch.clamp(r0 + TILE - 1,
+                                            max=height - 1)))
+
+    def bb(i):
+        return packed[:, pack.R_BBOX + i, None, :]           # [B, 1, Fp]
+    keep = ((packed[:, pack.R_FVALID, None, :] > 0)
+            & (xhi[None, :, None] >= bb(0) - margin)
+            & (xlo[None, :, None] <= bb(1) + margin)
+            & (yhi[None, :, None] >= bb(2) - margin)
+            & (ylo[None, :, None] <= bb(3) + margin)
+            & listed)
+    counts = keep.sum(2, dtype=torch.int32)
+    pos = torch.where(keep, torch.cumsum(keep, 2) - 1, Fp)
+    ids = torch.full((B, keep.shape[1], Fp + 1), -1, dtype=torch.int32,
+                     device=dev)
+    slots = torch.arange(Fp, dtype=torch.int32, device=dev)
+    ids.scatter_(2, pos, slots.expand_as(keep).contiguous())
+    return counts, ids[..., :Fp]
 
 
 def _chunk_textures(pk, cfg: C.RenderConfig, TS):

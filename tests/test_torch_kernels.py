@@ -103,6 +103,39 @@ def test_kernel_small_and_ragged_sizes(cuda, size, face_chunk):
                      cuda)
 
 
+# the three modes of the forward kernel, as RenderConfig keywords
+MODES = {'alpha': dict(channels='alpha'), 'hard': {},
+         'softmax': dict(aggr_rgb_func='softmax')}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', MODES)
+def test_kernel_where_the_cull_drops_most_of_each_list(cuda, mode):
+    """The flagship at tau 1e-3: each tile's listed chunks hold mostly
+    faces that meet no pixel of it, which the block's cull drops
+    (cuda_backend.tile_face_survivors keeps under a tenth of them)."""
+    from gendr_tpu_torch.raster import pairmath as PM
+    cfg = flagship_cfg(256, **MODES[mode])
+    params = C.RenderParams(dist_scale=1e-3).as_dict()
+    fv, tex = flagship_scene(cuda)
+    aux = CB.prepass(fv, tex, cfg, params)
+    counts, _ = CB.tile_face_survivors(aux['packed'], cfg,
+                                       aux['par'][PM.P_MARGIN])
+    assert int(aux['tile_counts'].max()) > 4
+    assert int(counts.sum()) < 0.1 * int(aux['tile_counts'].sum()) \
+        * cfg.face_chunk
+    _kernel_vs_plain(cfg, params, 1, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', MODES)
+def test_kernel_on_a_dense_frame(cuda, mode):
+    """Gaussian tau 1 at 64x64: every listed face meets every tile, and
+    nearly every pair is admitted."""
+    cfg = flagship_cfg(64, dist_func='gaussian', **MODES[mode])
+    _kernel_vs_plain(cfg, C.RenderParams(dist_scale=1.0).as_dict(), 2, cuda)
+
+
 @pytest.mark.cuda
 def test_render_on_cuda_launches_the_kernel_or_raises(cuda):
     fv, tex = flagship_scene(cuda)
