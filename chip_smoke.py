@@ -96,12 +96,27 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    steps: the loss falls and the first gradient agrees with the unsharded
    step's; and the ``backend='torch'`` 1536x1536 frame of phase 4b under
    16 GiB of device memory;
-9. times the kernels against their plain versions beside their bounds, at
+9. drives path (i), ``gendr_tpu_torch.experiments.train_reconstruction
+   --synthetic`` at its published width (Encoder 64 / 1024 / 512, Decoder
+   1024 wide on the 642-vertex template, batch 64: 256 silhouettes a step
+   at 64x64, uniform x probabilistic at tau 10^-1.5), the dataset cut to 8
+   objects of each of the three synthetic classes: (i1) 30 steps and an
+   evaluation through the CLI, the loss of the last 5 steps below that of
+   the first 5, every loss and gradient finite, the voxel IoU finite;
+   (i3) one step with ``--data-parallel 2`` (two gloo ranks of the one
+   card, BatchNorm with the whole batch's moments) against the
+   one-process step; (i2) both kernels against their plain versions on
+   the experiment's own inputs (the first step's B=256 render and the
+   dataset's 24-view hard render) with phase 1's gates; (i4) the
+   synthetic dataset's silhouettes and voxels on the card against the
+   CPU's; (i5) the step's time beside opt_shape's;
+10. times the kernels against their plain versions beside their bounds, at
    a 128-row band and a face half of the flagship (K1e/K2e),
    the flagship (hard RGB, and softmax RGB with one texel), at the panda
    frame and at the default GenDR's shapes (surface and vertex textures),
    a yager panda_tcn frame at tau 1e-2 and tau 1 and path (d)'s render
-   beside the probabilistic fold at the same shapes, the probe kernels,
+   beside the probabilistic fold at the same shapes, path (i)'s two
+   renders, the probe kernels,
    path (e)'s mesh at 25, 256 and 1024 texels per face under softmax and
    hard RGB (forward and backward at 4 views of 512x512, forward at a
    1536x1536 frame; each forward line also gives the longest tile list
@@ -197,6 +212,24 @@ SHARD_TIMEOUT = 300  # seconds the ranks of (h2) and (h3) may take
 # norm-relative error (the gradient's entries are ~1e-2, where GRAD_ATOL
 # alone would pass a lost share of a face shard)
 SHARD_GRAD_REL = 1e-4
+# path (i): train_reconstruction at its published width (Encoder 64 / 1024 /
+# 512, Decoder 1024 wide on the 642-vertex template, batch 64 at 64x64,
+# uniform x probabilistic at the table's tau 10^-1.5) on the three synthetic
+# classes, the dataset cut to RECON_OBJECTS objects a class (64 in a full
+# run); (i3)'s dp ranks and its bound against the one-process step; the
+# share of (i4)'s silhouette pixels that must equal the CPU's (a pixel
+# centre on a face edge is a tie the card's and the CPU's camera transforms
+# may break apart); (i5)'s timed steps
+RECON_CLASSES = ('syn_ellipsoid', 'syn_box', 'syn_peanut')
+RECON_OBJECTS, RECON_STEPS, RECON_TIMED_STEPS = 8, 30, 10
+RECON_DP_RANKS, RECON_DP_REL = 2, 1e-4
+# the gradient's bound: in one process, reordering the batch of 64
+# (BatchNorm's sums in another order) moved the whole gradient by 1.9e-3
+# norm-relative on an NVIDIA H100 80GB HBM3 at 700 W (the uniform CDF's PDF
+# is a box, and a pair within an ulp of its edge adds or drops 1 / 2 tau);
+# a gradient not averaged over the ranks is off by a factor 2
+RECON_DP_GRAD_REL = 1e-2
+RECON_SIL_AGREE = 0.999
 # the backend='torch' frame of phase 4b peaked at 52.6 GiB before its
 # pixel bands (torch_backend.PAIR_BUDGET); above this it fails
 TORCH_PEAK_GIB = 16.0
@@ -1183,6 +1216,297 @@ def camera_path():
     return launches, rec['seconds']
 
 
+def reconstruction_args(device='cuda', extra=()):
+    """The command line of path (i): train_reconstruction at full width on
+    the synthetic classes, RECON_OBJECTS objects a class."""
+    return ['--synthetic', '--class_ids', ','.join(RECON_CLASSES),
+            '--synthetic-objects', str(RECON_OBJECTS), '--device', device,
+            *extra]
+
+
+def _rel(got, want):
+    """Norm-relative difference of two tensors."""
+    return float((got.double() - want.double()).norm()
+                 / want.double().norm())
+
+
+def reconstruction_path(device='cuda'):
+    """Path (i1): RECON_STEPS steps of train_reconstruction's CLI at full
+    width (batch 64: 256 silhouettes a step at 64x64 through K1a / K2a),
+    an evaluation at the end.  The mean loss of the last 5 steps must be
+    below that of the first 5, every loss and gradient finite, the mean
+    voxel IoU finite, and each kernel launched once a step (the forward
+    also once for each object of the synthetic dataset: 24 views in one
+    render).  Returns each kernel's launches and the run's result."""
+    import torch
+    from gendr_tpu_torch.experiments import train_reconstruction as TR
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    argv = reconstruction_args(device, [
+        '-ni', str(RECON_STEPS), '--eval_freq', str(RECON_STEPS),
+        '--print_freq', '5', '--max-eval-batches', '2'])
+    for k in CB.LAUNCHES:
+        CB.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    res = TR.main(argv)
+    if device != 'cpu':
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(CB.LAUNCHES)
+    losses = np.array(res['losses'])
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    print(f'[reconstruction path] train_reconstruction {" ".join(argv)}: '
+          f'Encoder 64/1024/512, Decoder 1024 wide on the 642-vertex '
+          f'template (1280 faces), batch 64 (256 silhouettes a step) at '
+          f'64x64, uniform x probabilistic, tau '
+          f'{TR.parse_args(argv).dist_scale:.6g}; '
+          f'loss {first:.6f} over the first 5 steps, {last:.6f} over the '
+          f'last 5 ({[round(x, 6) for x in res["losses"]]}); gradients '
+          f'finite={res["grads_finite"]}; mean voxel IoU '
+          f'{res["mean_iou"]:.3f}; {seconds:.1f} s with the dataset and '
+          f'the evaluation; launches={launches}', flush=True)
+    if len(losses) != RECON_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f'reconstruction losses {losses}')
+    if not last < first:
+        raise AssertionError(f'reconstruction loss did not fall: {first} '
+                             f'-> {last}')
+    if not res['grads_finite']:
+        raise AssertionError('reconstruction: a non-finite gradient')
+    if not np.isfinite(res['mean_iou']):
+        raise AssertionError(f'reconstruction IoU {res["mean_iou"]}')
+    objects = RECON_OBJECTS * len(RECON_CLASSES)
+    if device != 'cpu' and launches != {
+            'rasterize_fwd': RECON_STEPS + objects,
+            'rasterize_bwd': RECON_STEPS}:
+        raise AssertionError(f'reconstruction path launches {launches}')
+    return launches, res
+
+
+def reconstruction_inputs(device='cuda'):
+    """The inputs path (i) gives the kernels: the first step's render (the
+    model at its initial weights on the seed's first batch, [Raa, Rba,
+    Rab, Rbb]: B=256 at 64x64, alpha only) and the synthetic dataset's
+    render of its first object (24 views, heaviside CDF, hard alpha, hard
+    RGB).  Yields (name, cfg, params, face vertices, textures)."""
+    import torch
+    from gendr_tpu_torch.experiments import train_reconstruction as TR
+    from gendr_tpu_torch.raster.render import render_config
+    args = TR.parse_args(reconstruction_args(device))
+    dataset, _ = TR.make_datasets(args, device)
+    exp = TR.build_experiment(args, device)
+    ia, ib, ea, eb = (torch.from_numpy(x).to(device) for x in
+                      dataset.get_random_batch(np.random.RandomState(
+                          args.seed), args.batch_size))
+    with torch.no_grad():
+        verts = exp.reconstruct(torch.cat([ia, ib]), True)
+        mesh = exp.silhouette_mesh(torch.cat([verts, verts]),
+                                   torch.cat([ea, ea, eb, eb]))
+    exp.renderer.dist_scale = args.dist_scale
+    cfg, params = render_config(**exp.renderer.render_kwargs())
+    fv = mesh.face_vertices
+    yield ('recon', cfg, params,
+           fv.reshape(fv.shape[0], fv.shape[1], 9).contiguous(),
+           mesh.face_textures.contiguous())
+    # the dataset's renderer on its first object (SyntheticShapeNet)
+    from gendr_tpu_torch import GenDR, Lighting, LookAt, Mesh, data
+    rng = np.random.RandomState(args.seed)
+    v, f = data.icosphere(2)
+    verts = torch.as_tensor(TR._synthetic_shape(rng, RECON_CLASSES[0], v),
+                            device=device)
+    renderer = GenDR(image_size=args.image_size, dist_func=0,
+                     dist_scale=1e-4, dist_squared=True, dist_eps=1,
+                     aggr_alpha_func=0, aggr_rgb_func='hard')
+    look = LookAt(viewing_angle=15).to(device)
+    look.set_eyes(TR._eyes(2.732, 30.0, np.arange(24, dtype=np.float32)))
+    with torch.no_grad():
+        mesh = look(Lighting().to(device)(Mesh.create(
+            verts[None].repeat(24, 1, 1), np.repeat(f[None], 24, 0))))
+    cfg, params = render_config(**renderer.render_kwargs())
+    fv = mesh.face_vertices
+    yield ('recon data', cfg, params,
+           fv.reshape(fv.shape[0], fv.shape[1], 9).contiguous(),
+           mesh.face_textures.contiguous())
+
+
+def reconstruction_phase(opt_shape_steps, device='cuda'):
+    """Paths (i2), (i4) and (i5): K1a / K2a against their plain versions on
+    path (i)'s own inputs with phase 1's gates (the check's time and peak
+    device memory printed: the plain versions walk B=256 x 4096 pixels a
+    face chunk at a time); SyntheticShapeNet's silhouettes and voxels on
+    the card against the CPU's plain render and voxelizer; the training
+    step's time, host clock after warm-up, beside opt_shape's.  Returns
+    (largest image error, largest gradient error, median step ms)."""
+    import torch
+    from gendr_tpu_torch.experiments import train_reconstruction as TR
+    worst_img = worst_grad = 0.0
+    for name, cfg, params, fv, tex in reconstruction_inputs(device):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img_err, grad_err = check_kernels(name, cfg, params, fv, tex)
+        torch.cuda.synchronize()
+        print(f'[kernel vs plain] {name}: the check (kernels, plain versions '
+              f'and the backward twice) took {time.perf_counter() - t0:.2f} '
+              f's, peak device memory '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB',
+              flush=True)
+        worst_img, worst_grad = max(worst_img, img_err), max(worst_grad,
+                                                             grad_err)
+        del fv, tex
+        torch.cuda.empty_cache()
+
+    # (i4) one object of each class: the card's render and voxels against
+    # the CPU's
+    card = TR.SyntheticShapeNet(1, 64, 0, RECON_CLASSES, device=device)
+    cpu = TR.SyntheticShapeNet(1, 64, 0, RECON_CLASSES, device='cpu')
+    agree = float((card.images == cpu.images).mean())
+    voxels_equal = bool(np.array_equal(card.voxels, cpu.voxels))
+    print(f'[reconstruction data] SyntheticShapeNet, 1 object of each of '
+          f'{list(RECON_CLASSES)}, 24 views at 64x64 and 32^3 voxels: '
+          f'silhouette pixels equal to the CPU\'s {agree:.6f} (coverage '
+          f'{float((cpu.images[:, 3] > 0).mean()):.4f}), voxels equal '
+          f'{voxels_equal} ({int(cpu.voxels.sum())} solid cells)',
+          flush=True)
+    if not agree >= RECON_SIL_AGREE:
+        raise AssertionError(f'synthetic silhouettes: {agree} of pixels '
+                             f'equal to the CPU\'s')
+    if not voxels_equal:
+        raise AssertionError('synthetic voxels differ from the CPU\'s')
+
+    # (i5) the step, synchronized, after 3 warm-up steps
+    args = TR.parse_args(reconstruction_args(device))
+    args.synthetic_objects = 1
+    dataset, _ = TR.make_datasets(args, device)
+    exp = TR.build_experiment(args, device)
+    opt = torch.optim.Adam(exp.parameters(), lr=args.learning_rate)
+    images = torch.from_numpy(dataset.images).to(device)
+    rng = np.random.RandomState(args.seed)
+    times = []
+    for i in range(3 + RECON_TIMED_STEPS):
+        ids_a, ids_b, ea, eb = dataset.get_random_batch_ids(rng,
+                                                            args.batch_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = [images[torch.from_numpy(ids).to(device).long()].float()
+                 / 255. for ids in (ids_a, ids_b)]
+        exp.train_step(opt, *batch, torch.from_numpy(ea).to(device),
+                       torch.from_numpy(eb).to(device), args.dist_scale)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    step_ms = float(np.median(times[3:]))
+    print(f'[reconstruction step] train_reconstruction step (batch 64, '
+          f'256 silhouettes at 64x64, 1280 faces: encoder, decoder, render '
+          f'forward + backward, Adam), host clock, synchronized: median '
+          f'{step_ms:.3f} ms of {RECON_TIMED_STEPS} after 3 warm-up steps '
+          f'({[round(t, 3) for t in times]}), beside opt_shape\'s '
+          f'{1e3 * float(np.median(opt_shape_steps[1:])):.3f} ms (24 '
+          f'silhouettes, phase 3)', flush=True)
+    return worst_img, worst_grad, step_ms
+
+
+def _grad(exp, batch, dist_scale, order):
+    """The loss's gradient over every parameter, one flat vector, on the
+    batch with its samples in ``order``."""
+    import torch
+    for p in exp.parameters():
+        p.grad = None
+    exp.loss_fn(*(x[order] for x in batch), dist_scale).backward()
+    return torch.cat([p.grad.reshape(-1) for p in exp.parameters()])
+
+
+def reconstruction_dp_phase(device='cuda'):
+    """Path (i3): one step of train_reconstruction --data-parallel 2 (two
+    gloo ranks of the one card) against the one-process step, from the
+    checkpoint each saves after it.  Within RECON_DP_REL norm-relative:
+    the loss, the parameters after the step (over the whole model) and
+    each BatchNorm statistic (which needs the whole batch's moments).  The
+    gradient itself, Adam's first moment in the checkpoint (Adam's first
+    step, about lr times the gradient's sign, would not show a gradient
+    off by a constant factor), within RECON_DP_GRAD_REL.  Printed beside
+    them, the floor of both: in one process, the change of the gradient,
+    and of the parameters after Adam's first step, when the batch's
+    samples are merely reordered (BatchNorm's sums in another order).  A
+    convolution's bias, whose exact gradient is 0 under the BatchNorm that
+    follows, is held to no more than lr on both sides.  Returns each
+    kernel's launches summed over the ranks."""
+    import tempfile
+    import torch
+    from gendr_tpu_torch.experiments import train_reconstruction as TR
+    argv = reconstruction_args(device, [
+        '-ni', '1', '--eval_freq', '1', '--print_freq', '1',
+        '--max-eval-batches', '1', '--synthetic-objects', '2'])
+    with tempfile.TemporaryDirectory() as tmp:
+        one = TR.main(argv + ['--checkpoint-dir', os.path.join(tmp, 'one')])
+        t0 = time.perf_counter()
+        two = TR.main(argv + ['--checkpoint-dir', os.path.join(tmp, 'two'),
+                              '--data-parallel', str(RECON_DP_RANKS)])
+        seconds = time.perf_counter() - t0
+        want, got = (torch.load(TR._checkpoints(os.path.join(tmp, d))[-1],
+                                weights_only=True) for d in ('one', 'two'))
+    args = TR.parse_args(argv)
+    exp = TR.build_experiment(args, device)
+    names = exp.parameter_names()
+    lr = args.learning_rate
+
+    def flat(state, stats):
+        return torch.cat([v.reshape(-1) for part in ('encoder', 'decoder')
+                          for k, v in state[part].items()
+                          if ('running' in k) == stats])
+
+    def moment(ckpt):
+        return torch.cat([ckpt['optimizer']['state'][i]['exp_avg']
+                          .reshape(-1) for i in range(len(names))])
+    errs = {'loss': abs(two['losses'][0] - one['losses'][0])
+            / abs(one['losses'][0]),
+            'parameters': _rel(flat(got, False), flat(want, False))}
+    for part in ('encoder', 'decoder'):
+        for k, w in want[part].items():
+            if 'running' in k:
+                errs[f'{part}.{k}'] = _rel(got[part][k], w)
+    bias_ok = all(
+        max(float(got[p][k].abs().max()), float(want[p][k].abs().max()))
+        <= lr * 1.001 for p, k in (n.split('.', 1) for n in names)
+        if k.startswith('convs.') and k.endswith('.bias'))
+    grad_rel = _rel(moment(got), moment(want))
+    # the floor: one process, the same batch in two orders
+    dataset, _ = TR.make_datasets(args, device)
+    batch = [torch.from_numpy(x).to(device) for x in
+             dataset.get_random_batch(np.random.RandomState(args.seed),
+                                      args.batch_size)]
+    order = torch.arange(args.batch_size, device=device)
+    theta = torch.cat([p.detach().reshape(-1) for p in exp.parameters()])
+    g0 = _grad(exp, batch, args.dist_scale, order)
+    g1 = _grad(exp, batch, args.dist_scale, order.flip(0))
+    # Adam's first step from zero moments: -lr g / (|g| + eps)
+    steps = [theta - lr * g / (g.abs() + 1e-8) for g in (g0, g1)]
+    floor_grad, floor_params = _rel(g1, g0), _rel(*steps)
+    worst = max(errs, key=errs.get)
+    launches = {k: sum(r[k] for r in two['launches'])
+                for k in two['launches'][0]}
+    print(f'[reconstruction dp] --data-parallel {RECON_DP_RANKS} (gloo, '
+          f'ranks on one card, BatchNorm with the whole batch\'s moments) '
+          f'vs one process, first step at batch {args.batch_size}: loss '
+          f'{two["losses"][0]:.8f} vs {one["losses"][0]:.8f}; norm-relative '
+          f'differences: loss {errs["loss"]:.3g}, parameters after the '
+          f'step {errs["parameters"]:.3g} (one process, batch reordered: '
+          f'{floor_params:.3g}), largest BatchNorm statistic '
+          f'{max(v for k, v in errs.items() if "running" in k):.3g}, '
+          f'gradient {grad_rel:.3g} (one process, batch reordered: '
+          f'{floor_grad:.3g}); convolution biases within lr {bias_ok}; '
+          f'seconds in collectives per rank {two["collective_seconds"]}; '
+          f'launches per rank {two["launches"]}; {seconds:.1f} s with the '
+          f'ranks\' start', flush=True)
+    if not (errs[worst] < RECON_DP_REL and bias_ok
+            and grad_rel < RECON_DP_GRAD_REL):
+        raise AssertionError(f'data-parallel step vs one process: {worst} '
+                             f'{errs[worst]}, gradient {grad_rel}, biases '
+                             f'{bias_ok}')
+    if device != 'cpu' and not all(n >= 1 for r in two['launches']
+                                   for n in r.values()):
+        raise AssertionError(f'a dp rank launched no kernel: '
+                             f'{two["launches"]}')
+    return launches
+
+
 def face_halves(cfg, fv, tex):
     """The two face shards a 2-way face split gives: (face vertices,
     textures, fvalid, base_offset) each; the second carries a chunk of
@@ -1813,6 +2137,9 @@ def timings(smi, cuda_steps, yager_steps, obj_file, reps=50):
                            *tcn_inputs('cuda', 1536, t_conorm, p, tau)))
     for name, extra in (('opt yager', YAGER_ARGS), ('opt probabilistic', ())):
         shapes.append((name, *next(iter(training_inputs(extra=extra)))[1:]))
+    # path (i)'s render: B=256 at 64x64, alpha only, forward and backward;
+    # and its dataset's (24 views, heaviside CDF, hard alpha, hard RGB)
+    shapes += list(reconstruction_inputs())
     # the big-texture slice's main path: the default GenDR on the OBJ's
     # mesh (4 views at 512x512, forward and backward) at 256 and 1024 texels
     # per face and, on the same geometry, at 25; softmax RGB and hard RGB
@@ -1853,7 +2180,8 @@ def timings(smi, cuda_steps, yager_steps, obj_file, reps=50):
         panda = name.startswith(('panda', 'tcn', 'obj panda'))
         kt[name] = time_kernels(smi, name, cfg, params, sfv, stex, reps,
                                 bwd=not panda,
-                                plain=(1, 0) if panda or name.startswith('obj')
+                                plain=(1, 0) if panda or name.startswith(
+                                    ('obj', 'recon'))
                                 else (3, 1))
     prepass_cost(smi, obj_file)
     exp, eyes, targets = _shape_experiment('torch')
@@ -1920,6 +2248,11 @@ def main():
             obj_path(obj_file)
         voxel_ms = voxel_path()
         by_path['camera'], _ = camera_path()
+        by_path['reconstruction'], _ = reconstruction_path()
+        by_path['reconstruction_dp'] = reconstruction_dp_phase()
+        recon_img, recon_grad, recon_ms = reconstruction_phase(cuda_steps)
+        img_err = max(img_err, recon_img)
+        grad_err = max(grad_err, recon_grad)
         probe_launches, probe_err = probe_phase()
         kt = timings(smi, cuda_steps, yager_steps, obj_file)
     print(f'[timing] {smi}: host clock: save_obj(texture_res='
@@ -1967,7 +2300,8 @@ def main():
         'by_shape': {shape: numbers(r[name]) for shape, r in kt.items()
                      if name in r}} for name in sources],
         'sharded_step_ms': shard_times['step_ms'],
-        'sharded_collective_ms': shard_times['collective_ms']}))
+        'sharded_collective_ms': shard_times['collective_ms'],
+        'reconstruction_step_ms': recon_ms}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

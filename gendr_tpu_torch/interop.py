@@ -2,11 +2,12 @@
 
 The renderer has no learned weights: its state is the mesh, its textures
 and the render parameters; the shape experiment adds its model's
-parameters.  These helpers take them as the JAX package holds them,
-converted to numpy (``np.asarray`` of a ``gendr_tpu.Mesh``'s arrays, of a
-JAX render-params dict, or of a params pytree), and build the port's
-counterparts, so both packages compute the same thing.  Nothing here
-imports jax.
+parameters, the reconstruction experiment its encoder's and decoder's
+weights and BatchNorm statistics.  These helpers take them as the JAX
+package holds them, converted to numpy (``np.asarray`` of a
+``gendr_tpu.Mesh``'s arrays, of a JAX render-params dict, or of a params
+pytree), and build the port's counterparts, so both packages compute the
+same thing.  Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -65,3 +66,45 @@ def camera_poses_from_numpy(poses, device=None, requires_grad=False):
         raise ValueError(f'poses must be [B, 4], got {poses.shape}')
     return torch.tensor(poses, device=resolve_device(device),
                         requires_grad=requires_grad)
+
+
+def reconstruction_params_from_jax(params: Dict, batch_stats: Dict):
+    """The JAX ``experiments/train_reconstruction`` model (``params`` =
+    {'enc': ..., 'dec': ...} and the encoder's ``batch_stats``, as numpy;
+    a gradient pytree of the same structure converts too) -> (encoder
+    state dict, decoder state dict) for the port's ``Encoder`` and
+    ``Decoder``.  flax convolution kernels are HWIO (torch: OIHW), Dense
+    kernels [in, out] (torch Linear: [out, in]), BatchNorm's scale / bias
+    / mean / var are weight / bias / running_mean / running_var, and the
+    first encoder Dense reads flax's NHWC flatten, (h, w, c), where the
+    port's Linear reads the NCHW flatten, (c, h, w)."""
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32))
+
+    enc, dec = params['enc'], params['dec']
+    encoder = {}
+    for i in range(3):
+        conv, bn = enc[f'Conv_{i}'], enc[f'BatchNorm_{i}']
+        stats = batch_stats[f'BatchNorm_{i}']
+        encoder[f'convs.{i}.weight'] = t(np.transpose(
+            np.asarray(conv['kernel']), (3, 2, 0, 1)))
+        encoder[f'convs.{i}.bias'] = t(conv['bias'])
+        encoder[f'bns.{i}.weight'] = t(bn['scale'])
+        encoder[f'bns.{i}.bias'] = t(bn['bias'])
+        encoder[f'bns.{i}.running_mean'] = t(stats['mean'])
+        encoder[f'bns.{i}.running_var'] = t(stats['var'])
+    channels = np.asarray(enc['Conv_2']['kernel']).shape[3]
+    for i in range(3):
+        kernel = np.asarray(enc[f'Dense_{i}']['kernel'])
+        if i == 0:
+            side = int(round(np.sqrt(kernel.shape[0] // channels)))
+            kernel = kernel.reshape(side, side, channels, -1) \
+                .transpose(2, 0, 1, 3).reshape(kernel.shape[0], -1)
+        encoder[f'fcs.{i}.weight'] = t(kernel.T)
+        encoder[f'fcs.{i}.bias'] = t(enc[f'Dense_{i}']['bias'])
+    decoder = {}
+    for i, name in enumerate(('fc1', 'fc2', 'fc_centroid', 'fc_displace')):
+        decoder[f'{name}.weight'] = t(np.asarray(
+            dec[f'Dense_{i}']['kernel']).T)
+        decoder[f'{name}.bias'] = t(dec[f'Dense_{i}']['bias'])
+    return encoder, decoder

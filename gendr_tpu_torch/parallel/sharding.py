@@ -186,6 +186,29 @@ def _all_reduce_sum(x, mesh: ProcessMesh, axis):
     return x
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """all_reduce_sum with its gradient: every rank's loss reads the sum,
+    so the gradient of a rank's x is the sum of the ranks' gradients of
+    the sum (one more all-reduce, in the backward)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_reduce_sum(x.clone(), mesh, axis)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        return _all_reduce_sum(grad.clone(), ctx.mesh, ctx.axis), None, None
+
+
+def all_reduce_sum(x, mesh: ProcessMesh, axis):
+    """The sum of x over the ranks of ``axis``, differentiable: a batch
+    statistic of the whole dp batch (the global moments that XLA's
+    inserted reduction gives a dp-sharded BatchNorm in the JAX package)."""
+    return _AllReduceSum.apply(x, mesh, axis)
+
+
 def _pad_to(x, n, axis):
     """x zero-padded to n along ``axis``."""
     need = n - x.shape[axis]
@@ -389,19 +412,33 @@ def silhouette_loss(render_fn, params, verts, faces, eyes, target):
     return (1.0 - inter / union).mean()
 
 
+def average_gradients(params, loss, mesh: ProcessMesh, dp_axis='dp'):
+    """Replace each parameter's gradient by its mean over ``dp_axis`` and
+    return the mean of ``loss`` (a 0-d tensor, left on its device), in one
+    all-reduce: the step of the whole dp batch, since each rank's loss is
+    the mean over an equal shard.  params: a tensor or a sequence."""
+    params = [params] if isinstance(params, torch.Tensor) else list(params)
+    buf = torch.cat([p.grad.reshape(-1) for p in params]
+                    + [loss.detach().reshape(1)])
+    buf = _all_reduce_sum(buf, mesh, dp_axis) / mesh.size(dp_axis)
+    offset = 0
+    for p in params:
+        p.grad.copy_(buf[offset:offset + p.numel()].reshape(p.shape))
+        offset += p.numel()
+    return buf[-1]
+
+
 def train_step(loss_fn, optimizer, param, mesh: ProcessMesh, dp_axis='dp'):
     """One optimizer step on ``param`` with a loss over this rank's dp
-    shard: the loss and the gradient are averaged over ``dp_axis`` (one
-    all-reduce) before the update, so every rank takes the same step.
-    Returns the averaged loss."""
+    shard: the loss and the gradient are averaged over ``dp_axis``
+    (average_gradients) before the update, so every rank takes the same
+    step.  Returns the averaged loss."""
     optimizer.zero_grad()
     loss = loss_fn()
     loss.backward()
-    buf = torch.cat([param.grad.reshape(-1), loss.detach().reshape(1)])
-    buf = _all_reduce_sum(buf, mesh, dp_axis) / mesh.size(dp_axis)
-    param.grad.copy_(buf[:-1].reshape(param.shape))
+    loss = average_gradients(param, loss, mesh, dp_axis)
     optimizer.step()
-    return float(buf[-1])
+    return float(loss)
 
 
 def _factor(n_devices):

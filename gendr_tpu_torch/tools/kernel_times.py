@@ -14,8 +14,10 @@ The shapes: the flagship (hard RGB; softmax with one texel), its 128-row
 band, its first face half and the four ranks of the sharded path's fp=2 x
 sp=2 split; the default GenDR on 4 views at 512x512 (25 texels, vertex
 colours); the shape optimizer's soft renderer (24 views at 64x64, yager
-p=2 and probabilistic); a mesh loaded from an OBJ file under the default
-GenDR at 25, 144, 256 and 1024 texels per face, softmax and hard RGB; and,
+p=2 and probabilistic); the reconstruction experiment's render (256
+silhouettes at 64x64, alpha only: reconstruction_shape); a mesh loaded
+from an OBJ file under the default GenDR at 25, 144, 256 and 1024 texels
+per face, softmax and hard RGB; and,
 forward only, 1536x1536 sweep frames: panda_dist at uniform tau 1e-2 and
 gaussian tau 1, panda_tcn probabilistic and yager p=2 at tau 1e-2 and 1,
 and panda_dist through GENDR_PANDA_OBJ on that mesh at 256 and 1024
@@ -75,6 +77,7 @@ def shapes(cs, obj_file):
         _, cfg, params, ofv, otex = next(iter(cs.training_inputs(
             extra=extra)))
         yield name, cfg, params, ofv, otex, None, None, True
+    yield ('recon', *reconstruction_shape(), None, None, True)
     for res in (5, 12, 16, 32):
         for rgb in ('softmax', 'hard'):
             yield (f'obj gendr {rgb} TS={res * res}',
@@ -99,6 +102,43 @@ def shapes(cs, obj_file):
                        False)
     finally:
         del os.environ['GENDR_PANDA_OBJ']
+
+
+def reconstruction_shape(seed=0):
+    """(cfg, params, face vertices, textures) at the shape of the
+    reconstruction experiment's render, made with the checkout's public
+    API alone (so that a checkout older than the experiment times it
+    too): the 642-vertex template at the decoder's initial radius (0.25)
+    with a seeded radial jitter of 10 %, seen from 256 of the dataset's
+    24 cameras (distance 2.732, elevation 30, azimuth -15 k), LookAt at
+    15 degrees, 64x64, uniform tau 10^-1.5, dist_eps 300, probabilistic,
+    alpha only: B=256, as [Raa, Rba, Rab, Rbb] of a batch of 64."""
+    import numpy as np
+    import torch
+    from gendr_tpu_torch import GenDR, Lighting, LookAt, Mesh, data
+    from gendr_tpu_torch.geometry.transforms import get_points_from_angles
+    from gendr_tpu_torch.raster.render import render_config
+    rng = np.random.RandomState(seed)
+    v, f = data.icosphere(3)
+    B = 256
+    verts = v[None] * 0.25 * (1 + 0.1 * rng.randn(B, v.shape[0], 1))
+    view = rng.randint(0, 24, B).astype(np.float32)
+    look = LookAt(viewing_angle=15).to('cuda')
+    look.set_eyes(get_points_from_angles(
+        torch.full((B,), 2.732), torch.full((B,), 30.0),
+        torch.from_numpy(-view * 15)))
+    renderer = GenDR(image_size=64, dist_func='uniform',
+                     dist_scale=10 ** -1.5, dist_eps=300.,
+                     aggr_alpha_func='probabilistic', aggr_rgb_func='hard',
+                     channels='alpha')
+    with torch.no_grad():
+        mesh = look(Lighting().to('cuda')(Mesh.create(
+            verts.astype(np.float32), np.repeat(f[None], B, 0),
+            device='cuda')))
+    cfg, params = render_config(**renderer.render_kwargs())
+    fv = mesh.face_vertices
+    return (cfg, params, fv.reshape(B, fv.shape[1], 9).contiguous(),
+            mesh.face_textures.contiguous())
 
 
 def forward_back_to_back(cfg, params, fv, tex, fvalid, row_band, ms):
