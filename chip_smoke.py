@@ -126,7 +126,20 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    longest slice in tiles and the workspace's size),
    ``load_obj`` and ``voxelization`` on the host clock, the panda frames'
    render alone, the forward render and the forward + backward through
-   both backends, and the median training step through both backends.
+   both backends, and the median training step through both backends;
+11. drives path (j), ``--chain`` of the three experiments (the eager
+   phases above pass ``--chain 1``): (j1) ``opt_shape --chain 10``, (j2)
+   ``opt_camera --quick --chain 20`` and (j3) ``train_reconstruction
+   --synthetic --chain 8`` at path (i)'s width, a block cut short by
+   ``--decay-at``, each against its ``--chain 1`` run from the same start
+   under deterministic algorithms (losses, hard losses, steps to a
+   threshold, parameters, BatchNorm statistics); (j4) the kernels of a
+   replay against their plain versions on the CUDA graph's buffers; the
+   captured Adam against optax's rule; (j5) one host fetch a block, and a
+   capture with a host read-back raising (run last); (j6) each
+   experiment's step eager and chained: the median step on the host
+   clock, the device busy share and kernels a step (torch.profiler), one
+   replay's time on the card and the render kernels' launches.
 
 Every failure raises, and the script then exits non-zero.  It exits
 non-zero with no result where there is no CUDA device.  The last line of
@@ -136,6 +149,7 @@ card's name and power limit; the one before that the kernels.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -193,7 +207,7 @@ FOLD_BUDGET = 0.01
 VOXEL_SIZES = (32, 64)
 VOXEL_SHELL, VOXEL_TOL = 0.7, 0.05
 # path (g)
-CAMERA_ARGS = ['--quick', '--device', 'cuda']
+CAMERA_ARGS = ['--quick', '--device', 'cuda', '--chain', '1']
 # path (h): the sharded render.  Row bands of the flagship (two halves of
 # the image and a ragged band whose last tile row is cut), on the flagship
 # and on alpha-only, softmax (25 texels) and yager p=2 variants (name,
@@ -230,6 +244,20 @@ RECON_DP_RANKS, RECON_DP_REL = 2, 1e-4
 # a gradient not averaged over the ranks is off by a factor 2
 RECON_DP_GRAD_REL = 1e-2
 RECON_SIL_AGREE = 0.999
+# path (j): --chain of the three experiments, each at its path's width, the
+# chained run against the eager one (--chain 1) from the same start: (j1)
+# opt_shape, phase 3's setting; (j2) opt_camera --quick; (j3)
+# train_reconstruction at path (i)'s width, --decay-at inside the first
+# block of 8 (blocks of 5, 8 and 3).  Losses and parameters within
+# CHAIN_REL relative, the reconstruction's within (i3)'s RECON_DP_REL
+# norm-relative (index_add_'s atomics order its sums); each timed over
+# CHAIN_TIMED_BLOCKS blocks of the chain's length after the comparison
+CHAIN_SHAPE, CHAIN_CAMERA, CHAIN_RECON = 10, 20, 8
+CHAIN_RECON_STEPS, CHAIN_RECON_DECAY = 16, 6
+CHAIN_REL = 1e-5
+CHAIN_TIMED_BLOCKS = 3
+# (j2)'s Adam against optax's rule: test_torch_camera.py's tolerance
+ADAM_RTOL, ADAM_ATOL = 1e-5, 1e-6
 # the backend='torch' frame of phase 4b peaked at 52.6 GiB before its
 # pixel bands (torch_backend.PAIR_BUDGET); above this it fails
 TORCH_PEAK_GIB = 16.0
@@ -736,7 +764,8 @@ def training_path(extra=()):
     launches in that run and the step times."""
     import torch
     from gendr_tpu_torch.raster import cuda_backend as CB
-    exp, eyes, targets = _shape_experiment(None, extra=extra)
+    exp, eyes, targets = _shape_experiment(None, extra=['--chain', '1',
+                                                        *extra])
     for k in CB.LAUNCHES:
         CB.LAUNCHES[k] = 0
     rec = exp.run(TRAIN_LR, TRAIN_SIGMA, eyes, targets, TRAIN_STEPS)
@@ -1243,7 +1272,7 @@ def reconstruction_path(device='cuda'):
     from gendr_tpu_torch.raster import cuda_backend as CB
     argv = reconstruction_args(device, [
         '-ni', str(RECON_STEPS), '--eval_freq', str(RECON_STEPS),
-        '--print_freq', '5', '--max-eval-batches', '2'])
+        '--print_freq', '5', '--max-eval-batches', '2', '--chain', '1'])
     for k in CB.LAUNCHES:
         CB.LAUNCHES[k] = 0
     t0 = time.perf_counter()
@@ -1433,7 +1462,8 @@ def reconstruction_dp_phase(device='cuda'):
     from gendr_tpu_torch.experiments import train_reconstruction as TR
     argv = reconstruction_args(device, [
         '-ni', '1', '--eval_freq', '1', '--print_freq', '1',
-        '--max-eval-batches', '1', '--synthetic-objects', '2'])
+        '--max-eval-batches', '1', '--synthetic-objects', '2', '--chain',
+        '1'])
     with tempfile.TemporaryDirectory() as tmp:
         one = TR.main(argv + ['--checkpoint-dir', os.path.join(tmp, 'one')])
         t0 = time.perf_counter()
@@ -1505,6 +1535,525 @@ def reconstruction_dp_phase(device='cuda'):
         raise AssertionError(f'a dp rank launched no kernel: '
                              f'{two["launches"]}')
     return launches
+
+
+# ---------------------------------------------------------------------------
+# path (j): --chain of the three experiments
+# ---------------------------------------------------------------------------
+
+def record_captured_kernels():
+    """Wrap both kernel wrappers so that each call made while a CUDA graph
+    is captured keeps its arguments and its output: buffers of the graph,
+    which every replay writes again.  Returns (calls, restore)."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    calls = []
+    originals = {n: getattr(CB, n) for n in ('rasterize_fwd',
+                                             'rasterize_bwd')}
+
+    def wrap(name, fn):
+        def recorded(*args, **kw):
+            out = fn(*args, **kw)
+            if torch.cuda.is_current_stream_capturing():
+                calls.append((name, args, kw, out))
+            return out
+        return recorded
+    for name, fn in originals.items():
+        setattr(CB, name, wrap(name, fn))
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(CB, name, fn)
+    return calls, restore
+
+
+def replay_vs_plain(label, calls):
+    """(j4): each kernel launch of a captured step, its output as the last
+    replay left it against the plain version on the same buffers, with
+    phase 1's gates.  Returns (image error, gradient error)."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    torch.cuda.synchronize()
+    parts, img_err, grad_err = [], 0.0, 0.0
+    for name, args, kw, out in calls:
+        plain = getattr(CB, name + '_plain')(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        B = out.shape[0]
+        if name == 'rasterize_fwd':
+            img_err = max(img_err, err)
+            parts.append(f'K1 B={B} err={err:.3g}')
+            if not err < IMG_TOL:
+                raise AssertionError(f'{label}: replay K1 err {err}')
+        else:
+            agree = agreement(out, plain)
+            grad_err = max(grad_err, err)
+            parts.append(f'K2 B={B} agree={agree:.6f} err={err:.3g} '
+                         f'scale={float(plain.abs().max()):.3g}')
+            if not agree > GRAD_AGREE:
+                raise AssertionError(f'{label}: replay K2 agreement {agree}')
+        del plain
+    torch.cuda.empty_cache()
+    print(f'[chain] (j4) {label}: the kernels of a replay against their '
+          f'plain versions on the graph\'s buffers: '
+          + '; '.join(parts), flush=True)
+    if not any(c[0] == 'rasterize_fwd' for c in calls) \
+            or not any(c[0] == 'rasterize_bwd' for c in calls):
+        raise AssertionError(f'{label}: the graph holds no K1 or no K2')
+    return img_err, grad_err
+
+
+def _rel_list(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                         1e-30)))
+
+
+def _launch_counts(steps, before, replays0, captured0):
+    """Kernel launches of a run through a StepChain: what the wrappers
+    counted (warm-up and eager steps; a capture's calls record, not
+    launch) plus the captured launches times the run's replays."""
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    new_capture = steps.captured if not captured0 else {}
+    return {k: CB.LAUNCHES[k] - before[k] - new_capture.get(k, 0)
+            + steps.captured.get(k, 0) * (steps.replays - replays0)
+            for k in CB.LAUNCHES}
+
+
+def chained_run(steps, fn):
+    """fn() through steps, a StepChain: (fn's result, its kernel
+    launches, the blocks it fetched)."""
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    before = dict(CB.LAUNCHES)
+    replays0, fetches0 = steps.replays, steps.fetches
+    captured0 = steps.graph is not None
+    res = fn()
+    return (res, _launch_counts(steps, before, replays0, captured0),
+            steps.fetches - fetches0)
+
+
+def time_chain(smi, label, steps, n):
+    """(j6): blocks of n steps through steps (a StepChain), each step on
+    the inputs its buffers hold now: the median step (host clock, the
+    block to its fetch, over n; at least CHAIN_TIMED_BLOCKS blocks and 30
+    steps), the device's busy share over blocks of at least 10 steps
+    (torch.profiler: device time over wall time), the device kernels a
+    step and each render kernel's launches a step; for a captured step,
+    also one replay's time on the card (CUDA events around 20 replays back
+    to back), which the kernels' time and the gaps between them fill.
+    Returns a dict."""
+    import torch
+    from torch import profiler
+    xs = {k: v.detach().cpu()[None].repeat(n, *([1] * v.ndim))
+          for k, v in steps.inputs.items()}
+    reps = max(CHAIN_TIMED_BLOCKS, 30 // n)
+    profiled = max(1, 10 // n)
+    steps.run(xs)  # warm-up (the capture, where there is none yet)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps.run(xs)
+        times.append(1e3 * (time.perf_counter() - t0) / n)
+    torch.cuda.synchronize()
+    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
+                                      profiler.ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        (_, launches, _) = chained_run(
+            steps, lambda: [steps.run(xs) for _ in range(profiled)])
+        wall = time.perf_counter() - t0
+    stepped = n * profiled
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(getattr(e, 'self_device_time_total', None)
+                  or getattr(e, 'self_cuda_time_total', 0) for e in dev)
+    kernels = sum(e.count for e in dev)
+    replay_ms = None
+    if steps.graph is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            steps.graph.replay()
+        end.record()
+        end.synchronize()
+        replay_ms = start.elapsed_time(end) / 20
+    r = dict(step_ms=float(np.median(times)), times=times, profiled=stepped,
+             busy=busy_us * 1e-6 / wall if kernels else None,
+             kernels=kernels / stepped if kernels else None,
+             kernel_ms=busy_us * 1e-3 / stepped if kernels else None,
+             replay_ms=replay_ms,
+             # the profiler slows what it traces (most where a step is many
+             # small kernels): the kernels' time against the untraced step
+             kernel_share=(busy_us * 1e-3 / stepped / float(np.median(times))
+                           if kernels else None),
+             launches={k: v / stepped for k, v in launches.items()})
+    busy = 'not measured' if r['busy'] is None else f'{r["busy"]:.4f}'
+    replay = '' if replay_ms is None else (
+        f'; one replay {replay_ms:.3f} ms on the card (20 back to back, '
+        f'CUDA events)')
+    print(f'[chain] (j6) {smi}: {label}: median step '
+          f'{r["step_ms"]:.3f} ms (host clock, a block of {n} to its '
+          f'fetch over {n}, {reps} blocks: '
+          f'{[round(t, 3) for t in times]}); device busy share {busy} '
+          f'(profiler, {stepped} steps; the kernels\' time a step over the '
+          f'untraced median step: '
+          f'{r["kernel_share"] if kernels else "not measured"}); device '
+          f'kernels a step '
+          f'{r["kernels"] if kernels else "not measured"}, their time '
+          f'{r["kernel_ms"] if kernels else "not measured"} ms a step'
+          f'{replay}; render kernel launches a step {r["launches"]}',
+          flush=True)
+    return r
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms within: index_add_ and the
+    backward of a gather (the losses, the camera transform, the faces'
+    vertices) then sum in a fixed order, where their atomics otherwise
+    make two runs of one step differ in the last bits (and 30 Adam steps
+    grow that apart).  main sets CUBLAS_WORKSPACE_CONFIG, which it asks
+    for, before the first matrix product."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def chain_shape_path(smi):
+    """(j1): opt_shape at phase 3's width and setting, TRAIN_STEPS steps
+    eager and with --chain CHAIN_SHAPE from the template, under
+    deterministic algorithms; the first chained block is one step, whose
+    replay (j4) checks.  The floor: two eager runs without them.  Then
+    (j6) on new experiments, without them."""
+    import torch
+    runs = {}
+    with deterministic():
+        for chain in (1, CHAIN_SHAPE):
+            exp, eyes, targets = _shape_experiment(
+                None, extra=['--chain', str(chain)])
+            errs = (0.0, 0.0)
+            if chain > 1:
+                calls, restore = record_captured_kernels()
+                try:
+                    exp.run(TRAIN_LR, TRAIN_SIGMA, eyes, targets, 1)
+                finally:
+                    restore()
+                errs = replay_vs_plain('opt_shape (the first replay)', calls)
+                del calls
+            else:
+                exp.run(TRAIN_LR, TRAIN_SIGMA, eyes, targets, 1)
+            rec, launches, fetches = chained_run(exp.steps, lambda: exp.run(
+                TRAIN_LR, TRAIN_SIGMA, eyes, targets, TRAIN_STEPS))
+            params = torch.cat([p.detach().reshape(-1)
+                                for p in exp.model.parameters()])
+            runs[chain] = dict(rec=rec, launches=launches, fetches=fetches,
+                               params=params, errs=errs, steps=exp.steps)
+            del exp
+    e, c = runs[1], runs[CHAIN_SHAPE]
+    h_e, h_c = e['rec']['hard_losses'], c['rec']['hard_losses']
+    # a threshold the eager run's best hard loss crosses midway
+    thr = float(np.minimum.accumulate(h_e)[TRAIN_STEPS // 2]) + 1e-7
+
+    def steps_to(h):
+        below = np.flatnonzero(np.minimum.accumulate(h) < thr)
+        return int(below[0]) if below.size else None
+    rel = dict(loss=_rel_list(c['rec']['losses'], e['rec']['losses']),
+               hard=_rel_list(h_c, h_e),
+               params=_rel(c['params'], e['params']))
+    same = sum(a == b for a, b in zip(c['rec']['losses'],
+                                      e['rec']['losses']))
+    same_h = sum(a == b for a, b in zip(h_c, h_e))
+    blocks = -(-TRAIN_STEPS // CHAIN_SHAPE)
+    # the timing experiments, without deterministic algorithms; the eager
+    # one runs twice from the template first: the floor of the comparison
+    timed = {}
+    for chain in (1, CHAIN_SHAPE):
+        exp, eyes, targets = _shape_experiment(
+            None, extra=['--chain', str(chain)])
+        timed[chain] = [exp.run(TRAIN_LR, TRAIN_SIGMA, eyes, targets,
+                                TRAIN_STEPS if chain == 1 else 1)
+                        for _ in range(2 if chain == 1 else 1)], exp
+    floor = _rel_list(timed[1][0][1]['losses'], timed[1][0][0]['losses'])
+    print(f'[chain] (j1) opt_shape --chain {CHAIN_SHAPE} against --chain 1, '
+          f'{TRAIN_STEPS} steps, 24 views at 64x64, 642-vertex template, '
+          f'deterministic algorithms: relative differences: soft losses '
+          f'{rel["loss"]:.3g}, hard losses {rel["hard"]:.3g}, parameters '
+          f'after step {TRAIN_STEPS} {rel["params"]:.3g} (norm); bitwise '
+          f'equal: {same} of {TRAIN_STEPS} soft, {same_h} hard losses '
+          f'(two eager runs without deterministic algorithms: soft losses '
+          f'{floor:.3g} apart); steps to the hard loss {thr:.6f}: '
+          f'{steps_to(h_c)} chained, {steps_to(h_e)} eager; hard loss '
+          f'{h_e[0]:.6f} -> {h_e[-1]:.6f}; host fetches {c["fetches"]} for '
+          f'{blocks} blocks (eager {e["fetches"]}); captured launches a '
+          f'step {c["steps"].captured}; launches eager {e["launches"]}, '
+          f'chained {c["launches"]}', flush=True)
+    if not max(rel.values()) < CHAIN_REL:
+        raise AssertionError(f'(j1) chained vs eager: {rel}')
+    if steps_to(h_c) != steps_to(h_e) or steps_to(h_e) is None:
+        raise AssertionError('(j1) steps to threshold differ')
+    if c['fetches'] != blocks or e['fetches'] != TRAIN_STEPS:
+        raise AssertionError(f'(j1) fetches {c["fetches"]}, '
+                             f'{e["fetches"]}')
+    for r in (e, c):
+        if min(r['launches'].values()) < TRAIN_STEPS:
+            raise AssertionError(f'(j1) launches {r["launches"]}')
+    timing = {chain: time_chain(
+        smi, f'opt_shape --chain {chain} (train step + hard eval)',
+        exp.steps, chain) for chain, (_, exp) in timed.items()}
+    return c['launches'], c['errs'], timing
+
+
+def adam_vs_optax_rule():
+    """(j2): the capturable Adam of the experiments on the card, stepped by
+    replays of a captured graph (the gradient from a static buffer),
+    against optax.adam(1.0, b1=0.5, b2=0.99) with its updates scaled by
+    lr, transcribed in numpy float64 (optax is not on the card): 5 steps
+    at lr 0.3, test_torch_camera.py's test_adam_matches_optax and its
+    tolerance."""
+    import torch
+    from gendr_tpu_torch.experiments.common import StepChain, make_adam
+    rng = np.random.RandomState(0)
+    p0 = rng.randn(4, 4).astype(np.float32)
+    grads = rng.randn(5, 4, 4).astype(np.float32)
+    p = torch.tensor(p0, device='cuda', requires_grad=True)
+    opt = make_adam([p], 0.3, betas=(0.5, 0.99))
+    g = torch.zeros(4, 4, device='cuda')
+
+    def step():
+        p.grad = g.clone()
+        opt.step()
+        return p.detach().sum()[None]
+    steps = StepChain(step, {'g': g}, capture=True, state=[p], optimizer=opt)
+    steps.run({'g': grads})
+    want, mu, nu = p0.astype(np.float64), 0.0, 0.0
+    for t, gr in enumerate(grads.astype(np.float64), 1):
+        mu = 0.5 * mu + 0.5 * gr
+        nu = 0.99 * nu + 0.01 * gr * gr
+        want = want - 0.3 * (mu / (1 - 0.5 ** t)) / (
+            np.sqrt(nu / (1 - 0.99 ** t)) + 1e-8)
+    got = p.detach().cpu().numpy()
+    err = float(np.abs(got - want).max())
+    ok = bool(np.allclose(got, want, rtol=ADAM_RTOL, atol=ADAM_ATOL))
+    print(f'[chain] (j2) capturable Adam (lr a tensor on the card), 5 '
+          f'replays of a captured step against optax.adam\'s rule: max '
+          f'|diff| {err:.3g}, within rtol {ADAM_RTOL} atol {ADAM_ATOL}: '
+          f'{ok} (replays {steps.replays})', flush=True)
+    if not ok:
+        raise AssertionError(f'(j2) captured Adam vs optax rule: {err}')
+
+
+def capture_must_fail():
+    """(j5): a step that reads a value back to the host cannot be
+    captured: StepChain raises instead of running it eagerly."""
+    import torch
+    from gendr_tpu_torch.experiments.common import StepChain
+    x = torch.ones(4, device='cuda')
+    steps = StepChain(lambda: x * float(x.sum()), {'x': x}, capture=True)
+    try:
+        steps.run({'x': np.ones((2, 4), np.float32)})
+    except RuntimeError as e:
+        print(f'[chain] (j5) a step that calls float() on a tensor of the '
+              f'card: capture raised {type(e).__name__}: '
+              f'{str(e).splitlines()[0][:120]}', flush=True)
+        torch.cuda.synchronize()
+        return
+    raise AssertionError('(j5) a capture with a host read-back did not raise')
+
+
+def chain_camera_path(smi):
+    """(j2): opt_camera --quick (16 poses, 50 steps at 64x64) eager and
+    with --chain CHAIN_CAMERA (blocks of 20, 20 and 10) from the same
+    start, under deterministic algorithms; the chained experiment's first
+    run is 1 step, whose replay (j4) checks.  The captured Adam against
+    optax's rule; (j6) on new experiments, without deterministic
+    algorithms, after two eager runs that give the comparison's floor."""
+    import torch
+    from gendr_tpu_torch.experiments import opt_camera as OC
+
+    def experiment(chain):
+        args = OC.parse_args(['--quick', '--device', 'cuda', '--chain',
+                              str(chain)])
+        exp = OC.CameraExperiment(args, args.device, args.backend)
+        return exp, OC.initial_poses(args.batch_size, 15, 35)
+    runs = {}
+    errs = (0.0, 0.0)
+    with deterministic():
+        for chain in (1, CHAIN_CAMERA):
+            exp, init = experiment(chain)
+            if chain > 1:
+                calls, restore = record_captured_kernels()
+                try:
+                    exp.run(init, num_iterations=1)
+                finally:
+                    restore()
+                errs = replay_vs_plain('opt_camera (the first replay)', calls)
+                del calls
+            else:
+                exp.run(init, num_iterations=1)
+            steps = exp.chain('iou')
+            rec, launches, fetches = chained_run(steps,
+                                                 lambda: exp.run(init))
+            runs[chain] = dict(rec=rec, launches=launches, fetches=fetches,
+                               steps=steps)
+    e, c = runs[1], runs[CHAIN_CAMERA]
+    n = e['rec']['iterations']
+    rel = dict(loss=_rel_list(c['rec']['losses'], e['rec']['losses']),
+               poses=_rel(*(torch.from_numpy(r['rec']['poses'])
+                            for r in (c, e))))
+    same = sum(a == b for a, b in zip(c['rec']['losses'],
+                                      e['rec']['losses']))
+    blocks = -(-n // CHAIN_CAMERA)
+    timed = {}
+    for chain in (1, CHAIN_CAMERA):
+        exp, init = experiment(chain)
+        timed[chain] = [exp.run(init, num_iterations=None if chain == 1
+                                else 1) for _ in range(2 if chain == 1
+                                                       else 1)], exp
+    floor = _rel_list(timed[1][0][1]['losses'], timed[1][0][0]['losses'])
+    print(f'[chain] (j2) opt_camera --quick --chain {CHAIN_CAMERA} against '
+          f'--chain 1, {n} steps, 16 poses at 64x64, deterministic '
+          f'algorithms: relative differences: losses {rel["loss"]:.3g}, '
+          f'final poses {rel["poses"]:.3g} (norm); bitwise equal losses: '
+          f'{same} of {n} (two eager runs without deterministic algorithms: '
+          f'{floor:.3g} apart); loss {e["rec"]["losses"][0]:.4f} -> '
+          f'{e["rec"]["losses"][-1]:.4f}; host fetches {c["fetches"]} for '
+          f'{blocks} blocks (eager {e["fetches"]}); captured launches a '
+          f'step {c["steps"].captured}; launches eager {e["launches"]}, '
+          f'chained {c["launches"]}', flush=True)
+    if not (c['rec']['iterations'] == n and max(rel.values()) < CHAIN_REL):
+        raise AssertionError(f'(j2) chained vs eager: {rel}')
+    if c['fetches'] != blocks or e['fetches'] != n:
+        raise AssertionError(f'(j2) fetches {c["fetches"]}, {e["fetches"]}')
+    for r in (e, c):
+        if r['launches'] != {'rasterize_fwd': n, 'rasterize_bwd': n}:
+            raise AssertionError(f'(j2) launches {r["launches"]}')
+    adam_vs_optax_rule()
+    timing = {chain: time_chain(smi, f'opt_camera --quick --chain {chain}',
+                                exp.chain('iou'), chain)
+              for chain, (_, exp) in timed.items()}
+    return c['launches'], errs, timing
+
+
+def chain_reconstruction_path(smi, device='cuda'):
+    """(j3): train_reconstruction --synthetic at path (i)'s width through
+    main, CHAIN_RECON_STEPS steps eager and with --chain CHAIN_RECON,
+    --decay-at CHAIN_RECON_DECAY (blocks of 5, 8 and 3), under
+    deterministic algorithms: losses, the parameters and BatchNorm's
+    statistics of the checkpoint after the last step within RECON_DP_REL
+    norm-relative; the last replay's kernels (j4).  (j6) on two more runs
+    of one block each, without deterministic algorithms."""
+    import tempfile
+    import torch
+    from gendr_tpu_torch.experiments import train_reconstruction as TR
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    argv = reconstruction_args(device, [
+        '--eval_freq', str(CHAIN_RECON_STEPS), '--print_freq',
+        str(CHAIN_RECON_STEPS), '--max-eval-batches', '1', '--decay-at',
+        str(CHAIN_RECON_DECAY)])
+    runs = {}
+    errs = (0.0, 0.0)
+    with tempfile.TemporaryDirectory() as tmp, deterministic():
+        for chain in (1, CHAIN_RECON):
+            ckpt = os.path.join(tmp, str(chain))
+            before = dict(CB.LAUNCHES)
+            calls, restore = record_captured_kernels()
+            try:
+                res = TR.main(argv + ['-ni', str(CHAIN_RECON_STEPS),
+                                      '--chain', str(chain),
+                                      '--checkpoint-dir', ckpt])
+            finally:
+                restore()
+            steps = res['steps']
+            launches = _launch_counts(steps, before, 0, False)
+            state = torch.load(TR._checkpoints(ckpt)[-1], weights_only=True)
+            runs[chain] = dict(res=res, state=state, launches=launches,
+                               steps=steps)
+            if chain > 1:
+                errs = replay_vs_plain('train_reconstruction (the last '
+                                       'replay)', calls)
+            del calls, res
+    e, c = runs[1], runs[CHAIN_RECON]
+
+    def flat(state, stats):
+        return torch.cat([v.reshape(-1) for part in ('encoder', 'decoder')
+                          for k, v in state[part].items()
+                          if ('running' in k) == stats])
+    rel = dict(loss=float(np.linalg.norm(np.subtract(c['res']['losses'],
+                                                     e['res']['losses']))
+                          / np.linalg.norm(e['res']['losses'])),
+               params=_rel(flat(c['state'], False), flat(e['state'], False)),
+               stats=_rel(flat(c['state'], True), flat(e['state'], True)))
+    same = sum(a == b for a, b in zip(c['res']['losses'],
+                                      e['res']['losses']))
+    blocks = [TR.block_length(i, CHAIN_RECON, CHAIN_RECON_STEPS,
+                              CHAIN_RECON_DECAY, CHAIN_RECON_STEPS,
+                              CHAIN_RECON_STEPS) for i in (1, 6, 14)]
+    print(f'[chain] (j3) train_reconstruction --synthetic --chain '
+          f'{CHAIN_RECON} against --chain 1, batch 64 (256 silhouettes at '
+          f'64x64), {CHAIN_RECON_STEPS} steps, --decay-at '
+          f'{CHAIN_RECON_DECAY} (blocks {blocks}), deterministic '
+          f'algorithms: norm-relative differences: losses {rel["loss"]:.3g} '
+          f'({same} of {CHAIN_RECON_STEPS} bitwise equal), parameters '
+          f'{rel["params"]:.3g}, BatchNorm statistics {rel["stats"]:.3g}; '
+          f'loss {e["res"]["losses"][0]:.6f} -> '
+          f'{e["res"]["losses"][-1]:.6f}; host fetches '
+          f'{c["steps"].fetches} for {len(blocks)} blocks (eager '
+          f'{e["steps"].fetches}); captured launches a step '
+          f'{c["steps"].captured}; launches eager {e["launches"]}, chained '
+          f'{c["launches"]} (the forward also renders the dataset)',
+          flush=True)
+    if not max(rel.values()) < RECON_DP_REL:
+        raise AssertionError(f'(j3) chained vs eager: {rel}')
+    if blocks != [5, 8, 3] or c['steps'].fetches != 3 \
+            or e['steps'].fetches != CHAIN_RECON_STEPS:
+        raise AssertionError(f'(j3) blocks {blocks}, fetches '
+                             f'{c["steps"].fetches}, {e["steps"].fetches}')
+    if min(r['launches']['rasterize_bwd'] for r in (e, c)) \
+            != CHAIN_RECON_STEPS:
+        raise AssertionError(f'(j3) launches {e["launches"]}, '
+                             f'{c["launches"]}')
+    del runs
+    timing = {}
+    for chain in (1, CHAIN_RECON):
+        res = TR.main(argv + ['-ni', str(max(chain, 3)), '--chain',
+                              str(chain)])
+        timing[chain] = time_chain(
+            smi, f'train_reconstruction --synthetic --chain {chain}',
+            res['steps'], chain)
+        del res
+    return c['launches'], errs, timing
+
+
+def chain_phase(smi):
+    """Path (j): (j1)-(j3), the replays' kernels (j4), the capture's
+    checks (j5; capture_must_fail, run last of all, after it) and the step
+    times (j6).  Returns (launches by path, the replays' largest image and
+    gradient errors, the timings)."""
+    t0 = time.perf_counter()
+    by_path, timing = {}, {}
+    img = grad = 0.0
+    for name, fn in (('chain_shape', chain_shape_path),
+                     ('chain_camera', chain_camera_path),
+                     ('chain_reconstruction', chain_reconstruction_path)):
+        by_path[name], (i, g), timing[name] = fn(smi)
+        img, grad = max(img, i), max(grad, g)
+    print(f'[chain] (j5) every capture in capture_error_mode=\'global\', '
+          f'every block\'s replays under torch.cuda.set_sync_debug_mode('
+          f'\'error\') (common.StepChain); path (j) took '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    summary = {name: {str(k): dict(step_ms=r['step_ms'], busy=r['busy'],
+                                   kernels=r['kernels'],
+                                   kernel_ms=r['kernel_ms'],
+                                   kernel_share=r['kernel_share'],
+                                   replay_ms=r['replay_ms'])
+                      for k, r in t.items()} for name, t in timing.items()}
+    print(f'[chain] (j6) {smi}: ' + json.dumps(summary), flush=True)
+    return by_path, (img, grad), summary
 
 
 def face_halves(cfg, fv, tex):
@@ -2208,11 +2757,20 @@ def main():
         return 1
     # imported only now: a copy of this script without the repo fails here
     from gendr_tpu_torch import _build
+    # cuBLAS's setting for deterministic algorithms (path (j)'s
+    # comparisons), read when its first handle is made
+    os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
 
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     print(f'[device] {smi} | torch {torch.__version__} cuda '
           f'{torch.version.cuda} | {kind}', flush=True)
+    if sys.argv[1:] == ['--chain-only']:
+        # a quick look at path (j) alone; the full run has no arguments
+        _build.build(*_build.SIGNATURES)
+        chain_phase(smi)
+        capture_must_fail()
+        return 0
 
     t0 = time.perf_counter()
     names = tuple(_build.SIGNATURES)
@@ -2253,6 +2811,10 @@ def main():
         recon_img, recon_grad, recon_ms = reconstruction_phase(cuda_steps)
         img_err = max(img_err, recon_img)
         grad_err = max(grad_err, recon_grad)
+        chain_paths, (chain_img, chain_grad), chain_times = chain_phase(smi)
+        by_path.update(chain_paths)
+        img_err = max(img_err, chain_img)
+        grad_err = max(grad_err, chain_grad)
         probe_launches, probe_err = probe_phase()
         kt = timings(smi, cuda_steps, yager_steps, obj_file)
     print(f'[timing] {smi}: host clock: save_obj(texture_res='
@@ -2288,6 +2850,8 @@ def main():
     def numbers(r):
         return dict(ms=r['ms'], plain_ms=r['plain_ms'], bound_ms=r['bound'][0],
                     bound_by=r['bound'][1])
+    # last: a capture that must fail leaves nothing after it to spoil
+    capture_must_fail()
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
         'source': f'gendr_tpu_torch/csrc/{sources[name]}.cu',
@@ -2301,7 +2865,7 @@ def main():
                      if name in r}} for name in sources],
         'sharded_step_ms': shard_times['step_ms'],
         'sharded_collective_ms': shard_times['collective_ms'],
-        'reconstruction_step_ms': recon_ms}))
+        'reconstruction_step_ms': recon_ms, 'chain': chain_times}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

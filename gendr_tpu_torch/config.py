@@ -204,10 +204,11 @@ class RenderParams:
             self.aggr_alpha_t_conorm_p = 0.0
 
     def as_dict(self) -> dict:
-        """The params dict the raster backends take: float32 scalar
-        tensors on the CPU (the arithmetic that derives the kernel's
-        parameter vector then rounds as the JAX package's does) and a [3]
-        background colour."""
+        """The params dict the raster backends take: float32 tensors, each
+        number a scalar on the CPU (the arithmetic that derives the
+        kernel's parameter vector, pairmath.params_vector, then rounds as
+        the JAX package's does), a [3] background colour; a parameter
+        given as a tensor stays on its device."""
         d = dataclasses.asdict(self)
-        return {k: torch.as_tensor(v, dtype=torch.float32).cpu()
+        return {k: torch.as_tensor(v, dtype=torch.float32)
                 for k, v in d.items()}

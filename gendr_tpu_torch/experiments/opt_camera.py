@@ -4,8 +4,17 @@ Port of ``experiments/opt_camera.py``: a batch of 200 candidate poses
 [distance, elevation, azimuth, fov] is optimized to match a hard-rendered
 goal silhouette, with tau annealed over np.logspace(-1, -7) across the run
 (opt_camera.py:291-293).  The pose batch is pure data parallelism: one
-Adam step renders all poses at once, and ``dist_scale`` is read from the
-renderer at every call, so annealing rebuilds nothing.
+Adam step renders all poses at once.  The soft renderer renders with the
+parameter vector of the experiment's static buffer ``par``; the run
+derives the whole anneal's vectors on the host up front, and each step
+reads its row.
+
+``--chain N`` (default 20, as the JAX script's; forced to 1 by ``--gif``)
+runs N steps a block and fetches their losses once a block, where the
+stop on a non-finite loss is checked (``common.StepChain``): on the card
+one step captured as a CUDA graph per loss and replayed, the poses and the
+Adam state reset in place between settings; with ``--chain 1`` the step
+runs eagerly.  On the CPU the block is a plain loop.
 
 On CUDA tensors the render and its gradient run through the hand-written
 kernels (``backend='cuda'``, alpha only); on CPU tensors through the plain
@@ -25,14 +34,17 @@ import numpy as np
 import torch
 
 from gendr_tpu_torch import GenDR, Lighting, Mesh
-from gendr_tpu_torch.experiments.common import (GifWriter, iou_loss,
-                                                load_or_make_mesh, make_grid,
-                                                require_gif_support)
+from gendr_tpu_torch.device import to_device
+from gendr_tpu_torch.experiments.common import (GifWriter, StepChain,
+                                                chain_capture, iou_loss,
+                                                load_or_make_mesh, make_adam,
+                                                make_grid,
+                                                require_gif_support,
+                                                reset_optimizer)
 from gendr_tpu_torch.geometry import transforms as T
 
 SEED = 0
 THRESHOLD = 5.0   # degrees: a pose whose angles end inside it has succeeded
-LOSS_CHECK = 20   # steps between two looks at the losses (a host sync)
 
 
 def transform_cameras(vertices, poses, additional_poses=None):
@@ -101,7 +113,12 @@ def _sync(device):
 class CameraExperiment:
     """The mesh, the lighting, the two renderers, the goal poses and their
     hard-rendered silhouettes of one run, and the steps of
-    opt_camera.py:120-248 (JAX experiment)."""
+    opt_camera.py:120-248 (JAX experiment).
+
+    ``par`` is the soft renderer's parameter vector on the device, a static
+    buffer (a chained block writes its rows); ``poses`` the leaf the steps
+    optimize and the optimizer are made by the first run and kept; so are
+    the StepChains, one per loss (``chains``)."""
 
     def __init__(self, args, device, backend=None, data_dir=None):
         self.args = args
@@ -117,18 +134,24 @@ class CameraExperiment:
                                         device=self.device)
         with torch.no_grad():
             self.goal = self.render(self.hard_renderer, self.poses_gt)
+        self.par = to_device(self.diff_renderer.params_vector(),
+                             self.device)
+        self.poses = self.opt = self.pred = None
+        self.chains = {}
 
-    def render(self, renderer, poses, dist_scale=None,
-               additional_poses=None):
+    def render(self, renderer, poses, additional_poses=None, par=None):
         mesh = self.lighting(self.base_mesh)
         verts = transform_cameras(mesh.vertices, poses, additional_poses)
-        if dist_scale is not None:
-            renderer.dist_scale = dist_scale
-        return renderer(mesh.with_vertices(verts))
+        return renderer(mesh.with_vertices(verts), par=par)
 
-    def loss_fn(self, poses, sigma, loss_name='iou'):
-        """(loss, rendered batch [B, 4, H, W]) of the candidate poses."""
-        pred = self.render(self.diff_renderer, poses, dist_scale=sigma,
+    def loss_fn(self, poses, sigma=None, loss_name='iou'):
+        """(loss, rendered batch [B, 4, H, W]) of the candidate poses;
+        sigma (a number) is written into ``par`` first, None renders with
+        ``par`` as it is."""
+        if sigma is not None:
+            self.par.copy_(to_device(self.diff_renderer.params_vector(
+                dist_scale=sigma), self.device))
+        pred = self.render(self.diff_renderer, poses, par=self.par,
                            additional_poses=self.poses_gt)
         if loss_name == 'mse':
             # opt_camera.py:25-26: sum over batch, mean over pixels
@@ -139,9 +162,9 @@ class CameraExperiment:
 
     def make_optimizer(self, poses, lr):
         # optax.adam(1.0, b1=0.5, b2=0.99) with its updates scaled by lr
-        return torch.optim.Adam([poses], lr=lr, betas=(0.5, 0.99))
+        return make_adam([poses], lr, betas=(0.5, 0.99))
 
-    def train_step(self, opt, poses, sigma, loss_name='iou'):
+    def train_step(self, opt, poses, sigma=None, loss_name='iou'):
         """One Adam step on poses (a leaf that requires grad); returns
         (loss, rendered batch)."""
         opt.zero_grad(set_to_none=True)
@@ -150,39 +173,70 @@ class CameraExperiment:
         opt.step()
         return loss.detach(), pred.detach()
 
+    def begin(self, poses0):
+        """poses0 [B, 4] (numpy or tensor) in the leaf the steps optimize,
+        and a fresh Adam state: in place after the first run."""
+        p0 = torch.as_tensor(np.asarray(poses0), dtype=torch.float32)
+        if self.poses is None:
+            self.poses = p0.to(self.device).clone().requires_grad_(True)
+            self.opt = self.make_optimizer(self.poses,
+                                           self.args.learning_rate)
+        else:
+            with torch.no_grad():
+                self.poses.copy_(to_device(p0, self.device))
+            reset_optimizer(self.opt, self.args.learning_rate)
+
+    def chain(self, loss_name):
+        """The StepChain of one step of loss_name on ``poses``, with the
+        vector in ``par``: [the step's loss]."""
+        if loss_name not in self.chains:
+            def step():
+                loss, self.pred = self.train_step(self.opt, self.poses,
+                                                  None, loss_name)
+                return loss[None]
+            self.chains[loss_name] = StepChain(
+                step, {'par': self.par},
+                chain_capture(self.device, self.args.chain),
+                state=[self.poses], optimizer=self.opt)
+        return self.chains[loss_name]
+
     def run(self, poses0, loss_name='iou', num_iterations=None, writer=None,
             verbose=False):
-        """Anneal from poses0 [B, 4] (numpy or tensor): dict(poses [B, 4]
-        numpy, losses per step, seconds, iterations done).  Stops when a
-        loss is not finite, looked at every LOSS_CHECK steps."""
+        """Anneal from poses0 [B, 4] (numpy or tensor), --chain steps a
+        block (1 with a writer): dict(poses [B, 4] numpy,
+        losses per step, seconds, iterations done).  Stops after a block
+        with a loss that is not finite."""
         n = num_iterations or self.args.num_iterations
-        poses = torch.as_tensor(np.asarray(poses0), dtype=torch.float32) \
-            .to(self.device).clone().requires_grad_(True)
-        opt = self.make_optimizer(poses, self.args.learning_rate)
+        chain = 1 if writer is not None else max(1, self.args.chain)
+        self.begin(poses0)
+        steps = self.chain(loss_name)
         sigmas = np.logspace(-1, -7, n)
+        # every step's vector, derived on the host at once
+        pars = self.diff_renderer.params_vector(
+            dist_scale=torch.from_numpy(sigmas))
         losses, done = [], 0
         B = self.batch_size
         _sync(self.device)
         t0 = time.perf_counter()
-        for i in range(n):
-            loss, pred = self.train_step(opt, poses, float(sigmas[i]),
-                                         loss_name)
-            losses.append(loss)
-            done = i + 1
-            if writer and i % 20 == 0:
+        while done < n:
+            nb = min(chain, n - done)
+            ls = steps.run({'par': pars[done:done + nb]})[:, 0].tolist()
+            losses += ls
+            if writer is not None and done % 20 == 0:
                 gx, gy = (4, B // 4) if B % 4 == 0 else (1, B)
-                writer.append(make_grid(pred[:, 3], self.goal[:, 3], gx, gy))
-            if verbose and i % 100 == 0:
-                print(f'  iter {i}: loss {float(loss):.4f} '
-                      f'sigma {sigmas[i]:.2e}')
-            if done % LOSS_CHECK == 0 and not bool(
-                    torch.isfinite(torch.stack(losses[-LOSS_CHECK:])).all()):
+                writer.append(make_grid(self.pred[:, 3], self.goal[:, 3],
+                                        gx, gy))
+            for j, lv in enumerate(ls):
+                if verbose and (done + j) % 100 == 0:
+                    print(f'  iter {done + j}: loss {lv:.4f} '
+                          f'sigma {sigmas[done + j]:.2e}')
+            done += nb
+            if not np.isfinite(ls).all():
                 print('Stopping the loop because loss is NaN.')
                 break
         _sync(self.device)
         seconds = time.perf_counter() - t0
-        return dict(poses=poses.detach().cpu().numpy(),
-                    losses=[float(x) for x in torch.stack(losses).cpu()],
+        return dict(poses=self.poses.detach().cpu().numpy(), losses=losses,
                     seconds=seconds, iterations=done)
 
     def execute_setting(self, a_min, a_max, loss_name, gif_path=None):
@@ -219,6 +273,12 @@ def parse_args(argv=None):
     parser.add_argument('-lo', '--losses', type=str, nargs='+',
                         default=['iou'])
     parser.add_argument('-gif', '--gif', action='store_true')
+    parser.add_argument('--chain', type=int, default=20,
+                        help='training steps a block, their losses fetched '
+                        'once a block: on the card one step captured as a '
+                        'CUDA graph and replayed; 1 = step by step; forced '
+                        'to 1 with --gif, which samples frames every 20 '
+                        'steps')
     parser.add_argument('--backend', type=str, default=None,
                         help="'cuda' (the kernels), 'torch' (plain), or "
                         'the default for the device')

@@ -5,8 +5,17 @@ match 24 hard-rendered target silhouettes per view set.  One training step
 is model -> lighting -> look_at -> differentiable render (``channels=
 'alpha'``) -> IoU/MSE + Laplacian + flatten regularizers -> Adam; after each
 step a hard render scores the shape.  The lr x sigma grid search
-(opt_shape.py:326-337) re-uses the renderers: ``dist_scale`` is a plain
-attribute of ``GenDR``.
+(opt_shape.py:326-337) re-uses the renderers: the soft renderer renders
+with the parameter vector of the experiment's static buffer ``par``, into
+which each setting's sigma is written.
+
+``--chain N`` (default 10, as the JAX script's; forced to 1 by ``--gif``)
+runs N (train step + hard eval) pairs a block and fetches their hard
+losses once a block (``common.StepChain``): on the card one pair captured
+as a CUDA graph and replayed N times, captured once per run and reused by
+every (lr, sigma) setting, whose parameters and Adam state are reset in
+place; with ``--chain 1`` the pair runs eagerly.  On the CPU the block is
+a plain loop.
 
 On CUDA tensors the render and its gradient run through the hand-written
 kernels (``backend='cuda'``); on CPU tensors through the plain ``torch``
@@ -28,10 +37,13 @@ import torch
 from torch import nn
 
 from gendr_tpu_torch import GenDR, Lighting, LookAt, Mesh, data
-from gendr_tpu_torch.experiments.common import (GifWriter, iou_loss,
-                                                load_or_make_mesh, make_grid,
-                                                mse_loss,
-                                                require_gif_support)
+from gendr_tpu_torch.device import to_device
+from gendr_tpu_torch.experiments.common import (GifWriter, StepChain,
+                                                chain_capture, iou_loss,
+                                                load_or_make_mesh, make_adam,
+                                                make_grid, mse_loss,
+                                                require_gif_support,
+                                                reset_optimizer)
 from gendr_tpu_torch.geometry.losses import FlattenLoss, LaplacianLoss
 from gendr_tpu_torch.geometry.transforms import get_points_from_angles
 
@@ -101,14 +113,15 @@ def build_renderers(args, backend=None):
     return diff_renderer, hard_renderer
 
 
-def _sync(device):
-    if device.type == 'cuda':
-        torch.cuda.synchronize(device)
-
-
 class ShapeExperiment:
     """The model, the camera, the lighting and the two renderers of one
-    run, and the steps of opt_shape.py:160-242 (JAX experiment)."""
+    run, and the steps of opt_shape.py:160-242 (JAX experiment).
+
+    ``par`` is the soft renderer's parameter vector on the device, a static
+    buffer: a number given as a step's dist_scale is written into it, and
+    a chained block writes its rows.  ``steps`` (the StepChain of one train
+    step + hard eval), the optimizer and the view set's ``eyes`` and
+    ``targets`` buffers are made by the first run and kept."""
 
     def __init__(self, args, device, backend=None):
         self.args = args
@@ -119,6 +132,10 @@ class ShapeExperiment:
         self.diff_renderer, self.hard_renderer = build_renderers(args,
                                                                  backend)
         self.sil_loss_fn = mse_loss if args.loss == 'mse' else iou_loss
+        self.par = to_device(self.diff_renderer.params_vector(),
+                             self.device)
+        self.opt = self.steps = self.eyes = self.targets = None
+        self.images = None
 
     @torch.no_grad()
     def goal_mesh(self, model_obj, data_dir=None):
@@ -154,19 +171,26 @@ class ShapeExperiment:
         self.transform.set_eyes(eyes)
         return self.transform(mesh), lap, flat
 
-    def loss_fn(self, eyes, targets, dist_scale):
+    def set_dist_scale(self, dist_scale):
+        """Write the soft renderer's vector at dist_scale into ``par``."""
+        self.par.copy_(to_device(self.diff_renderer.params_vector(
+            dist_scale=dist_scale), self.device))
+
+    def loss_fn(self, eyes, targets, dist_scale=None):
+        """(loss, soft silhouettes); dist_scale None renders with ``par``
+        as it is."""
+        if dist_scale is not None:
+            self.set_dist_scale(dist_scale)
         mesh, lap, flat = self.model_mesh(eyes)
-        self.diff_renderer.dist_scale = dist_scale
-        images = self.diff_renderer(mesh)[:, 3]
+        images = self.diff_renderer(mesh, par=self.par)[:, 3]
         sil = self.sil_loss_fn(images, targets)
         return sil + 0.03 * lap + 0.0003 * flat, images
 
     def make_optimizer(self, lr):
         # optax.adam(1.0, b1=0.5, b2=0.95) with its updates scaled by lr
-        return torch.optim.Adam(self.model.parameters(), lr=lr,
-                                betas=(0.5, 0.95))
+        return make_adam(self.model.parameters(), lr, betas=(0.5, 0.95))
 
-    def train_step(self, opt, eyes, targets, dist_scale):
+    def train_step(self, opt, eyes, targets, dist_scale=None):
         """One Adam step; returns (loss, images, every gradient finite)."""
         opt.zero_grad(set_to_none=True)
         loss, images = self.loss_fn(eyes, targets, dist_scale)
@@ -181,25 +205,58 @@ class ShapeExperiment:
         mesh, _, _ = self.model_mesh(eyes)
         return self.sil_loss_fn(self.hard_renderer(mesh)[:, 3], targets)
 
-    def run(self, lr, sigma, eyes, targets, num_iterations, writer=None):
-        """Train from the template: per step the hard loss after it and the
-        step's wall time (train step only, synchronized), and whether every
-        gradient was finite."""
+    def chained_step(self):
+        """One train step + hard eval on the view set's buffers, with the
+        vector in ``par``: [soft loss, hard loss after the step, every
+        gradient finite (1.0)], the JAX train_block's scan body."""
+        loss, images, ok = self.train_step(self.opt, self.eyes,
+                                           self.targets)
+        self.images = images
+        hard = self.hard_eval(self.eyes, self.targets)
+        return torch.stack([loss, hard, ok.to(loss.dtype)])
+
+    def begin(self, lr, eyes, targets):
+        """The template's parameters, a fresh Adam state at lr and the view
+        set (eyes, targets) in the buffers the chained step reads: in
+        place after the first run, so a captured step stays valid."""
         self.model.reset_parameters()
-        opt = self.make_optimizer(lr)
-        hard_losses, step_s = [], []
-        finite = torch.ones((), dtype=torch.bool, device=self.device)
-        for _ in range(num_iterations):
+        if self.opt is None:
+            self.opt = self.make_optimizer(lr)
+            self.eyes, self.targets = eyes.clone(), targets.clone()
+            self.steps = StepChain(
+                self.chained_step, {'par': self.par},
+                chain_capture(self.device, self.args.chain),
+                state=self.model.parameters(), optimizer=self.opt)
+        else:
+            reset_optimizer(self.opt, lr)
+            self.eyes.copy_(eyes)
+            self.targets.copy_(targets)
+
+    def run(self, lr, sigma, eyes, targets, num_iterations, writer=None):
+        """Train from the template, --chain steps a block (1 with a
+        writer): per step the soft loss, the hard loss after
+        it and its wall time (its block's, host clock to the block's
+        fetch, over the block's steps), and whether every gradient was
+        finite."""
+        chain = 1 if writer is not None else max(1, self.args.chain)
+        self.begin(lr, eyes, targets)
+        par = self.diff_renderer.params_vector(dist_scale=sigma)
+        losses, hard_losses, step_s = [], [], []
+        finite = True
+        i = 0
+        while i < num_iterations:
+            n = min(chain, num_iterations - i)
             t0 = time.perf_counter()
-            _, images, ok = self.train_step(opt, eyes, targets, sigma)
-            _sync(self.device)
-            step_s.append(time.perf_counter() - t0)
-            finite &= ok
-            hard_losses.append(float(self.hard_eval(eyes, targets)))
-            if writer:
-                writer.append(make_grid(images, targets, 4, 6))
-        return dict(hard_losses=hard_losses, step_s=step_s,
-                    grads_finite=bool(finite))
+            res = self.steps.run({'par': par.repeat(n, 1)})
+            step_s += [(time.perf_counter() - t0) / n] * n
+            losses += res[:, 0].tolist()
+            hard_losses += res[:, 1].tolist()
+            finite &= bool(res[:, 2].all())
+            if writer is not None:
+                writer.append(make_grid(self.images, self.targets, 4, 6))
+            i += n
+        return dict(losses=losses, hard_losses=hard_losses, step_s=step_s,
+                    grads_finite=finite)
 
     def execute_setting(self, lr, sigma, eyes, targets, gif_path=None):
         """The grid's score of one (lr, sigma): the best hard loss, or the
@@ -236,6 +293,12 @@ def parse_args(argv=None):
     parser.add_argument('-cr', '--criterion', type=str, default='loss',
                         choices=['loss', 'steps_to_threshold'])
     parser.add_argument('-gif', '--gif', action='store_true')
+    parser.add_argument('--chain', type=int, default=10,
+                        help='training steps a block, their hard losses '
+                        'fetched once a block: on the card one step '
+                        'captured as a CUDA graph and replayed; 1 = step '
+                        'by step; forced to 1 with --gif, which needs every '
+                        'frame')
     parser.add_argument('--backend', type=str, default=None,
                         help="'cuda' (the kernels), 'torch' (plain), or "
                         'the default for the device')
@@ -279,7 +342,8 @@ def main(argv=None):
             sigmas = np.logspace(-1, -7, 7)
 
         best = [None, None, 1e10]
-        # warm up: the first render on the card builds the kernels
+        # warm up: the first render on the card builds the kernels, and
+        # with --chain N > 1 the first block captures the step
         exp.run(lrs[0], sigmas[0], eyes, targets, 1)
         t0 = time.time()
         n_runs = 0

@@ -17,6 +17,16 @@ whole batch, trains on its share, normalises with the whole batch's
 BatchNorm moments and averages the gradient over dp, so the parameters
 and Adam state stay replicated.
 
+``--chain N`` (default 0: 8 on the card, 1 on the CPU, as the JAX
+script's 8 on the accelerator) trains N steps a block, on the N batches
+drawn for it (one copy of their image ids to the device), and fetches
+their losses once a block; a block never straddles ``--decay-at``, a print
+or an evaluation (:func:`block_length`), so checkpoints land on block ends.
+On the card the step is captured once as a CUDA graph, gathers its batch
+from the device-resident dataset by the ids of a static buffer and is
+replayed per step; ``--host-data`` and ``--data-parallel`` run the block as
+a loop and say why.
+
 On CUDA tensors the render and its gradient run through the hand-written
 kernels (``backend='cuda'``, alpha only); on CPU tensors through the plain
 ``torch`` backend.  ``main`` turns TF32 off for cuDNN's convolutions and
@@ -50,8 +60,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from gendr_tpu_torch import GenDR, Lighting, LookAt, Mesh, data
-from gendr_tpu_torch.device import resolve_device
-from gendr_tpu_torch.experiments.common import iou_loss
+from gendr_tpu_torch.device import resolve_device, to_device
+from gendr_tpu_torch.experiments.common import (StepChain, chain_capture,
+                                                iou_loss, make_adam, set_lr)
 from gendr_tpu_torch.geometry import core, voxelize
 from gendr_tpu_torch.geometry.losses import FlattenLoss, LaplacianLoss
 from gendr_tpu_torch.geometry.transforms import get_points_from_angles
@@ -560,6 +571,9 @@ class Reconstruction:
             dist_eps=args.dist_eps, aggr_alpha_func=args.t_conorm,
             aggr_alpha_t_conorm_p=args.t_conorm_p, aggr_rgb_func='hard',
             backend=args.backend, channels='alpha')
+        # the renderer's parameter vector, a static buffer a chained block
+        # writes its rows into
+        self.par = to_device(self.renderer.params_vector(), self.device)
 
     def parameters(self):
         return [*self.encoder.parameters(), *self.decoder.parameters()]
@@ -583,19 +597,27 @@ class Reconstruction:
         self.transform.set_eyes(eyes)
         return self.transform(mesh)
 
-    def loss_fn(self, images_a, images_b, eyes_a, eyes_b, dist_scale):
+    def set_dist_scale(self, dist_scale):
+        """Write the renderer's vector at dist_scale into ``par``."""
+        self.par.copy_(to_device(self.renderer.params_vector(
+            dist_scale=dist_scale), self.device))
+
+    def loss_fn(self, images_a, images_b, eyes_a, eyes_b, dist_scale=None):
         """2-view cross-consistency loss (the reference's
         train_reconstruction.py:211-231, 41-46): render [Raa, Rba, Rab,
-        Rbb] and compare with the two target views."""
+        Rbb] and compare with the two target views.  dist_scale (a number)
+        is written into ``par`` first; None renders with ``par`` as it
+        is."""
+        if dist_scale is not None:
+            self.set_dist_scale(dist_scale)
         args = self.args
         images = torch.cat([images_a, images_b], 0)
         vertices = self.reconstruct(images, True)
         lap = self.laplacian(vertices).mean()
         flat = self.flatten(vertices).mean()
         eyes = torch.cat([eyes_a, eyes_a, eyes_b, eyes_b], 0)
-        self.renderer.dist_scale = dist_scale
         sils = self.renderer(self.silhouette_mesh(
-            torch.cat([vertices, vertices], 0), eyes))[:, 3]
+            torch.cat([vertices, vertices], 0), eyes), par=self.par)[:, 3]
         raa, rba, rab, rbb = sils.chunk(4)
         ta, tb = images_a[:, 3], images_b[:, 3]
         sil_loss = (iou_loss(raa, ta) + iou_loss(rba, ta)
@@ -604,12 +626,17 @@ class Reconstruction:
             + args.lambda_flatten * flat
 
     def train_step(self, opt, images_a, images_b, eyes_a, eyes_b,
-                   dist_scale, lr_scale=1.0):
-        """One Adam step on this rank's share of the batch, the gradient
-        averaged over dp; returns (the batch's loss, every gradient finite),
-        both 0-d tensors on the device."""
-        for group in opt.param_groups:
-            group['lr'] = self.args.learning_rate * lr_scale
+                   dist_scale=None, lr_scale=1.0):
+        """One Adam step at lr x lr_scale; see step."""
+        set_lr(opt, self.args.learning_rate * lr_scale)
+        return self.step(opt, images_a, images_b, eyes_a, eyes_b,
+                         dist_scale)
+
+    def step(self, opt, images_a, images_b, eyes_a, eyes_b,
+             dist_scale=None):
+        """One Adam step at the optimizer's lr on this rank's share of the
+        batch, the gradient averaged over dp; returns (the batch's loss,
+        every gradient finite), both 0-d tensors on the device."""
         opt.zero_grad(set_to_none=True)
         loss = self.loss_fn(images_a, images_b, eyes_a, eyes_b, dist_scale)
         loss.backward()
@@ -727,21 +754,46 @@ def restore_checkpoint(directory, exp, opt, np_rng):
     state = torch.load(paths[-1], map_location='cpu', weights_only=True)
     exp.encoder.load_state_dict(state['encoder'])
     exp.decoder.load_state_dict(state['decoder'])
+    # the groups keep their lr (on the card a tensor a captured step
+    # reads), which the run sets before every block
+    lrs = [group['lr'] for group in opt.param_groups]
     opt.load_state_dict(state['optimizer'])
+    for group, lr in zip(opt.param_groups, lrs):
+        group['lr'] = lr
     _set_rng_state(np_rng, state['rng'])
     return state['iteration']
+
+
+def block_length(i, chain, num_iterations, decay_at, print_freq,
+                 eval_freq):
+    """Steps of the block that starts at iteration i: at most chain, none
+    past num_iterations, and never across the decay at decay_at, a print
+    (every print_freq) or an evaluation (every eval_freq), which fire at
+    the block's last step (the JAX script's rule,
+    experiments/train_reconstruction.py:771-779)."""
+    n = min(chain, num_iterations - i + 1)
+    if i < decay_at < i + n:
+        n = decay_at - i
+    nxt_print = ((i - 1) // print_freq + 1) * print_freq
+    nxt_eval = ((i - 1) // eval_freq + 1) * eval_freq
+    return max(1, min(n, nxt_print - i + 1, nxt_eval - i + 1))
+
+
+def chain_length(args, device):
+    """--chain, where 0 means 8 on the card and 1 elsewhere."""
+    return args.chain or (8 if torch.device(device).type == 'cuda' else 1)
 
 
 def train(args, device, mesh=None):
     """The run of ``main`` in one process (one rank of ``mesh``'s dp axis,
     or the only one): returns {'mean_iou', 'final_loss', 'losses' (every
-    step's, as floats), 'grads_finite'}.  Rank 0 alone prints, evaluates
-    and saves checkpoints."""
+    step's, as floats), 'grads_finite', 'steps' (the StepChain)}.  Rank 0
+    alone prints, evaluates and saves checkpoints."""
     lead = mesh is None or mesh.index('dp') == 0
     log = print if lead else (lambda *a, **k: None)
     dataset_train, dataset_val = make_datasets(args, device)
     exp = build_experiment(args, device, mesh)
-    opt = torch.optim.Adam(exp.parameters(), lr=args.learning_rate)
+    opt = make_adam(exp.parameters(), args.learning_rate)
     # the batch stream's RNG is part of the training state: a resumed run
     # must draw the batches it would have drawn uninterrupted
     np_rng = np.random.RandomState(args.seed)
@@ -766,60 +818,95 @@ def train(args, device, mesh=None):
     if mesh is not None:
         log(f'data-parallel over {mesh.size("dp")} ranks')
 
-    def batch():
+    # a step's inputs: the batch's image ids into the device-resident
+    # dataset (or its images), its eyes and the renderer's vector
+    B, size = args.batch_size, args.image_size
+    inputs = dict(eyes=torch.zeros((2, B, 3), device=exp.device),
+                  par=exp.par)
+    if dev_images is not None:
+        inputs['ids'] = torch.zeros((2, B), dtype=torch.long,
+                                    device=exp.device)
+    else:
+        inputs['images'] = torch.zeros((2, B, 4, size, size),
+                                       device=exp.device)
+
+    def step():
         if dev_images is not None:
-            ids_a, ids_b, eyes_a, eyes_b = dataset_train.get_random_batch_ids(
-                np_rng, args.batch_size)
-            ids_a = torch.from_numpy(ids_a).to(exp.device).long()
-            ids_b = torch.from_numpy(ids_b).to(exp.device).long()
-            images_a, images_b = ids_a, ids_b
+            ids = inputs['ids']
+            if mesh is not None:
+                ids = S.shard_batch(ids.T, mesh, 'dp').T
+            images = dev_images[ids].float() / 255.
         else:
-            images_a, images_b, eyes_a, eyes_b = \
-                dataset_train.get_random_batch(np_rng, args.batch_size)
-            images_a = torch.from_numpy(images_a).to(exp.device)
-            images_b = torch.from_numpy(images_b).to(exp.device)
-        out = (images_a, images_b, torch.from_numpy(eyes_a).to(exp.device),
-               torch.from_numpy(eyes_b).to(exp.device))
+            images = inputs['images']
+            if mesh is not None:
+                images = S.shard_batch(images.transpose(0, 1), mesh,
+                                       'dp').transpose(0, 1)
+        eyes = inputs['eyes']
         if mesh is not None:
-            out = S.shard_batch(out, mesh, 'dp')
-        if dev_images is not None:
-            out = (dev_images[out[0]].float() / 255.,
-                   dev_images[out[1]].float() / 255., *out[2:])
-        return out
+            eyes = S.shard_batch(eyes.transpose(0, 1), mesh,
+                                 'dp').transpose(0, 1)
+        loss, ok = exp.step(opt, images[0], images[1], eyes[0], eyes[1])
+        return torch.stack([loss, ok.to(loss.dtype)])
+
+    chain = chain_length(args, exp.device)
+    reason = ('--data-parallel: its collectives (BatchNorm\'s moments, the '
+              'gradient all-reduce) run through torch.distributed'
+              if mesh is not None else
+              '--host-data: each block\'s image batches come from host '
+              'memory' if dev_images is None else None)
+    steps = StepChain(step, inputs, chain_capture(exp.device, chain, reason),
+                      state=[*exp.parameters(), *exp.encoder.buffers()],
+                      optimizer=opt)
+    draw = (dataset_train.get_random_batch_ids if dev_images is not None
+            else dataset_train.get_random_batch)
 
     losses = []
-    finite = torch.ones((), dtype=torch.bool, device=exp.device)
+    finite = True
     t0 = time.time()
-    for i in range(start_iter, args.num_iterations + 1):
+    i = start_iter
+    while i <= args.num_iterations:
         # lr and dist_scale decay at the boundary (the reference: 150k of
         # 250k, train_reconstruction.py:70-84)
         decayed = i >= args.decay_at
         lr_scale = 0.3 if decayed else 1.0
         dist_scale = args.dist_scale * (0.3 if decayed else 1.0)
-        loss, ok = exp.train_step(opt, *batch(), dist_scale, lr_scale)
-        # the loss stays on the device until a print reads it
-        losses.append(loss)
-        finite &= ok
+        n = block_length(i, chain, args.num_iterations, args.decay_at,
+                         args.print_freq, args.eval_freq)
+        batches = [draw(np_rng, B) for _ in range(n)]
+        xs = dict(eyes=np.stack([np.stack(b[2:]) for b in batches]),
+                  par=exp.renderer.params_vector(
+                      dist_scale=dist_scale).repeat(n, 1))
+        if dev_images is not None:
+            xs['ids'] = np.stack([np.stack(b[:2]) for b in batches]
+                                 ).astype(np.int64)
+        else:
+            xs['images'] = np.stack([np.stack(b[:2]) for b in batches])
+        set_lr(opt, args.learning_rate * lr_scale)
+        res = steps.run(xs)
+        losses += res[:, 0].tolist()
+        finite &= bool(res[:, 1].all())
+        i_last = i + n - 1
 
-        if i % args.print_freq == 0:
+        if i_last % args.print_freq == 0:
             dt = time.time() - t0
-            recent = [float(x) for x in losses[-args.print_freq:]]
-            log(f'Iter: [{i}/{args.num_iterations}]\t'
+            recent = losses[-args.print_freq:]
+            log(f'Iter: [{i_last}/{args.num_iterations}]\t'
                 f'Loss {np.mean(recent):.4f}\t'
                 f'lr {args.learning_rate * lr_scale:.6f}\t'
                 f'sv {dist_scale:.6f}\t'
-                f'({(i - start_iter + 1) / dt:.2f} it/s)')
-        if i % args.eval_freq == 0 and lead:
+                f'({(i_last - start_iter + 1) / dt:.2f} it/s)')
+        if i_last % args.eval_freq == 0 and lead:
             exp.evaluate(dataset_val, 'Valid', log)
             if args.checkpoint_dir:
-                save_checkpoint(args.checkpoint_dir, i, exp, opt, np_rng)
+                save_checkpoint(args.checkpoint_dir, i_last, exp, opt,
+                                np_rng)
+        i += n
 
     mean_iou = exp.evaluate(dataset_val, 'Final', log) if lead else None
-    losses = [float(x) for x in losses]
     # a restored run past num_iterations trains zero steps
     final_loss = float(np.mean(losses[-10:])) if losses else float('nan')
     return dict(mean_iou=mean_iou, final_loss=final_loss, losses=losses,
-                grads_finite=bool(finite))
+                grads_finite=finite, steps=steps)
 
 
 def _rank_device(args, rank):
@@ -844,6 +931,7 @@ def _dp_rank(rank, world, init_file, out_dir, args):
     try:
         mesh = S.make_mesh({'dp': world})
         result = train(args, device, mesh)
+        del result['steps']
         result['launches'] = dict(CB.LAUNCHES)
         result['collective_seconds'] = S.collective_seconds()
         torch.save(result, os.path.join(out_dir, f'rank{rank}.pt'))
@@ -916,6 +1004,11 @@ def parse_args(argv=None):
                         help='keep training images on the host and upload '
                         'each batch (default: images live on the device as '
                         'uint8 and batches are gathered by index)')
+    parser.add_argument('--chain', type=int, default=0,
+                        help='training steps a block, on batches drawn for '
+                        'the block, their losses fetched once a block: on '
+                        'the card one step captured as a CUDA graph and '
+                        'replayed; 0 = 8 on the card, 1 elsewhere')
     parser.add_argument('--decay-at', type=int, default=150000,
                         help='iteration at which lr and dist_scale decay '
                              'x0.3 (reference: 150k of 250k, '

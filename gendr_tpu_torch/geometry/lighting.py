@@ -9,9 +9,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from gendr_tpu_torch.device import as_float32
+
 
 def _vec(v, device):
-    v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    v = as_float32(v, device)
     if v.ndim == 1:
         v = v[None, :]
     return v

@@ -22,9 +22,11 @@ import math
 import torch
 from torch import nn
 
+from gendr_tpu_torch.device import as_float32
+
 
 def _as_batch(v, b, device):
-    v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    v = as_float32(v, device)
     if v.ndim == 1:
         v = v[None, :].expand(b, v.shape[0])
     return v
@@ -101,8 +103,7 @@ def perspective(vertices, angle=30.0):
     a scalar or a per-batch [B] tensor."""
     if vertices.ndim != 3:
         raise ValueError('vertices Tensor should have 3 dimensions')
-    angle = torch.as_tensor(angle, dtype=torch.float32,
-                            device=vertices.device) * (math.pi / 180.0)
+    angle = as_float32(angle, vertices.device) * (math.pi / 180.0)
     width = torch.tan(angle).reshape(-1, 1)  # [1 or B, 1]
     z = vertices[:, :, 2]
     x = vertices[:, :, 0] / z / width

@@ -185,15 +185,15 @@ def prepass(face_vertices, textures, cfg: C.RenderConfig, params: Dict,
                                           fvalid)
     packed = pack.pack_faces(fv, tex, fvalid, cfg,
                              with_tex=cfg.channels != 'alpha')
-    margin = pack.cull_margin(cfg, params).to(packed.device)
+    par = PM._params_vec(params, cfg, packed.device)
+    # the cull's margin is the vector's slot (pack.cull_margin's value)
     mask = pack.tile_chunk_mask(packed, cfg.image_size, TILE, TILE, FC,
-                                margin, height, row0)
+                                par[PM.P_MARGIN], height, row0)
     tile_counts, tile_ids, chunk_counts, chunk_ids = pack.compact_hits(mask)
     return dict(packed=packed, perm=perm.to(torch.int32),
                 tile_counts=tile_counts, tile_ids=tile_ids,
                 chunk_counts=chunk_counts,
-                chunk_ids=chunk_ids.contiguous(),
-                par=PM._params_vec(params, cfg, packed.device),
+                chunk_ids=chunk_ids.contiguous(), par=par,
                 row0=row0, height=height)
 
 
@@ -509,7 +509,8 @@ def _finalize_soa(out, cfg: C.RenderConfig, params: Dict):
     is_ = cfg.image_size
     h = P // is_
     dev = out.device
-    bg = params['background_color'].to(dev).reshape(1, 3, 1)
+    par = PM._params_vec(params, cfg, dev)
+    bg = par[PM.P_BG0:PM.P_BG2 + 1].reshape(1, 3, 1)
     alpha = out[:, 0:1]
     mode = render_mode(cfg)
     if mode == MODE_ALPHA:
@@ -522,8 +523,7 @@ def _finalize_soa(out, cfg: C.RenderConfig, params: Dict):
     else:
         # streaming-softmax merge with the background state (smax eps,
         # ssum exp(eps / gamma), rgb bg * ssum; pallas_backend.py:839-851)
-        eps = params['aggr_rgb_eps'].to(dev)
-        gamma = params['aggr_rgb_gamma'].to(dev)
+        eps, gamma = par[PM.P_EPS], par[PM.P_GAMMA]
         ssum_k, smax_k = out[:, 1:2], out[:, 2:3]
         m = torch.maximum(eps, smax_k)
         sa = torch.exp((eps - m) / gamma)
@@ -547,7 +547,8 @@ def forward_with_aux(face_vertices, textures, cfg: C.RenderConfig,
     aux = prepass(face_vertices, textures, cfg, params)
     out = rasterize_fwd(aux['tile_counts'], aux['tile_ids'], aux['par'],
                         aux['packed'], aux['perm'], cfg, TS)
-    soft_colors, aggrs_info = _finalize_soa(out, cfg, params)
+    soft_colors, aggrs_info = _finalize_soa(out, cfg,
+                                            dict(params, par=aux['par']))
     return soft_colors, aggrs_info, aux
 
 

@@ -20,6 +20,7 @@ from typing import Dict
 import torch
 
 from gendr_tpu_torch import config as C
+from gendr_tpu_torch.device import to_device
 from gendr_tpu_torch.ops import distributions as D
 from gendr_tpu_torch.raster import pack
 
@@ -31,12 +32,17 @@ from gendr_tpu_torch.raster import pack
 NPAR = 16
 
 
-def _params_vec(params: Dict, cfg=None, device=None):
-    """The [16] float32 parameter vector.
+def params_vector(params: Dict, cfg=None):
+    """The [16] float32 parameter vector of ``params`` (the keys of
+    config.RenderParams), derived where the parameters are.
 
-    ``params`` holds float32 scalar tensors on the CPU (config.RenderParams
-    .as_dict), so each derived slot rounds as the JAX package's does; the
-    vector is built there and copied to ``device`` once.
+    Numbers (config.RenderParams.as_dict makes them float32 scalars on the
+    CPU) derive it on the CPU, so each derived slot rounds as the JAX
+    package's does; nothing is read back from the card.  A parameter given
+    as a tensor on the card derives it there, with the others copied to it
+    (its gamma normalizers then round as the card's lgamma does).  A
+    parameter of shape [n] (a schedule of dist_scale, say) gives [n, 16],
+    row k the vector of its k-th value.
 
     P_MARGIN is the per-pair bbox-gate radius.  Pixels farther than this
     from a face's vertex-derived bbox have true coverage <=
@@ -48,13 +54,17 @@ def _params_vec(params: Dict, cfg=None, device=None):
     reference's looser bbox-exit bound sqrt(dist_eps * tau) (cu:747).
     """
     f32 = torch.float32
-    p = {k: torch.as_tensor(v, dtype=f32).cpu() for k, v in params.items()}
+    dev = next((v.device for k, v in params.items() if k != 'par'
+                and isinstance(v, torch.Tensor) and v.device.type != 'cpu'),
+               torch.device('cpu'))
+    p = {k: to_device(torch.as_tensor(v, dtype=f32), dev)
+         for k, v in params.items() if k != 'par'}
     if cfg is not None:
         margin = pack.cull_margin(cfg, p)
     else:
         margin = torch.sqrt(p['dist_eps'] * p['dist_scale'])
     bg = p['background_color'].reshape(3)
-    vec = torch.stack([
+    slots = torch.broadcast_tensors(
         p['dist_scale'],
         p['dist_shape'],
         p['dist_shift'],
@@ -68,10 +78,34 @@ def _params_vec(params: Dict, cfg=None, device=None):
         torch.exp(-torch.lgamma(p['dist_shape'] + 1.0)),
         torch.exp(-torch.lgamma(torch.clamp(p['dist_shape'], min=1e-6))),
         bg[0], bg[1], bg[2],
-        torch.zeros((), dtype=f32),
-        margin.to(f32),
-    ])
-    return vec if device is None else vec.to(device)
+        torch.zeros((), dtype=f32, device=dev),
+        margin.to(f32))
+    return torch.stack(slots, dim=-1)
+
+
+def _params_vec(params: Dict, cfg=None, device=None):
+    """The [16] vector a backend reads: ``params['par']`` where the render
+    put it there (:func:`vector_params`), else :func:`params_vector`;
+    copied to ``device`` unless it is there."""
+    par = params.get('par')
+    if par is None:
+        par = params_vector(params, cfg)
+    return par if device is None else to_device(par, device)
+
+
+def vector_params(par, host=None):
+    """The params dict of a render whose [16] vector is ``par`` (on the
+    inputs' device): 'par', and each parameter a view of its slot, of
+    ``host`` where given (the same vector on the CPU, so plain code that
+    reads a parameter as a number reads it without a copy from the card).
+    dist_eps is not among them: the vector holds it only inside P_THR and
+    P_MARGIN, which the backends read."""
+    v = par if host is None else host
+    return dict(par=par, dist_scale=v[P_SCALE], dist_shape=v[P_SHAPE],
+                dist_shift=v[P_SHIFT], aggr_alpha_t_conorm_p=v[P_TCP],
+                aggr_rgb_eps=v[P_EPS], aggr_rgb_gamma=v[P_GAMMA],
+                near=v[P_NEAR], far=v[P_FAR],
+                background_color=v[P_BG0:P_BG2 + 1])
 
 
 def _dis_from_dis2(dis2, cfg):

@@ -10,6 +10,12 @@ residuals (inputs, soft_colors, aggrs_info, functional/renderer.py:183)
 plus the backend's prepass products, so it never re-sorts or re-packs.
 With ``backend='cuda'`` the gradient comes from the backward kernel and
 from nothing else.
+
+The backends read the continuous parameters from one [16] float32 vector
+on the inputs' device (``pairmath.params_vector``): derived on the host
+and copied there once per render, or handed in as ``par``, which is how a
+captured training step renders with the dist_scale that a static buffer
+holds at each replay.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ from typing import Optional, Union
 import torch
 
 from gendr_tpu_torch import config as C
-from gendr_tpu_torch.raster import cuda_backend, torch_backend
+from gendr_tpu_torch.device import to_device
+from gendr_tpu_torch.raster import cuda_backend, pairmath, torch_backend
 
 
 def _get_backend(cfg: C.RenderConfig, face_vertices):
@@ -95,6 +102,7 @@ def render(
     backend: Optional[str] = None,
     face_chunk=128,
     channels='rgba',
+    par=None,
 ):
     """Generalized rasterization (forward).
 
@@ -106,34 +114,52 @@ def render(
     and RGB mode and any square surface texture; raises for softmax RGB
     over more than 1024 texels per face), 'torch' (the plain streaming
     backend), or None ('cuda' for CUDA tensors, 'torch' for CPU tensors).
+
+    par: the [16] float32 parameter vector on the inputs' device to render
+    with (``pairmath.params_vector`` of these keywords, whose continuous
+    values it then stands for); None derives it here and copies it to the
+    inputs' device.
     """
-    cfg, params = render_config(
-        image_size=image_size, background_color=background_color,
-        dist_func=dist_func, dist_scale=dist_scale, dist_squared=dist_squared,
-        dist_shape=dist_shape, dist_shift=dist_shift, dist_eps=dist_eps,
+    cfg = checked_config(
+        image_size=image_size, dist_func=dist_func, dist_scale=dist_scale,
+        dist_squared=dist_squared, dist_eps=dist_eps,
         aggr_alpha_func=aggr_alpha_func,
         aggr_alpha_t_conorm_p=aggr_alpha_t_conorm_p,
-        aggr_rgb_func=aggr_rgb_func, aggr_rgb_eps=aggr_rgb_eps,
-        aggr_rgb_gamma=aggr_rgb_gamma, near=near, far=far,
-        double_side=double_side, texture_type=texture_type, backend=backend,
-        face_chunk=face_chunk, channels=channels)
+        aggr_rgb_func=aggr_rgb_func, double_side=double_side,
+        texture_type=texture_type, backend=backend, face_chunk=face_chunk,
+        channels=channels)
 
     face_vertices = torch.as_tensor(face_vertices, dtype=torch.float32)
     if face_vertices.ndim == 4:
         face_vertices = face_vertices.reshape(
             face_vertices.shape[0], face_vertices.shape[1], 9)
-    textures = torch.as_tensor(textures, dtype=torch.float32,
-                               device=face_vertices.device)
+    dev = face_vertices.device
+    textures = torch.as_tensor(textures, dtype=torch.float32, device=dev)
+    if par is None:
+        host = pairmath.params_vector(C.RenderParams(
+            dist_scale=dist_scale, dist_shape=dist_shape,
+            dist_shift=dist_shift, dist_eps=dist_eps,
+            aggr_alpha_t_conorm_p=aggr_alpha_t_conorm_p,
+            aggr_rgb_eps=aggr_rgb_eps, aggr_rgb_gamma=aggr_rgb_gamma,
+            near=near, far=far, background_color=background_color).as_dict(),
+            cfg)
+        params = pairmath.vector_params(to_device(host, dev), host)
+    else:
+        if tuple(par.shape) != (pairmath.NPAR,) or par.dtype != torch.float32 \
+                or par.device != dev:
+            raise ValueError(f'par must be a [{pairmath.NPAR}] float32 '
+                             f'tensor on {dev}, got {tuple(par.shape)} '
+                             f'{par.dtype} on {par.device}')
+        params = pairmath.vector_params(par)
     return _Render.apply(face_vertices, textures, cfg, params)
 
 
-def render_config(*, image_size, background_color, dist_func, dist_scale,
-                  dist_squared, dist_shape, dist_shift, dist_eps,
-                  aggr_alpha_func, aggr_alpha_t_conorm_p, aggr_rgb_func,
-                  aggr_rgb_eps, aggr_rgb_gamma, near, far, double_side,
-                  texture_type, backend, face_chunk, channels):
-    """(RenderConfig, params dict) of ``render``'s keywords, after its
-    eager checks; what the backends' kernels and plain versions take."""
+def checked_config(*, image_size, dist_func, dist_scale, dist_squared,
+                   dist_eps, aggr_alpha_func, aggr_alpha_t_conorm_p,
+                   aggr_rgb_func, double_side, texture_type, backend,
+                   face_chunk, channels):
+    """The RenderConfig of ``render``'s keywords, after its eager checks of
+    the continuous ones given as numbers."""
     cfg = C.RenderConfig.create(
         image_size=image_size, dist_func=dist_func, dist_squared=dist_squared,
         aggr_alpha_func=aggr_alpha_func, aggr_rgb_func=aggr_rgb_func,
@@ -150,7 +176,24 @@ def render_config(*, image_size, background_color, dist_func, dist_scale,
                                                     (int, float)):
         _check_t_conorm_p(cfg.aggr_alpha_func,
                           float(aggr_alpha_t_conorm_p or 0.0))
+    return cfg
 
+
+def render_config(*, image_size, background_color, dist_func, dist_scale,
+                  dist_squared, dist_shape, dist_shift, dist_eps,
+                  aggr_alpha_func, aggr_alpha_t_conorm_p, aggr_rgb_func,
+                  aggr_rgb_eps, aggr_rgb_gamma, near, far, double_side,
+                  texture_type, backend, face_chunk, channels):
+    """(RenderConfig, params dict) of ``render``'s keywords, after its
+    eager checks; what the backends' kernels and plain versions take."""
+    cfg = checked_config(
+        image_size=image_size, dist_func=dist_func, dist_scale=dist_scale,
+        dist_squared=dist_squared, dist_eps=dist_eps,
+        aggr_alpha_func=aggr_alpha_func,
+        aggr_alpha_t_conorm_p=aggr_alpha_t_conorm_p,
+        aggr_rgb_func=aggr_rgb_func, double_side=double_side,
+        texture_type=texture_type, backend=backend, face_chunk=face_chunk,
+        channels=channels)
     params = C.RenderParams(
         dist_scale=dist_scale, dist_shape=dist_shape, dist_shift=dist_shift,
         dist_eps=dist_eps, aggr_alpha_t_conorm_p=aggr_alpha_t_conorm_p,

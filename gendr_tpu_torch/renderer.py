@@ -6,13 +6,21 @@ keywords and defaults, a mutable ``dist_scale`` for tau-annealing loops,
 2x supersampled anti-aliasing, and a raw-tensor ``forward_tensors``.
 The JAX package's TPU tiling knobs (``pixel_tile``, ``on_fallback``) have
 no counterpart: the CUDA kernel tiles by itself and never falls back.
+
+The module keeps the parameter vector it last copied to a device and
+copies it again only when its parameters change.  A training loop whose
+step is captured as a CUDA graph renders with ``par``, a static buffer it
+writes :meth:`GenDR.params_vector` rows into between replays.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
-from gendr_tpu_torch.raster.render import render
+from gendr_tpu_torch.device import to_device
+from gendr_tpu_torch.raster import pairmath
+from gendr_tpu_torch.raster.render import render, render_config
 
 
 def _avg_pool2(images):
@@ -84,15 +92,45 @@ class GenDR(nn.Module):
         self.backend = backend
         self.face_chunk = face_chunk
         self.channels = channels
+        # (vector on the CPU, its copy on a device) of the last render
+        self._par_copy = None
 
-    def forward(self, mesh):
-        return self.forward_tensors(mesh.face_vertices, mesh.face_textures)
+    def forward(self, mesh, par=None):
+        return self.forward_tensors(mesh.face_vertices, mesh.face_textures,
+                                    par)
 
-    def forward_tensors(self, face_vertices, face_textures):
-        images = render(face_vertices, face_textures, **self.render_kwargs())
+    def forward_tensors(self, face_vertices, face_textures, par=None):
+        """Render; ``par`` (a [16] float32 tensor on the inputs' device)
+        stands for the continuous parameters, else this module's give the
+        vector."""
+        if par is None:
+            par = self._device_vector(torch.as_tensor(face_vertices).device)
+        images = render(face_vertices, face_textures, **self.render_kwargs(),
+                        par=par)
         if self.anti_aliasing:
             images = _avg_pool2(images)
         return images
+
+    def params_vector(self, **overrides):
+        """pairmath.params_vector of this module's parameters, with
+        ``overrides`` (render keywords, e.g. dist_scale) in place of some:
+        [16] float32 on the CPU for numbers; a dist_scale of n values gives
+        [n, 16], one row each."""
+        cfg, params = render_config(**{**self.render_kwargs(), **overrides})
+        return pairmath.params_vector(params, cfg)
+
+    def _device_vector(self, device):
+        """The parameter vector on ``device``: the last copy while the
+        vector stays the same, else one new copy."""
+        host = self.params_vector()
+        if host.device == device:
+            return host
+        last = self._par_copy
+        if last is not None and last[1].device == device \
+                and torch.equal(last[0], host):
+            return last[1]
+        self._par_copy = (host, to_device(host, device))
+        return self._par_copy[1]
 
     def render_kwargs(self):
         """The keywords this module passes to ``render``."""

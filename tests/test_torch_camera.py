@@ -16,6 +16,7 @@ import gendr_tpu
 from experiments import opt_camera as JOC
 from gendr_tpu_torch import data, interop
 from gendr_tpu_torch.experiments import opt_camera as OC
+from gendr_tpu_torch.raster import pairmath as PM
 
 TOL = dict(atol=2e-6, rtol=1e-5)
 
@@ -86,8 +87,8 @@ def test_goal_render_matches_jax():
 
 def test_a_few_steps_on_the_cpu():
     """40 annealed steps at 16x16 with 4 poses: the losses stay finite and
-    fall, the poses move and stay finite, and the renderer's dist_scale
-    follows the anneal without a rebuild."""
+    fall, the poses move and stay finite, and the soft renderer's
+    parameter vector follows the anneal without a rebuild."""
     args = _args('-ni', '40', '-lr', '0.1')
     exp = OC.CameraExperiment(args, 'cpu')
     init = OC.initial_poses(4, 15, 35)
@@ -97,7 +98,7 @@ def test_a_few_steps_on_the_cpu():
     assert losses[-5:].mean() < losses[:5].mean()
     assert np.isfinite(rec['poses']).all()
     assert np.abs(rec['poses'] - init).max() > 1e-2
-    assert exp.diff_renderer.dist_scale == pytest.approx(1e-7)
+    assert float(exp.par[PM.P_SCALE]) == pytest.approx(1e-7)
     # the first step's loss is the JAX experiment's IoU loss of the same
     # render: sum over the batch of 1 - IoU
     loss0, pred = exp.loss_fn(interop.camera_poses_from_numpy(init, 'cpu'), 0.1)
@@ -134,7 +135,7 @@ def test_command_line_defaults_and_quick(tmp_path):
     assert (a.learning_rate, a.num_iterations, a.image_size, a.batch_size,
             a.dist_eps, a.losses) == (0.3, 1000, 64, 200, 100, ['iou'])
     assert a.device == 'cuda' and a.backend is None and not a.squared
-    assert not hasattr(a, 'chain')  # a JAX dispatch knob, not ported
+    assert a.chain == 20  # the JAX script's default
     q = OC.parse_args(['--quick'])
     assert (q.num_iterations, q.batch_size) == (50, 16)
     q = OC.parse_args(['--quick', '-ni', '3', '-bs', '2'])

@@ -375,13 +375,27 @@ def test_voxelization_on_the_card_equals_the_cpu(cuda, vs):
 
 @pytest.mark.cuda
 def test_opt_camera_steps_launch_the_kernels(cuda):
+    """Each of 10 steps launches each kernel once: step by step through
+    the wrappers (--chain 1); with --chain 20 the wrappers count the
+    capture's warm-up steps and its calls (which record, not launch), and
+    each replay launches what the capture recorded."""
     from gendr_tpu_torch.experiments import opt_camera as OC
-    args = OC.parse_args(['--quick', '-ni', '10', '-bs', '8'])
-    exp = OC.CameraExperiment(args, cuda)
-    launches = dict(CB.LAUNCHES)
-    rec = exp.run(OC.initial_poses(8, 15, 35))
-    assert CB.LAUNCHES == {k: n + 10 for k, n in launches.items()}
-    assert np.isfinite(rec['losses']).all() and np.isfinite(rec['poses']).all()
+    for chain in (1, 20):
+        args = OC.parse_args(['--quick', '-ni', '10', '-bs', '8', '--chain',
+                              str(chain)])
+        exp = OC.CameraExperiment(args, cuda)
+        launches = dict(CB.LAUNCHES)
+        rec = exp.run(OC.initial_poses(8, 15, 35))
+        steps = exp.chains['iou']
+        captured = steps.captured
+        counted = {k: CB.LAUNCHES[k] - n - captured.get(k, 0)
+                   + captured.get(k, 0) * steps.replays
+                   for k, n in launches.items()}
+        warmup = steps.warmup if chain > 1 else 0
+        assert counted == {k: 10 + warmup for k in launches}
+        assert steps.replays == (10 if chain > 1 else 0)
+        assert np.isfinite(rec['losses']).all()
+        assert np.isfinite(rec['poses']).all()
 
 
 @pytest.mark.cuda
