@@ -131,15 +131,26 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    phases above pass ``--chain 1``): (j1) ``opt_shape --chain 10``, (j2)
    ``opt_camera --quick --chain 20`` and (j3) ``train_reconstruction
    --synthetic --chain 8`` at path (i)'s width, a block cut short by
-   ``--decay-at``, each against its ``--chain 1`` run from the same start
-   under deterministic algorithms (losses, hard losses, steps to a
-   threshold, parameters, BatchNorm statistics); (j4) the kernels of a
+   ``--decay-at``, each against its ``--chain 1`` run from the same start,
+   bitwise, with no deterministic algorithms asked for (losses, hard
+   losses, steps to a threshold, parameters, BatchNorm statistics), and
+   two eager runs bitwise equal; (j4) the kernels of a
    replay against their plain versions on the CUDA graph's buffers; the
    captured Adam against optax's rule; (j5) one host fetch a block, and a
    capture with a host read-back raising (run last); (j6) each
    experiment's step eager and chained: the median step on the host
    clock, the device busy share and kernels a step (torch.profiler), one
-   replay's time on the card and the render kernels' launches.
+   replay's time on the card and the render kernels' launches;
+12. drives per-tile face compaction (``RenderConfig.compact='auto'``, the
+   default, which phases 1-11 also run where its gate fires): on the
+   flagship, its band of rows 128-255, the default GenDR's inputs and a
+   scene whose corner tile overflows its slabs, the gate fires and both
+   kernels hold against their plain versions with phase 1's gates, the
+   forward bitwise compact='off'; then 'auto' against 'off' in turns:
+   both kernels per call and back to back, the prepass's device kernels
+   and host time, the eager flagship render and forward + backward, the
+   default GenDR's forward + backward, visited pairs and the chained
+   opt_camera --quick step.
 
 Every failure raises, and the script then exits non-zero.  It exits
 non-zero with no result where there is no CUDA device.  The last line of
@@ -237,6 +248,16 @@ SHARD_GRAD_REL = 1e-4
 RECON_CLASSES = ('syn_ellipsoid', 'syn_box', 'syn_peanut')
 RECON_OBJECTS, RECON_STEPS, RECON_TIMED_STEPS = 8, 30, 10
 RECON_DP_RANKS, RECON_DP_REL = 2, 1e-4
+# (i3) runs at these seeds: the spread of its parameter difference
+RECON_DP_SEEDS = (0, 1, 2)
+# (i3)'s floor, at every seed: in one process, the batch in these many
+# other orders (reversed, then permutations drawn from the seed); the dp
+# step's parameters may differ from one process's by at most
+# RECON_DP_FLOOR_K times the largest of them (the dp run sums the same
+# batch in another order too: over the seeds 0-2 its difference was 0.5,
+# 1.9 and 0.9 times the reversed batch's alone, on an NVIDIA H100 80GB
+# HBM3 at 700 W)
+RECON_DP_REORDERS, RECON_DP_FLOOR_K = 4, 2.0
 # the gradient's bound: in one process, reordering the batch of 64
 # (BatchNorm's sums in another order) moved the whole gradient by 1.9e-3
 # norm-relative on an NVIDIA H100 80GB HBM3 at 700 W (the uniform CDF's PDF
@@ -248,13 +269,12 @@ RECON_SIL_AGREE = 0.999
 # chained run against the eager one (--chain 1) from the same start: (j1)
 # opt_shape, phase 3's setting; (j2) opt_camera --quick; (j3)
 # train_reconstruction at path (i)'s width, --decay-at inside the first
-# block of 8 (blocks of 5, 8 and 3).  Losses and parameters within
-# CHAIN_REL relative, the reconstruction's within (i3)'s RECON_DP_REL
-# norm-relative (index_add_'s atomics order its sums); each timed over
-# CHAIN_TIMED_BLOCKS blocks of the chain's length after the comparison
+# block of 8 (blocks of 5, 8 and 3).  Losses and parameters bitwise equal
+# (every sum of the training paths runs in a fixed order), with no
+# deterministic algorithms asked for; each timed over CHAIN_TIMED_BLOCKS
+# blocks of the chain's length after the comparison
 CHAIN_SHAPE, CHAIN_CAMERA, CHAIN_RECON = 10, 20, 8
 CHAIN_RECON_STEPS, CHAIN_RECON_DECAY = 16, 6
-CHAIN_REL = 1e-5
 CHAIN_TIMED_BLOCKS = 3
 # (j2)'s Adam against optax's rule: test_torch_camera.py's tolerance
 ADAM_RTOL, ADAM_ATOL = 1e-5, 1e-6
@@ -423,8 +443,10 @@ def grads_through(cfg, params, fv, tex, kernel, aux=None):
     g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]], dim=1)
     pix = CB.pixel_columns(soft, aggrs, g, cfg)
     rows = bwd(aux['chunk_counts'], aux['chunk_ids'], aux['par'],
-               aux['packed'], aux['perm'], pix, cfg, TS, *band)
-    return CB.unpermute_grads(rows, aux['perm'], tex, cfg)
+               aux['packed'], aux['perm'], pix, cfg, TS, *band,
+               CB.sorted_face_count(aux) // cfg.face_chunk)
+    return CB.unpermute_grads(rows, aux['perm'], tex, cfg,
+                              aux.get('oct_ids'))
 
 
 def agreement(got, want):
@@ -458,6 +480,9 @@ def check_kernels(name, cfg, params, fv, tex, aux=None):
     B, size = fv.shape[0], cfg.image_size
     rows = '' if aux['height'] == size else \
         f' rows {aux["row0"]}+{aux["height"]}'
+    if 'oct_ids' in aux:
+        rows += (f' compacted ({aux["packed"].shape[2]} columns for '
+                 f'{CB.sorted_face_count(aux)} faces)')
     line = (f'[kernel vs plain] {name:11s} B={B} {size}x{size}{rows} '
             f'F={fv.shape[1]} TS={tex.shape[2]}: img_err={img_err:.3g} '
             f'alpha_err={float((soft_k[:, 3] - alpha).abs().max()):.3g} '
@@ -746,6 +771,214 @@ def render_path():
         if n < 1:
             raise AssertionError(f'the render path never launched {k}')
     return launches
+
+
+@contextlib.contextmanager
+def compaction(mode):
+    """Renders within run with per-tile face compaction as RenderConfig.
+    compact = mode says: 'auto' is every render's default (GenDR has no
+    compact keyword, as gendr_tpu's has none), and 'off' shuts the gate
+    (cuda_backend._compact_eligible) for a comparison of the two."""
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    gate = CB._compact_eligible
+    if mode == 'off':
+        CB._compact_eligible = lambda cfg, allow_compact: False
+    try:
+        yield
+    finally:
+        CB._compact_eligible = gate
+
+
+def overflow_scene(device='cuda'):
+    """384 tiny faces clustered in one corner of a 128x128 image
+    (tests/test_pallas.py:818-852): one tile hits 48 octets, more than its
+    slabs hold, and falls back to its chunk list.  (face vertices [1,
+    384, 9], white textures [1, 384, 1, 3]) from a numpy seed."""
+    import torch
+    rng = np.random.RandomState(5)
+    F = 384
+    centers = (rng.rand(F, 1, 2).astype(np.float32) * 0.15
+               + np.array([-0.85, 0.65], np.float32))
+    tri = centers + rng.randn(F, 3, 2).astype(np.float32) * 0.01
+    z = np.full((F, 3, 1), 3.0, np.float32) \
+        + rng.rand(F, 3, 1).astype(np.float32)
+    fv = np.concatenate([tri, z], -1).reshape(1, F, 9)
+    return (torch.from_numpy(fv).to(device),
+            torch.ones((1, F, 1, 3), device=device))
+
+
+def _back_to_back(fn, n=200):
+    """ms a call of fn over n calls back to back between two CUDA events
+    (the card's queue stays full: the host's latency per call is left
+    out), the median of 3 such runs after a warm-up."""
+    import torch
+    fn()
+    runs = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / n)
+    return float(np.median(runs))
+
+
+def _prepass_cost(fv, tex, cfg, params, reps=20):
+    """(host-clock ms of a prepass, synchronized, median of reps; its
+    device kernels from the profiler, None where it shows none)."""
+    import torch
+    from torch import profiler
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    times = []
+    for _ in range(reps + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CB.prepass(fv, tex, cfg, params)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
+                                      profiler.ProfilerActivity.CUDA]) as pr:
+        CB.prepass(fv, tex, cfg, params)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in pr.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return float(np.median(times[3:])), kernels or None
+
+
+def compaction_phase(smi):
+    """Per-tile face compaction (RenderConfig.compact 'auto', the default):
+    on the flagship, its band of rows 128-255, the default GenDR's inputs
+    and the overflow scene, the gate fires (packed columns past the sorted
+    faces; the overflow scene keeps a chunk list), K1 and K2 against their
+    plain versions under check_kernels' gates, and the forward kernel's
+    output bitwise that of compact='off'.  Then 'auto' against 'off' in
+    turns (off, auto, auto, off): both kernels per call and back to back,
+    the prepass's device kernels and host time, the flagship's eager
+    render and forward + backward through render, the default GenDR's
+    forward + backward, visited pairs, and the chained opt_camera --quick
+    step (16 poses of a 12-face cube at 64x64: the gate fires).  The
+    eager flagship forward + backward is this phase's main path: the
+    kernels' counts are set to 0 before it and read after.  Returns
+    (launches, largest image error, largest gradient error, time_kernels'
+    results by shape)."""
+    import dataclasses
+    import torch
+    from gendr_tpu_torch import config as C, render
+    from gendr_tpu_torch.experiments import opt_camera as OC
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    params = C.RenderParams(dist_scale=1e-2).as_dict()
+    fv, tex = flagship_scene('cuda')
+    cfg = flagship_cfg()
+    ofv, otex = overflow_scene()
+    inputs = [('compact flag', cfg, params, fv, tex, None),
+              ('compact band', cfg, params, fv, tex, (128, 128)),
+              *[(n.replace('gendr', 'compact'), c, p, f, t, None)
+                for n, c, p, f, t in gendr_inputs()],
+              ('compact over', flagship_cfg(128, dist_func='logistic'),
+               C.RenderParams(dist_scale=3e-3).as_dict(), ofv, otex, None)]
+    img = grad = 0.0
+    for name, c, p, f, t, band in inputs:
+        aux = CB.prepass(f, t, c, p, row_band=band)
+        if 'oct_ids' not in aux:
+            raise AssertionError(f'{name}: the compaction gate did not fire')
+        if name == 'compact over' and not int(aux['tile_counts'].max()) > 1:
+            raise AssertionError(f'{name}: no tile overflowed its slabs')
+        i, g = check_kernels(name, c, p, f, t, aux)
+        img, grad = max(img, i), max(grad, g)
+        off = CB.prepass(f, t, dataclasses.replace(c, compact='off'), p,
+                         row_band=band)
+        outs = [CB.rasterize_fwd(a['tile_counts'], a['tile_ids'], a['par'],
+                                 a['packed'], a['perm'], c, t.shape[2],
+                                 a['row0'], a['height']) for a in (aux, off)]
+        if not torch.equal(*outs):
+            raise AssertionError(f'{name}: the compacted forward is not '
+                                 f'bitwise the uncompacted one')
+    print(f'[compaction] {len(inputs)} inputs compacted: K1 and K2 within '
+          f'the gates of their plain versions, the forward bitwise '
+          f'compact=\'off\'', flush=True)
+
+    kw = dict(image_size=256, dist_func='uniform', dist_scale=1e-2,
+              aggr_alpha_func='probabilistic', aggr_rgb_func='hard')
+    fvg = fv.clone().requires_grad_(True)
+
+    def fwd_bwd(mode):
+        img = render(fvg, tex, compact=mode, **kw)
+        loss = 0.5 * (img[:, 3] ** 2).sum() + 0.1 * img[:, :3].sum()
+        return torch.autograd.grad(loss, fvg)
+
+    # the main path: the eager flagship forward + backward, compacted
+    for k in CB.LAUNCHES:
+        CB.LAUNCHES[k] = 0
+    fwd_bwd('auto')
+    torch.cuda.synchronize()
+    launches = dict(CB.LAUNCHES)
+    if launches != {'rasterize_fwd': 1, 'rasterize_bwd': 1}:
+        raise AssertionError(f'compacted render launches {launches}')
+
+    kt, t = {}, {}
+    gcfg, gparams, gfv, gtex = next(
+        (c, p, f, x) for n, c, p, f, x in gendr_inputs() if 'surf' in n)
+    for mode in ('off', 'auto', 'auto', 'off'):
+        with compaction(mode):
+            c = dataclasses.replace(cfg, compact=mode)
+            r = time_kernels(smi, f'flagship compact={mode}', c, params, fv,
+                             tex, 50, plain=(1, 0))
+            gc = dataclasses.replace(gcfg, compact=mode)
+            rg = time_kernels(smi, f'default GenDR compact={mode}', gc,
+                              gparams, gfv, gtex, 20, plain=(1, 0))
+            kt.setdefault(f'flagship compact={mode}', r)
+            kt.setdefault(f'default GenDR compact={mode}', rg)
+            aux = CB.prepass(fv, tex, c, params)
+            fargs = (aux['tile_counts'], aux['tile_ids'], aux['par'],
+                     aux['packed'], aux['perm'], c, 1)
+            out = CB.rasterize_fwd(*fargs)
+            soft, aggrs = CB._finalize_soa(out, c, params)
+            g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]],
+                          1)
+            pix = CB.pixel_columns(soft, aggrs, g, c)
+            bargs = (aux['chunk_counts'], aux['chunk_ids'], aux['par'],
+                     aux['packed'], aux['perm'], pix, c, 1, 0, 256,
+                     CB.sorted_face_count(aux) // c.face_chunk)
+            row = dict(
+                fwd_b2b=_back_to_back(lambda: CB.rasterize_fwd(*fargs)),
+                bwd_b2b=_back_to_back(lambda: CB.rasterize_bwd(*bargs)),
+                prepass=_prepass_cost(fv, tex, c, params),
+                gendr_prepass=_prepass_cost(gfv, gtex, gc, gparams),
+                render=_median_ms(lambda: render(fv, tex, compact=mode,
+                                                 **kw), 50),
+                fwd_bwd=_median_ms(lambda: fwd_bwd(mode), 50),
+                gendr_fwd_bwd=_median_ms(lambda: gendr_path('surface'), 10),
+                visited=r['rasterize_fwd']['visited_pairs'])
+            for k, v in row.items():
+                t.setdefault(k, {}).setdefault(mode, []).append(v)
+    cam = {}
+    for mode in ('off', 'auto'):
+        with compaction(mode):
+            args = OC.parse_args(['--quick', '--device', 'cuda', '--chain',
+                                  str(CHAIN_CAMERA)])
+            exp = OC.CameraExperiment(args, args.device, args.backend)
+            exp.run(OC.initial_poses(args.batch_size, 15, 35),
+                    num_iterations=1)
+            cam[mode] = time_chain(
+                smi, f'opt_camera --quick --chain {CHAIN_CAMERA}, '
+                f'compact={mode}', exp.chain('iou'), CHAIN_CAMERA)['step_ms']
+            del exp
+    t['camera_chained_step'] = cam
+    print(f'[compaction] {smi}: compact=\'auto\' against \'off\', in turns '
+          f'(off, auto, auto, off): flagship K1 / K2 back to back (200 '
+          f'launches, CUDA events) {t["fwd_b2b"]} / {t["bwd_b2b"]} ms; '
+          f'prepass (host ms, device kernels) flagship {t["prepass"]}, '
+          f'default GenDR {t["gendr_prepass"]}; eager flagship render '
+          f'{t["render"]} ms, forward + backward {t["fwd_bwd"]} ms (medians '
+          f'of 50, CUDA events); default GenDR forward + backward '
+          f'{t["gendr_fwd_bwd"]} ms (medians of 10); visited pairs at the '
+          f'flagship {t["visited"]}; chained opt_camera --quick step {cam} '
+          f'ms; the main path\'s launches {launches}', flush=True)
+    return launches, img, grad, kt
 
 
 def _shape_experiment(backend, device='cuda', extra=()):
@@ -1443,27 +1676,56 @@ def _grad(exp, batch, dist_scale, order):
 
 
 def reconstruction_dp_phase(device='cuda'):
-    """Path (i3): one step of train_reconstruction --data-parallel 2 (two
-    gloo ranks of the one card) against the one-process step, from the
-    checkpoint each saves after it.  Within RECON_DP_REL norm-relative:
-    the loss, the parameters after the step (over the whole model) and
-    each BatchNorm statistic (which needs the whole batch's moments).  The
+    """Path (i3) over RECON_DP_SEEDS (the runs' --seed: the weights, the
+    batch): for each, _reconstruction_dp_step, whose parameters are held
+    to RECON_DP_REL at the first seed (the one path (i3) has always run)
+    and to their own floor at every seed; then the spread of the
+    parameters' differences over the seeds.  Returns each kernel's
+    launches summed over the ranks of every seed's step."""
+    launches, params, floors = {}, [], []
+    for seed in RECON_DP_SEEDS:
+        errs, floor, step_launches = _reconstruction_dp_step(
+            device, seed, first=seed == RECON_DP_SEEDS[0])
+        params.append(errs['parameters'])
+        floors.append(floor)
+        for k, n in step_launches.items():
+            launches[k] = launches.get(k, 0) + n
+    print(f'[reconstruction dp] seeds {list(RECON_DP_SEEDS)}: parameters '
+          f'after the step, norm-relative, dp against one process '
+          f'{[float(f"{e:.3g}") for e in params]} (max {max(params):.3g}; '
+          f'gate {RECON_DP_REL} at seed {RECON_DP_SEEDS[0]}); one process '
+          f'with the batch reordered, the largest of {RECON_DP_REORDERS} '
+          f'orders {[float(f"{e:.3g}") for e in floors]} (gate: '
+          f'{RECON_DP_FLOOR_K:g} times, at every seed)', flush=True)
+    return launches
+
+
+def _reconstruction_dp_step(device, seed, first=True):
+    """One step of train_reconstruction --data-parallel 2 (two gloo ranks
+    of the one card) against the one-process step at --seed seed, from
+    the checkpoint each saves after it.  Within RECON_DP_REL
+    norm-relative: the loss, the parameters after the step (over the
+    whole model) and each BatchNorm statistic (which needs the whole batch's moments).  The
     gradient itself, Adam's first moment in the checkpoint (Adam's first
     step, about lr times the gradient's sign, would not show a gradient
     off by a constant factor), within RECON_DP_GRAD_REL.  Printed beside
-    them, the floor of both: in one process, the change of the gradient,
-    and of the parameters after Adam's first step, when the batch's
-    samples are merely reordered (BatchNorm's sums in another order).  A
-    convolution's bias, whose exact gradient is 0 under the BatchNorm that
-    follows, is held to no more than lr on both sides.  Returns each
-    kernel's launches summed over the ranks."""
+    them, the floor of both: in one process, the largest change of the
+    gradient, and of the parameters after Adam's first step, when the
+    batch's samples are merely put in RECON_DP_REORDERS other orders
+    (BatchNorm's sums in another order).  A convolution's bias, whose exact
+    gradient is 0 under the BatchNorm that follows, is held to no more
+    than lr on both sides.  The parameters are held to RECON_DP_REL where
+    ``first`` and to RECON_DP_FLOOR_K times their floor at every seed;
+    the other differences to their bounds at every seed.  Returns (the
+    differences by name, the parameters' floor, each kernel's launches
+    summed over the ranks)."""
     import tempfile
     import torch
     from gendr_tpu_torch.experiments import train_reconstruction as TR
     argv = reconstruction_args(device, [
         '-ni', '1', '--eval_freq', '1', '--print_freq', '1',
         '--max-eval-batches', '1', '--synthetic-objects', '2', '--chain',
-        '1'])
+        '1', '--seed', str(seed)])
     with tempfile.TemporaryDirectory() as tmp:
         one = TR.main(argv + ['--checkpoint-dir', os.path.join(tmp, 'one')])
         t0 = time.perf_counter()
@@ -1497,44 +1759,59 @@ def reconstruction_dp_phase(device='cuda'):
         <= lr * 1.001 for p, k in (n.split('.', 1) for n in names)
         if k.startswith('convs.') and k.endswith('.bias'))
     grad_rel = _rel(moment(got), moment(want))
-    # the floor: one process, the same batch in two orders
+    # the floor: one process, the same batch in other orders
     dataset, _ = TR.make_datasets(args, device)
     batch = [torch.from_numpy(x).to(device) for x in
              dataset.get_random_batch(np.random.RandomState(args.seed),
                                       args.batch_size)]
     order = torch.arange(args.batch_size, device=device)
+    perms = np.random.RandomState(seed)
+    orders = [order.flip(0)] + [
+        torch.from_numpy(perms.permutation(args.batch_size)).to(device)
+        for _ in range(RECON_DP_REORDERS - 1)]
     theta = torch.cat([p.detach().reshape(-1) for p in exp.parameters()])
+
+    def adam_step(g):
+        # Adam's first step from zero moments: -lr g / (|g| + eps)
+        return theta - lr * g / (g.abs() + 1e-8)
     g0 = _grad(exp, batch, args.dist_scale, order)
-    g1 = _grad(exp, batch, args.dist_scale, order.flip(0))
-    # Adam's first step from zero moments: -lr g / (|g| + eps)
-    steps = [theta - lr * g / (g.abs() + 1e-8) for g in (g0, g1)]
-    floor_grad, floor_params = _rel(g1, g0), _rel(*steps)
-    worst = max(errs, key=errs.get)
+    floor_grad = floor_params = 0.0
+    for o in orders:
+        g1 = _grad(exp, batch, args.dist_scale, o)
+        floor_grad = max(floor_grad, _rel(g1, g0))
+        floor_params = max(floor_params, _rel(adam_step(g1), adam_step(g0)))
+    worst = max((k for k in errs if k != 'parameters'), key=errs.get)
     launches = {k: sum(r[k] for r in two['launches'])
                 for k in two['launches'][0]}
     print(f'[reconstruction dp] --data-parallel {RECON_DP_RANKS} (gloo, '
           f'ranks on one card, BatchNorm with the whole batch\'s moments) '
-          f'vs one process, first step at batch {args.batch_size}: loss '
+          f'vs one process, seed {seed}, first step at batch '
+          f'{args.batch_size}: loss '
           f'{two["losses"][0]:.8f} vs {one["losses"][0]:.8f}; norm-relative '
           f'differences: loss {errs["loss"]:.3g}, parameters after the '
-          f'step {errs["parameters"]:.3g} (one process, batch reordered: '
+          f'step {errs["parameters"]:.3g} (one process, the batch in '
+          f'{RECON_DP_REORDERS} other orders, largest: '
           f'{floor_params:.3g}), largest BatchNorm statistic '
           f'{max(v for k, v in errs.items() if "running" in k):.3g}, '
-          f'gradient {grad_rel:.3g} (one process, batch reordered: '
+          f'gradient {grad_rel:.3g} (one process, batch reordered, '
+          f'largest: '
           f'{floor_grad:.3g}); convolution biases within lr {bias_ok}; '
           f'seconds in collectives per rank {two["collective_seconds"]}; '
           f'launches per rank {two["launches"]}; {seconds:.1f} s with the '
           f'ranks\' start', flush=True)
     if not (errs[worst] < RECON_DP_REL and bias_ok
-            and grad_rel < RECON_DP_GRAD_REL):
-        raise AssertionError(f'data-parallel step vs one process: {worst} '
-                             f'{errs[worst]}, gradient {grad_rel}, biases '
-                             f'{bias_ok}')
+            and grad_rel < RECON_DP_GRAD_REL
+            and errs['parameters'] <= RECON_DP_FLOOR_K * floor_params
+            and (errs['parameters'] < RECON_DP_REL or not first)):
+        raise AssertionError(f'data-parallel step vs one process at seed '
+                             f'{seed}: {worst} {errs[worst]}, parameters '
+                             f'{errs["parameters"]} (floor {floor_params}), '
+                             f'gradient {grad_rel}, biases {bias_ok}')
     if device != 'cpu' and not all(n >= 1 for r in two['launches']
                                    for n in r.values()):
         raise AssertionError(f'a dp rank launched no kernel: '
                              f'{two["launches"]}')
-    return launches
+    return errs, floor_params, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1708,52 +1985,36 @@ def time_chain(smi, label, steps, n):
     return r
 
 
-@contextlib.contextmanager
-def deterministic():
-    """torch.use_deterministic_algorithms within: index_add_ and the
-    backward of a gather (the losses, the camera transform, the faces'
-    vertices) then sum in a fixed order, where their atomics otherwise
-    make two runs of one step differ in the last bits (and 30 Adam steps
-    grow that apart).  main sets CUBLAS_WORKSPACE_CONFIG, which it asks
-    for, before the first matrix product."""
-    import torch
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
 def chain_shape_path(smi):
     """(j1): opt_shape at phase 3's width and setting, TRAIN_STEPS steps
-    eager and with --chain CHAIN_SHAPE from the template, under
-    deterministic algorithms; the first chained block is one step, whose
-    replay (j4) checks.  The floor: two eager runs without them.  Then
-    (j6) on new experiments, without them."""
+    eager and with --chain CHAIN_SHAPE from the template, bitwise equal
+    (the experiments' sums run in a fixed order; no deterministic
+    algorithms are asked for); the first chained block is one step, whose
+    replay (j4) checks.  Then (j6) on new experiments, the eager one run
+    twice from the template: bitwise equal too."""
     import torch
     runs = {}
-    with deterministic():
-        for chain in (1, CHAIN_SHAPE):
-            exp, eyes, targets = _shape_experiment(
-                None, extra=['--chain', str(chain)])
-            errs = (0.0, 0.0)
-            if chain > 1:
-                calls, restore = record_captured_kernels()
-                try:
-                    exp.run(TRAIN_LR, TRAIN_SIGMA, eyes, targets, 1)
-                finally:
-                    restore()
-                errs = replay_vs_plain('opt_shape (the first replay)', calls)
-                del calls
-            else:
+    for chain in (1, CHAIN_SHAPE):
+        exp, eyes, targets = _shape_experiment(
+            None, extra=['--chain', str(chain)])
+        errs = (0.0, 0.0)
+        if chain > 1:
+            calls, restore = record_captured_kernels()
+            try:
                 exp.run(TRAIN_LR, TRAIN_SIGMA, eyes, targets, 1)
-            rec, launches, fetches = chained_run(exp.steps, lambda: exp.run(
-                TRAIN_LR, TRAIN_SIGMA, eyes, targets, TRAIN_STEPS))
-            params = torch.cat([p.detach().reshape(-1)
-                                for p in exp.model.parameters()])
-            runs[chain] = dict(rec=rec, launches=launches, fetches=fetches,
-                               params=params, errs=errs, steps=exp.steps)
-            del exp
+            finally:
+                restore()
+            errs = replay_vs_plain('opt_shape (the first replay)', calls)
+            del calls
+        else:
+            exp.run(TRAIN_LR, TRAIN_SIGMA, eyes, targets, 1)
+        rec, launches, fetches = chained_run(exp.steps, lambda: exp.run(
+            TRAIN_LR, TRAIN_SIGMA, eyes, targets, TRAIN_STEPS))
+        params = torch.cat([p.detach().reshape(-1)
+                            for p in exp.model.parameters()])
+        runs[chain] = dict(rec=rec, launches=launches, fetches=fetches,
+                           params=params, errs=errs, steps=exp.steps)
+        del exp
     e, c = runs[1], runs[CHAIN_SHAPE]
     h_e, h_c = e['rec']['hard_losses'], c['rec']['hard_losses']
     # a threshold the eager run's best hard loss crosses midway
@@ -1769,8 +2030,8 @@ def chain_shape_path(smi):
                                       e['rec']['losses']))
     same_h = sum(a == b for a, b in zip(h_c, h_e))
     blocks = -(-TRAIN_STEPS // CHAIN_SHAPE)
-    # the timing experiments, without deterministic algorithms; the eager
-    # one runs twice from the template first: the floor of the comparison
+    # the timing experiments; the eager one runs twice from the template
+    # first, and the two must agree bitwise
     timed = {}
     for chain in (1, CHAIN_SHAPE):
         exp, eyes, targets = _shape_experiment(
@@ -1780,20 +2041,22 @@ def chain_shape_path(smi):
                         for _ in range(2 if chain == 1 else 1)], exp
     floor = _rel_list(timed[1][0][1]['losses'], timed[1][0][0]['losses'])
     print(f'[chain] (j1) opt_shape --chain {CHAIN_SHAPE} against --chain 1, '
-          f'{TRAIN_STEPS} steps, 24 views at 64x64, 642-vertex template, '
-          f'deterministic algorithms: relative differences: soft losses '
+          f'{TRAIN_STEPS} steps, 24 views at 64x64, 642-vertex template: '
+          f'relative differences: soft losses '
           f'{rel["loss"]:.3g}, hard losses {rel["hard"]:.3g}, parameters '
           f'after step {TRAIN_STEPS} {rel["params"]:.3g} (norm); bitwise '
           f'equal: {same} of {TRAIN_STEPS} soft, {same_h} hard losses '
-          f'(two eager runs without deterministic algorithms: soft losses '
+          f'(two eager runs from the template: soft losses '
           f'{floor:.3g} apart); steps to the hard loss {thr:.6f}: '
           f'{steps_to(h_c)} chained, {steps_to(h_e)} eager; hard loss '
           f'{h_e[0]:.6f} -> {h_e[-1]:.6f}; host fetches {c["fetches"]} for '
           f'{blocks} blocks (eager {e["fetches"]}); captured launches a '
           f'step {c["steps"].captured}; launches eager {e["launches"]}, '
           f'chained {c["launches"]}', flush=True)
-    if not max(rel.values()) < CHAIN_REL:
-        raise AssertionError(f'(j1) chained vs eager: {rel}')
+    if max(rel.values()) != 0 or same != TRAIN_STEPS \
+            or same_h != TRAIN_STEPS or floor != 0:
+        raise AssertionError(f'(j1) chained vs eager not bitwise: {rel}, '
+                             f'{same}, {same_h}; two eager runs {floor}')
     if steps_to(h_c) != steps_to(h_e) or steps_to(h_e) is None:
         raise AssertionError('(j1) steps to threshold differ')
     if c['fetches'] != blocks or e['fetches'] != TRAIN_STEPS:
@@ -1868,10 +2131,9 @@ def capture_must_fail():
 def chain_camera_path(smi):
     """(j2): opt_camera --quick (16 poses, 50 steps at 64x64) eager and
     with --chain CHAIN_CAMERA (blocks of 20, 20 and 10) from the same
-    start, under deterministic algorithms; the chained experiment's first
-    run is 1 step, whose replay (j4) checks.  The captured Adam against
-    optax's rule; (j6) on new experiments, without deterministic
-    algorithms, after two eager runs that give the comparison's floor."""
+    start, bitwise equal; the chained experiment's first run is 1 step,
+    whose replay (j4) checks.  The captured Adam against optax's rule;
+    (j6) on new experiments, after two eager runs, bitwise equal too."""
     import torch
     from gendr_tpu_torch.experiments import opt_camera as OC
 
@@ -1882,24 +2144,23 @@ def chain_camera_path(smi):
         return exp, OC.initial_poses(args.batch_size, 15, 35)
     runs = {}
     errs = (0.0, 0.0)
-    with deterministic():
-        for chain in (1, CHAIN_CAMERA):
-            exp, init = experiment(chain)
-            if chain > 1:
-                calls, restore = record_captured_kernels()
-                try:
-                    exp.run(init, num_iterations=1)
-                finally:
-                    restore()
-                errs = replay_vs_plain('opt_camera (the first replay)', calls)
-                del calls
-            else:
+    for chain in (1, CHAIN_CAMERA):
+        exp, init = experiment(chain)
+        if chain > 1:
+            calls, restore = record_captured_kernels()
+            try:
                 exp.run(init, num_iterations=1)
-            steps = exp.chain('iou')
-            rec, launches, fetches = chained_run(steps,
-                                                 lambda: exp.run(init))
-            runs[chain] = dict(rec=rec, launches=launches, fetches=fetches,
-                               steps=steps)
+            finally:
+                restore()
+            errs = replay_vs_plain('opt_camera (the first replay)', calls)
+            del calls
+        else:
+            exp.run(init, num_iterations=1)
+        steps = exp.chain('iou')
+        rec, launches, fetches = chained_run(steps,
+                                             lambda: exp.run(init))
+        runs[chain] = dict(rec=rec, launches=launches, fetches=fetches,
+                           steps=steps)
     e, c = runs[1], runs[CHAIN_CAMERA]
     n = e['rec']['iterations']
     rel = dict(loss=_rel_list(c['rec']['losses'], e['rec']['losses']),
@@ -1916,17 +2177,19 @@ def chain_camera_path(smi):
                                                        else 1)], exp
     floor = _rel_list(timed[1][0][1]['losses'], timed[1][0][0]['losses'])
     print(f'[chain] (j2) opt_camera --quick --chain {CHAIN_CAMERA} against '
-          f'--chain 1, {n} steps, 16 poses at 64x64, deterministic '
-          f'algorithms: relative differences: losses {rel["loss"]:.3g}, '
+          f'--chain 1, {n} steps, 16 poses at 64x64: relative differences: '
+          f'losses {rel["loss"]:.3g}, '
           f'final poses {rel["poses"]:.3g} (norm); bitwise equal losses: '
-          f'{same} of {n} (two eager runs without deterministic algorithms: '
-          f'{floor:.3g} apart); loss {e["rec"]["losses"][0]:.4f} -> '
+          f'{same} of {n} (two eager runs: {floor:.3g} apart); loss '
+          f'{e["rec"]["losses"][0]:.4f} -> '
           f'{e["rec"]["losses"][-1]:.4f}; host fetches {c["fetches"]} for '
           f'{blocks} blocks (eager {e["fetches"]}); captured launches a '
           f'step {c["steps"].captured}; launches eager {e["launches"]}, '
           f'chained {c["launches"]}', flush=True)
-    if not (c['rec']['iterations'] == n and max(rel.values()) < CHAIN_REL):
-        raise AssertionError(f'(j2) chained vs eager: {rel}')
+    if not (c['rec']['iterations'] == n and max(rel.values()) == 0
+            and same == n and floor == 0):
+        raise AssertionError(f'(j2) chained vs eager not bitwise: {rel}, '
+                             f'{same} of {n}; two eager runs {floor}')
     if c['fetches'] != blocks or e['fetches'] != n:
         raise AssertionError(f'(j2) fetches {c["fetches"]}, {e["fetches"]}')
     for r in (e, c):
@@ -1942,11 +2205,10 @@ def chain_camera_path(smi):
 def chain_reconstruction_path(smi, device='cuda'):
     """(j3): train_reconstruction --synthetic at path (i)'s width through
     main, CHAIN_RECON_STEPS steps eager and with --chain CHAIN_RECON,
-    --decay-at CHAIN_RECON_DECAY (blocks of 5, 8 and 3), under
-    deterministic algorithms: losses, the parameters and BatchNorm's
-    statistics of the checkpoint after the last step within RECON_DP_REL
-    norm-relative; the last replay's kernels (j4).  (j6) on two more runs
-    of one block each, without deterministic algorithms."""
+    --decay-at CHAIN_RECON_DECAY (blocks of 5, 8 and 3): losses, the
+    parameters and BatchNorm's statistics of the checkpoint after the last
+    step bitwise equal; the last replay's kernels (j4).  (j6) on two more
+    runs of one block each."""
     import tempfile
     import torch
     from gendr_tpu_torch.experiments import train_reconstruction as TR
@@ -1957,7 +2219,7 @@ def chain_reconstruction_path(smi, device='cuda'):
         str(CHAIN_RECON_DECAY)])
     runs = {}
     errs = (0.0, 0.0)
-    with tempfile.TemporaryDirectory() as tmp, deterministic():
+    with tempfile.TemporaryDirectory() as tmp:
         for chain in (1, CHAIN_RECON):
             ckpt = os.path.join(tmp, str(chain))
             before = dict(CB.LAUNCHES)
@@ -1996,8 +2258,8 @@ def chain_reconstruction_path(smi, device='cuda'):
     print(f'[chain] (j3) train_reconstruction --synthetic --chain '
           f'{CHAIN_RECON} against --chain 1, batch 64 (256 silhouettes at '
           f'64x64), {CHAIN_RECON_STEPS} steps, --decay-at '
-          f'{CHAIN_RECON_DECAY} (blocks {blocks}), deterministic '
-          f'algorithms: norm-relative differences: losses {rel["loss"]:.3g} '
+          f'{CHAIN_RECON_DECAY} (blocks {blocks}): norm-relative '
+          f'differences: losses {rel["loss"]:.3g} '
           f'({same} of {CHAIN_RECON_STEPS} bitwise equal), parameters '
           f'{rel["params"]:.3g}, BatchNorm statistics {rel["stats"]:.3g}; '
           f'loss {e["res"]["losses"][0]:.6f} -> '
@@ -2007,8 +2269,9 @@ def chain_reconstruction_path(smi, device='cuda'):
           f'{c["steps"].captured}; launches eager {e["launches"]}, chained '
           f'{c["launches"]} (the forward also renders the dataset)',
           flush=True)
-    if not max(rel.values()) < RECON_DP_REL:
-        raise AssertionError(f'(j3) chained vs eager: {rel}')
+    if max(rel.values()) != 0 or same != CHAIN_RECON_STEPS:
+        raise AssertionError(f'(j3) chained vs eager not bitwise: {rel}, '
+                             f'{same} of {CHAIN_RECON_STEPS}')
     if blocks != [5, 8, 3] or c['steps'].fetches != 3 \
             or e['steps'].fetches != CHAIN_RECON_STEPS:
         raise AssertionError(f'(j3) blocks {blocks}, fetches '
@@ -2448,8 +2711,10 @@ def gated_pairs(aux, cfg):
     bbox rows: per face, the pixel centres in its x range times those in
     its y range, over the rows of the aux's band."""
     import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
     from gendr_tpu_torch.raster import pack, pairmath as PM
-    pk = aux['packed'].double()
+    # the sorted faces alone: compaction's slots repeat them, a tile each
+    pk = aux['packed'][:, :, :CB.sorted_face_count(aux)].double()
     m = float(aux['par'][PM.P_MARGIN])
     is_ = cfg.image_size
     # row r has the y centre index is - 1 - r
@@ -2481,7 +2746,8 @@ def visited_pairs(aux, cfg):
     pixels = ((torch.clamp(c0 + CB.TILE, max=is_) - c0)
               * (torch.clamp(r0 + CB.TILE, max=height) - r0)).double()
     survivors, _ = CB.tile_face_survivors(
-        aux['packed'], cfg, aux['par'][PM.P_MARGIN], aux['row0'], height)
+        aux['packed'], cfg, aux['par'][PM.P_MARGIN], aux['row0'], height,
+        (aux['tile_counts'], aux['tile_ids']))
     listed = aux['tile_counts'].double() * cfg.face_chunk
     return (int(aux['tile_counts'].max()), float((listed * pixels).sum()),
             float((survivors.double() * pixels).sum()))
@@ -2528,13 +2794,21 @@ def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
     band = (aux['row0'], aux['height'])
     args = (aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
             aux['perm'], cfg, TS, *band)
+    # the bound counts the bytes of the function, the sorted faces' columns
+    # and the sorted chunks' lists: compaction's slots repeat those faces
+    # (the same render with compact='off' gives the same bits), so their
+    # columns and the slabs' lists are the implementation's, not the work's
+    Fs = CB.sorted_face_count(aux)
+    k_sliced = Fs // cfg.face_chunk
+    packed_s, perm_s = aux['packed'][..., :Fs], aux['perm'][..., :Fs]
     out = CB.rasterize_fwd(*args)
     fwd_flops, bwd_flops = flops_per_pair(cfg, mode)
     longest, walked, visited = visited_pairs(aux, cfg)
     res = {'rasterize_fwd': dict(
         ms=_median_ms(lambda: CB.rasterize_fwd(*args), reps),
         plain_ms=_median_ms(lambda: CB.rasterize_fwd_plain(*args), *plain),
-        bound=bound(_input_bytes(args[:5], aux['packed'], cfg, pairs)
+        bound=bound(_input_bytes((*args[:3], packed_s, perm_s), packed_s,
+                                 cfg, pairs)
                     + _nbytes(out), pairs * fwd_flops),
         longest_list=longest, walked_pairs=walked, visited_pairs=visited)}
     if bwd:
@@ -2542,20 +2816,25 @@ def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
         g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]], 1)
         pix = CB.pixel_columns(soft, aggrs, g, cfg)
         bargs = (aux['chunk_counts'], aux['chunk_ids'], aux['par'],
-                 aux['packed'], aux['perm'], pix, cfg, TS, *band)
+                 aux['packed'], aux['perm'], pix, cfg, TS, *band, k_sliced)
         rows = CB.rasterize_bwd(*bargs)
         # the kernel's slices: a block walks at most `longest` tiles of the
-        # longest chunk list; the workspace holds S slots where S > 1
+        # longest list of a sliced chunk; the workspace holds S slots of
+        # the sliced chunks' columns where S > 1
         B, NO, Fp = rows.shape
-        nslices = CB.bwd_slice_count(B, NO, Fp, aux['chunk_ids'].shape[2])
-        n_max = int(aux['chunk_counts'].max())
-        ws_mib = (nslices > 1) * nslices * _nbytes(rows) / 2**20
+        nslices = CB.bwd_slice_count(B, NO, Fs, aux['chunk_ids'].shape[2],
+                                     compacted=Fs < Fp)
+        n_max = int(aux['chunk_counts'][:, :k_sliced].max())
+        ws_mib = (nslices > 1) * nslices * B * NO * Fs * 4 / 2**20
+        lists = (aux['chunk_counts'][:, :k_sliced],
+                 aux['chunk_ids'][:, :k_sliced])
         res['rasterize_bwd'] = dict(
             ms=_median_ms(lambda: CB.rasterize_bwd(*bargs), reps),
             plain_ms=_median_ms(lambda: CB.rasterize_bwd_plain(*bargs),
                                 *plain),
-            bound=bound(_input_bytes(bargs[:6], aux['packed'], cfg, pairs)
-                        + _nbytes(rows), pairs * bwd_flops),
+            bound=bound(_input_bytes((*lists, aux['par'], packed_s, perm_s,
+                                      pix), packed_s, cfg, pairs)
+                        + _nbytes(rows[..., :Fs]), pairs * bwd_flops),
             slices=nslices, longest_list=n_max, workspace_mib=ws_mib,
             longest_slice=max(e - s for s, e in CB.bwd_slices(n_max,
                                                               nslices)))
@@ -2757,9 +3036,6 @@ def main():
         return 1
     # imported only now: a copy of this script without the repo fails here
     from gendr_tpu_torch import _build
-    # cuBLAS's setting for deterministic algorithms (path (j)'s
-    # comparisons), read when its first handle is made
-    os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
 
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -2770,6 +3046,11 @@ def main():
         _build.build(*_build.SIGNATURES)
         chain_phase(smi)
         capture_must_fail()
+        return 0
+    if sys.argv[1:] == ['--compact-only']:
+        # a quick look at phase 12 alone
+        _build.build(*_build.SIGNATURES)
+        compaction_phase(smi)
         return 0
 
     t0 = time.perf_counter()
@@ -2815,8 +3096,13 @@ def main():
         by_path.update(chain_paths)
         img_err = max(img_err, chain_img)
         grad_err = max(grad_err, chain_grad)
+        by_path['compaction'], c_img, c_grad, compact_kt = \
+            compaction_phase(smi)
+        img_err = max(img_err, c_img)
+        grad_err = max(grad_err, c_grad)
         probe_launches, probe_err = probe_phase()
         kt = timings(smi, cuda_steps, yager_steps, obj_file)
+        kt.update(compact_kt)
     print(f'[timing] {smi}: host clock: save_obj(texture_res='
           f'{OBJ_TEXTURE_RES}) of 1280 faces x 256 texels {save_ms:.1f} ms; '
           f'load_obj(load_texture=True, texture_res={OBJ_TEXTURE_RES}, '

@@ -65,10 +65,11 @@ SIGNATURES = {
     },
     'rasterize_bwd': {
         # chunk_counts chunk_ids T par packed perm pix ws out, then B NI NO
-        # Fp FC S image_size row0 height dist_func dist_squared alpha_func
-        # mode double_side texture_type texture_res device, then stream
+        # Fp FC S k_sliced image_size row0 height dist_func dist_squared
+        # alpha_func mode double_side texture_type texture_res device, then
+        # stream
         'gendr_rasterize_bwd': ((_P, _P, _I, _P, _P, _P, _P, _P, _P)
-                                + (_I,) * 17 + (_P,), _I),
+                                + (_I,) * 18 + (_P,), _I),
         'gendr_error_string': ((_I,), ctypes.c_char_p),
     },
     'ulp_probe': {

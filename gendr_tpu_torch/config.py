@@ -112,6 +112,7 @@ DET_EPS = 1e-10
 
 BACKENDS = ('torch', 'cuda')
 CHANNELS = ('rgba', 'alpha')
+COMPACT = ('auto', 'off')
 
 
 def resolve(name_or_id: Union[str, int], table: dict) -> int:
@@ -148,18 +149,32 @@ class RenderConfig:
     # 'rgba' (reference semantics) or 'alpha' (silhouette-only: skips
     # depth/RGB work; RGB outputs are the background)
     channels: str = 'rgba'
+    # per-tile face compaction ('auto' | 'off'), gendr_tpu's option: the
+    # prepass of backend='cuda' gathers each 16x16 tile's hit faces, 8
+    # Morton-consecutive faces (an octet) at a time, into 128-face chunks
+    # of its own appended after the faces, and the tile lists only those;
+    # the backward folds their gradients back onto the faces.  'auto' turns
+    # it on where gendr_tpu's gate does (cuda_backend.compact_slabs: the
+    # alpha modes hard, max, probabilistic and einstein, one render of all
+    # faces, a density and size budget); 'off' never.  The image is the
+    # same bits either way.
+    compact: str = 'auto'
 
     @classmethod
     def create(cls, image_size=256, dist_func='uniform', dist_squared=False,
                aggr_alpha_func='probabilistic', aggr_rgb_func='softmax',
                double_side=True, texture_type='surface', backend=None,
-               face_chunk=128, channels='rgba') -> 'RenderConfig':
+               face_chunk=128, channels='rgba',
+               compact='auto') -> 'RenderConfig':
         if backend is not None and backend not in BACKENDS:
             raise ValueError(f'backend must be one of {BACKENDS} or None, '
                              f'got {backend!r}')
         if channels not in CHANNELS:
             raise ValueError(f'channels must be one of {CHANNELS}, '
                              f'got {channels!r}')
+        if compact not in COMPACT:
+            raise ValueError(f'compact must be one of {COMPACT}, '
+                             f'got {compact!r}')
         return cls(
             image_size=int(image_size),
             dist_func=resolve(dist_func, DIST_FUNC_MAP),
@@ -171,6 +186,7 @@ class RenderConfig:
             backend=backend,
             face_chunk=int(face_chunk),
             channels=channels,
+            compact=compact,
         )
 
 

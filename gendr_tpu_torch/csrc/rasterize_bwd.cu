@@ -42,7 +42,7 @@
 // workspace [B, S, NO, Fp] that the wrapper allocates, and a second
 // kernel, rasterize_bwd_reduce, sums the slots of each output entry in the
 // fixed order s = 0, 1, ..., S - 1 (the wrapper's launch count,
-// LAUNCHES['rasterize_bwd'], counts one per call for both passes).  Where
+// LAUNCHES['rasterize_bwd'], counts one per call for all its passes).  Where
 // S = 1 the one slot is the output itself and the second pass is not
 // launched, so the largest shapes need no memory beside the output.  No
 // atomics: each sum has one owner and a fixed order, and S and the
@@ -50,6 +50,17 @@
 // bitwise-equal gradients.  At the flagship (1280 faces, 256x256, B=1)
 // that is 1280 blocks, none walking more than one tile, where one block
 // per chunk gave 10 blocks and a walk of 48.
+//
+// Per-tile face compaction (RenderConfig.compact) appends one 128-face
+// chunk (a slab) per tile and slab after the sorted faces, whose list
+// holds that one tile, while the original chunks keep only the tiles that
+// overflowed their slabs.  Slicing the appended chunks would only add
+// empty blocks and workspace (at the flagship 34 048 columns, 157 MB of
+// zeros for S = 128), so the C entry slices the first k_sliced chunks
+// alone, into a workspace of their columns, and launches one block per
+// appended chunk and batch element that writes its columns of the result
+// directly: a third launch, with its own fixed order (the tile's pixels),
+// still no atomics.
 //
 // Within a block: each thread holds its face's geometry rows and its
 // gradient sums in registers.  The tile's NPIX x 256 pixel columns (2, 6
@@ -137,13 +148,14 @@ __host__ __device__ constexpr int npix(int mode) {
   return mode == MODE_SOFTMAX ? 10 : mode == MODE_HARD ? 6 : 2;
 }
 
-// One block per face chunk blockIdx.x of batch element blockIdx.y and
-// slice blockIdx.z of the chunk's hit-tile list; one thread per face.
-// ALPHA: the alpha family, or ALPHA_PARAMETRIC with the family in
-// alpha_func; MODE: alpha only, hard RGB or softmax RGB.  Its slot of ws
-// [B, S, NO, Fp] gets NO rows: x0 y0 x1 y1 x2 y2, then z0 z1 z2 (softmax),
-// then the texture gradients (RGB: 9 for vertex textures, 3 TS for
-// surface), one column per sorted face.
+// One block per face chunk k0 + blockIdx.x (of the K the lists hold) of
+// batch element blockIdx.y and slice blockIdx.z of the chunk's hit-tile
+// list; one thread per face.  ALPHA: the alpha family, or ALPHA_PARAMETRIC
+// with the family in alpha_func; MODE: alpha only, hard RGB or softmax
+// RGB.  Its slot of ws [B, S, NO, W] gets NO rows: x0 y0 x1 y1 x2 y2, then
+// z0 z1 z2 (softmax), then the texture gradients (RGB: 9 for vertex
+// textures, 3 TS for surface), one column per sorted face (face slot gf at
+// column gf: a workspace of the first W columns, or the result itself).
 template <int ALPHA, int MODE>
 __global__ void __maxnreg__(168) rasterize_bwd_kernel(
     const int* __restrict__ chunk_counts,  // [B, K]
@@ -152,7 +164,8 @@ __global__ void __maxnreg__(168) rasterize_bwd_kernel(
     const float* __restrict__ packed,      // [B, NI, Fp]
     const int* __restrict__ perm,          // [B, Fp] input id per sorted slot
     const float* __restrict__ pix,         // [B, NPIX, P]
-    float* __restrict__ ws,                // [B, S, NO, Fp]
+    float* __restrict__ ws,                // [B, S, NO, W]
+    int K, int k0, int W,
     int NI, int NO, int Fp, int FC, int image_size, int tiles_x, int row0,
     int height, int dist_func, int dist_squared, int alpha_func,
     int double_side, int texture_type, int texture_res, int tex_store) {
@@ -163,8 +176,8 @@ __global__ void __maxnreg__(168) rasterize_bwd_kernel(
   float* ring = smem;                   // [STAGES, NPIX, THREADS]
   float* tsum = smem + STAGES * STAGE;  // [3 TS, FC] surface texel sums
 
-  const int K = gridDim.x, S = gridDim.z;
-  const int k = blockIdx.x;
+  const int S = gridDim.z;
+  const int k = k0 + blockIdx.x;
   const int b = blockIdx.y;
   const int s = blockIdx.z;
   const int f = threadIdx.x;
@@ -178,8 +191,8 @@ __global__ void __maxnreg__(168) rasterize_bwd_kernel(
   // texture sums in registers (vertex colours, one texel), in shared
   // memory or in this face's column of the slot's texture rows
   const bool tex_in_regs = tex_store == TEX_REGS;
-  float* slot = ws + ((size_t)b * S + s) * NO * Fp + gf;  // row i: [i * Fp]
-  float* otex = slot + (size_t)(6 + NZ) * Fp;
+  float* slot = ws + ((size_t)b * S + s) * NO * W + gf;  // row i: [i * W]
+  float* otex = slot + (size_t)(6 + NZ) * W;
 
   const float scale = par[P_SCALE], shape = par[P_SHAPE];
   const float shift = par[P_SHIFT], thr = par[P_THR];
@@ -216,7 +229,7 @@ __global__ void __maxnreg__(168) rasterize_bwd_kernel(
   if (MODE != MODE_ALPHA && tex_store == TEX_SHARED)
     for (int i = 0; i < ntex; ++i) tsum[i * FC + f] = 0.0f;
   if (MODE != MODE_ALPHA && tex_store == TEX_GLOBAL)
-    for (int i = 0; i < ntex; ++i) otex[(size_t)i * Fp] = 0.0f;
+    for (int i = 0; i < ntex; ++i) otex[(size_t)i * W] = 0.0f;
 
   // a pair's texture gradient coef[c] of channel c, routed by wcn: to the
   // vertex colours, the one texel, or the sampled texel's sums
@@ -236,7 +249,7 @@ __global__ void __maxnreg__(168) rasterize_bwd_kernel(
     } else {
       const int t = surface_texel_index(wcn[0], wcn[1], R);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) otex[(size_t)(3 * t + c) * Fp] += coef[c];
+      for (int c = 0; c < 3; ++c) otex[(size_t)(3 * t + c) * W] += coef[c];
     }
   };
 
@@ -413,29 +426,30 @@ __global__ void __maxnreg__(168) rasterize_bwd_kernel(
   }
 
 #pragma unroll
-  for (int c = 0; c < 6 + NZ; ++c) slot[(size_t)c * Fp] = acc[c];
+  for (int c = 0; c < 6 + NZ; ++c) slot[(size_t)c * W] = acc[c];
   if (MODE == MODE_ALPHA) return;
   if (tex_in_regs) {
 #pragma unroll
     for (int c = 0; c < 9; ++c)
-      if (c < ntex) otex[(size_t)c * Fp] = tacc[c];
+      if (c < ntex) otex[(size_t)c * W] = tacc[c];
   } else if (tex_store == TEX_SHARED) {
-    for (int i = 0; i < ntex; ++i) otex[(size_t)i * Fp] = tsum[i * FC + f];
+    for (int i = 0; i < ntex; ++i) otex[(size_t)i * W] = tsum[i * FC + f];
   }
 }
 
-// out[b, e] = sum over s of ws[b, s, e] in the order s = 0, 1, ..., S - 1,
-// one thread per entry e of a batch element's per_b = NO x Fp
+// out[b, r, c] = sum over s of ws[b, s, r, c] in the order s = 0, 1, ...,
+// S - 1, one thread per entry (r, c) of a batch element's per_b = NO x W
+// (W: the workspace's columns, the first W of out's Fp)
 __global__ void __launch_bounds__(REDUCE_THREADS) rasterize_bwd_reduce(
     const float* __restrict__ ws, float* __restrict__ out, int S,
-    size_t per_b, size_t total) {
+    size_t per_b, size_t total, int W, int Fp) {
   const size_t i = (size_t)blockIdx.x * REDUCE_THREADS + threadIdx.x;
   if (i >= total) return;
-  const size_t b = i / per_b;
-  const float* w = ws + b * S * per_b + (i - b * per_b);
+  const size_t b = i / per_b, e = i - b * per_b;
+  const float* w = ws + b * S * per_b + e;
   float sum = w[0];
   for (int s = 1; s < S; ++s) sum += w[(size_t)s * per_b];
-  out[i] = sum;
+  out[(b * (per_b / W) + e / W) * Fp + e % W] = sum;
 }
 
 struct Args {
@@ -446,6 +460,7 @@ struct Args {
   const int* perm;
   const float* pix;
   float* ws;
+  int K, k0, W;
   int NI, NO, Fp, FC, image_size, tiles_x, row0, height, dist_func,
       dist_squared, alpha_func, double_side, texture_type, texture_res,
       tex_store;
@@ -462,7 +477,7 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
   }
   kernel<<<grid, a.FC, smem, stream>>>(
       a.chunk_counts, a.chunk_ids, a.par, a.packed, a.perm, a.pix, a.ws,
-      a.NI, a.NO, a.Fp, a.FC, a.image_size, a.tiles_x, a.row0, a.height,
+      a.K, a.k0, a.W, a.NI, a.NO, a.Fp, a.FC, a.image_size, a.tiles_x, a.row0, a.height,
       a.dist_func, a.dist_squared, a.alpha_func, a.double_side,
       a.texture_type, a.texture_res, a.tex_store);
   return cudaGetLastError();
@@ -501,27 +516,30 @@ cudaError_t launch_mode(int mode, dim3 grid, size_t smem, cudaStream_t s,
 }  // namespace
 
 // C interface, loaded with ctypes (gendr_tpu_torch/_build.py).  Launches
-// both passes on `stream` and returns the first launch error (0 on
+// its passes on `stream` and returns the first launch error (0 on
 // success); never synchronizes and allocates nothing.  T is the row length
-// of chunk_ids; S (1 to 65535) the slices each chunk's list is cut into;
-// ws the workspace [B, S, NO, Fp], out the result [B, NO, Fp].  With S = 1
-// ws must be out: the one slice writes the result and the second pass is
-// not launched (with S > 1 ws must not be out).  texture_res is R of an
-// R x R surface texture (1 for one texel); NO, the rows of out, must be the
-// layout's: 6, the 3 z rows for softmax, and for RGB the 9 vertex-colour
-// or 3 R^2 texel rows.  A surface texture of R > 1 sums its
-// texel gradients in the shared block while that fits MAX_SMEM beside the
-// ring of pixel columns, and in the workspace slot above.  The launch sums
-// over image rows [row0, row0 + height): pix is [B, NPIX, height *
-// image_size] and T = ceil(image_size / 16) x ceil(height / 16) the band's
-// tiles.
+// of chunk_ids [B, K, T] (K = Fp / FC chunks).  The first k_sliced chunks
+// (1 to K) are cut into S slices (1 to 65535): ws is the workspace [B, S,
+// NO, k_sliced x FC], a second pass sums its slices into their columns of
+// out [B, NO, Fp]; with S = 1 ws must be out, the one slice writes the
+// result and the second pass is not launched (with S > 1 ws must not be
+// out).  The chunks after them (per-tile face compaction's appended slabs,
+// each listing at most one tile) get one block each, which writes its
+// columns of out directly.  texture_res is R of an R x R surface texture
+// (1 for one texel); NO, the rows of out, must be the layout's: 6, the 3 z
+// rows for softmax, and for RGB the 9 vertex-colour or 3 R^2 texel rows.
+// A surface texture of R > 1 sums its texel gradients in the shared block
+// while that fits MAX_SMEM beside the ring of pixel columns, and in the
+// block's own columns of ws or out above.  The launch sums over image rows
+// [row0, row0 + height): pix is [B, NPIX, height * image_size] and T =
+// ceil(image_size / 16) x ceil(height / 16) the band's tiles.
 extern "C" int gendr_rasterize_bwd(
     const int* chunk_counts, const int* chunk_ids, int T, const float* par,
     const float* packed, const int* perm, const float* pix, float* ws,
-    float* out, int B, int NI, int NO, int Fp, int FC, int S, int image_size,
-    int row0, int height, int dist_func, int dist_squared, int alpha_func,
-    int mode, int double_side, int texture_type, int texture_res, int device,
-    void* stream) {
+    float* out, int B, int NI, int NO, int Fp, int FC, int S, int k_sliced,
+    int image_size, int row0, int height, int dist_func, int dist_squared,
+    int alpha_func, int mode, int double_side, int texture_type,
+    int texture_res, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int tiles_x = (image_size + TILE - 1) / TILE;
@@ -530,12 +548,13 @@ extern "C" int gendr_rasterize_bwd(
                    : texture_type == TEXTURE_VERTEX
                        ? 9
                        : 3 * texture_res * texture_res;
+  const int K = FC > 0 ? Fp / FC : 0;
   if (FC < 1 || FC > MAX_FC || Fp % FC != 0 || T != tiles_x * tiles_y ||
-      S < 1 || S > 65535 || (S == 1) != (ws == out) || row0 < 0 ||
-      height < 1 || row0 + height > image_size || NI < R_TEX + ntex ||
-      texture_res < 1 || NO != 6 + (mode == MODE_SOFTMAX ? 3 : 0) + ntex)
+      S < 1 || S > 65535 || (S == 1) != (ws == out) || k_sliced < 1 ||
+      k_sliced > K || row0 < 0 || height < 1 || row0 + height > image_size ||
+      NI < R_TEX + ntex || texture_res < 1 ||
+      NO != 6 + (mode == MODE_SOFTMAX ? 3 : 0) + ntex)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(Fp / FC, B, S);
   const bool big = ntex > 0 && texture_type == TEXTURE_SURFACE &&
                    texture_res > 1;
   const size_t ring_smem =
@@ -546,18 +565,28 @@ extern "C" int gendr_rasterize_bwd(
                                                            : TEX_GLOBAL;
   const size_t smem = ring_smem + (tex_store == TEX_SHARED ? tex_smem : 0);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{chunk_counts, chunk_ids,    par,          packed,
-               perm,         pix,          ws,           NI,
-               NO,           Fp,           FC,           image_size,
-               tiles_x,      row0,         height,       dist_func,
-               dist_squared, alpha_func,   double_side,  texture_type,
-               texture_res,  tex_store};
-  err = launch_mode(mode, grid, smem, s, a);
-  if (err != cudaSuccess || S == 1) return (int)err;
-  const size_t per_b = (size_t)NO * Fp, total = (size_t)B * per_b;
+  const int W = S == 1 ? Fp : k_sliced * FC;  // columns of a row of ws
+  Args a{chunk_counts, chunk_ids,  par,       packed,      perm,
+         pix,          ws,         K,         0,           W,
+         NI,           NO,         Fp,        FC,          image_size,
+         tiles_x,      row0,       height,    dist_func,   dist_squared,
+         alpha_func,   double_side, texture_type, texture_res, tex_store};
+  err = launch_mode(mode, dim3(k_sliced, B, S), smem, s, a);
+  if (err != cudaSuccess) return (int)err;
+  if (k_sliced < K) {
+    // the appended chunks: one block each, straight into out
+    a.ws = out;
+    a.k0 = k_sliced;
+    a.W = Fp;
+    err = launch_mode(mode, dim3(K - k_sliced, B, 1), smem, s, a);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (S == 1) return (int)cudaSuccess;
+  const size_t per_b = (size_t)NO * W, total = (size_t)B * per_b;
   rasterize_bwd_reduce<<<(unsigned)((total + REDUCE_THREADS - 1) /
                                     REDUCE_THREADS),
-                         REDUCE_THREADS, 0, s>>>(ws, out, S, per_b, total);
+                         REDUCE_THREADS, 0, s>>>(ws, out, S, per_b, total, W,
+                                                 Fp);
   return (int)cudaGetLastError();
 }
 

@@ -129,7 +129,7 @@ class CameraExperiment:
                                                                  backend)
         mv, mf = load_or_make_mesh(args.model_obj, data_dir)
         self.base_mesh = Mesh.create(mv, mf, device=self.device) \
-            .repeat(self.batch_size)
+            .with_incidence().repeat(self.batch_size)
         self.poses_gt = torch.as_tensor(goal_poses(self.batch_size),
                                         device=self.device)
         with torch.no_grad():

@@ -44,6 +44,7 @@ from gendr_tpu_torch.experiments.common import (GifWriter, StepChain,
                                                 make_grid, mse_loss,
                                                 require_gif_support,
                                                 reset_optimizer)
+from gendr_tpu_torch.geometry import core
 from gendr_tpu_torch.geometry.losses import FlattenLoss, LaplacianLoss
 from gendr_tpu_torch.geometry.transforms import get_points_from_angles
 
@@ -60,6 +61,9 @@ class ShapeModel(nn.Module):
         base = torch.as_tensor(v) * 0.5
         self.register_buffer('base_vertices', base)
         self.register_buffer('faces', torch.as_tensor(f))
+        # the faces are fixed: the table of their fixed-order sums, once
+        core.register_incidence(self, core.incidence(self.faces,
+                                                     base.shape[0]))
         self.laplacian = LaplacianLoss(base.numpy(), f)
         self.flatten = FlattenLoss(f)
         self.displace = nn.Parameter(torch.zeros(1, *base.shape))
@@ -167,7 +171,8 @@ class ShapeExperiment:
     def model_mesh(self, eyes):
         """(the model's mesh seen from eyes [B, 3], laplacian, flatten)."""
         verts, faces, lap, flat = self.model(eyes.shape[0])
-        mesh = self.lighting(Mesh.create(verts, faces))
+        mesh = self.lighting(Mesh.create(
+            verts, faces, incidence=core.module_incidence(self.model)))
         self.transform.set_eyes(eyes)
         return self.transform(mesh), lap, flat
 

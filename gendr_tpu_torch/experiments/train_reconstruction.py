@@ -559,6 +559,8 @@ class Reconstruction:
             self.encoder.set_data_parallel(mesh, 'dp')
         faces = np.asarray(faces)
         self.faces = torch.as_tensor(faces, device=self.device)
+        # the template's faces are fixed: their table of fixed-order sums
+        self.incidence = core.incidence(self.faces, decoder.nv)
         self.laplacian = LaplacianLoss(np.zeros((decoder.nv, 3)), faces) \
             .to(self.device)
         self.flatten = FlattenLoss(faces).to(self.device)
@@ -593,7 +595,8 @@ class Reconstruction:
         """The lit mesh of vertices [B, nv, 3] seen from eyes [B, 3]."""
         B = vertices.shape[0]
         mesh = self.lighting(Mesh.create(vertices,
-                                         self.faces[None].expand(B, -1, -1)))
+                                         self.faces[None].expand(B, -1, -1),
+                                         incidence=self.incidence))
         self.transform.set_eyes(eyes)
         return self.transform(mesh)
 
@@ -928,6 +931,8 @@ def _dp_rank(rank, world, init_file, out_dir, args):
                and world <= torch.cuda.device_count() else 'gloo')
     dist.init_process_group(backend, init_method=f'file://{init_file}',
                             world_size=world, rank=rank)
+    # a spawned rank starts with torch's defaults: set main's again
+    float32_backends()
     try:
         mesh = S.make_mesh({'dp': world})
         result = train(args, device, mesh)
@@ -1030,6 +1035,17 @@ def parse_args(argv=None):
     return args
 
 
+def float32_backends():
+    """float32 convolutions and matrix products, as the JAX script's
+    jax_default_matmul_precision='float32', and cuDNN's deterministic
+    algorithms: its default weight and data gradients of the encoder's
+    convolutions (wgrad_alg0, dgrad) sum by atomics, so two runs of a step
+    would differ in the last bits."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+
 def main(argv=None):
     args = parse_args(argv)
     cuda = args.device.startswith('cuda')
@@ -1037,10 +1053,7 @@ def main(argv=None):
         raise SystemExit('train_reconstruction: --device cuda needs a CUDA '
                          'device (torch.cuda.is_available() is False); pass '
                          '--device cpu to run on the CPU')
-    # float32 convolutions and matrix products, as the JAX script's
-    # jax_default_matmul_precision='float32'
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    float32_backends()
     print(f'Using dist_scale {args.dist_scale} for {args.distribution} x '
           f'{args.t_conorm}.')
     print(vars(args))

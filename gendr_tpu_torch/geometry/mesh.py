@@ -4,7 +4,10 @@ Port of ``gendr_tpu/geometry/mesh.py`` (API parity with the reference's
 ``gendr.Mesh``, gendr/mesh.py:13-126).  ``vertices``/``faces``/``textures``
 are buffers, so ``Mesh.to(device)`` moves them; the transforms and the
 lighting return new meshes (``with_vertices``/``with_textures``) instead of
-writing in place.
+writing in place.  ``incidence`` (``core.incidence`` of the faces, built
+once for a mesh whose faces stay fixed) is the table of the fixed-order
+sums over each vertex's corners, kept as buffers too (not persistent, so
+the state_dict stays the same); without it each call makes its own.
 """
 
 from __future__ import annotations
@@ -19,21 +22,25 @@ from gendr_tpu_torch.geometry import core
 
 class Mesh(nn.Module):
     def __init__(self, vertices, faces, textures, texture_res=1,
-                 texture_type='surface'):
+                 texture_type='surface', incidence=None):
         super().__init__()
         self.register_buffer('vertices', vertices)   # [B, nv, 3] float32
         self.register_buffer('faces', faces)         # [B, nf, 3] int32
         self.register_buffer('textures', textures)
         self.texture_res = texture_res
         self.texture_type = texture_type
+        if incidence is not None:
+            core.register_incidence(self, incidence)
 
     @staticmethod
     def create(vertices, faces, textures=None, texture_res=1,
-               texture_type='surface', device=None) -> 'Mesh':
+               texture_type='surface', device=None,
+               incidence=None) -> 'Mesh':
         """Normalizing constructor (mirrors gendr/mesh.py:17-58): promotes
         numpy inputs and unbatched 2D tensors, and fills default white
         textures when none are given.  ``device=None``: the device of a
-        tensor argument, else the card (device.resolve_device)."""
+        tensor argument, else the card (device.resolve_device).
+        ``incidence``: ``core.incidence`` of these faces, or None."""
         device = resolve_device(device, vertices, faces, textures)
         vertices = torch.as_tensor(vertices, dtype=torch.float32,
                                    device=device)
@@ -66,7 +73,8 @@ class Mesh(nn.Module):
                 textures = textures[None]
             if texture_type == 'surface':
                 texture_res = int(np.sqrt(textures.shape[2]))
-        return Mesh(vertices, faces, textures, texture_res, texture_type)
+        return Mesh(vertices, faces, textures, texture_res, texture_type,
+                    incidence)
 
     @classmethod
     def from_obj(cls, filename_obj, normalization=False, load_texture=False,
@@ -111,16 +119,21 @@ class Mesh(nn.Module):
         return self.faces.shape[1]
 
     @property
+    def incidence(self):
+        """The faces' core.Incidence this mesh keeps, or None."""
+        return core.module_incidence(self)
+
+    @property
     def face_vertices(self):
-        return core.face_vertices(self.vertices, self.faces)
+        return core.face_vertices(self.vertices, self.faces, self.incidence)
 
     @property
     def surface_normals(self):
-        return core.surface_normals(self.vertices, self.faces)
+        return core.surface_normals(self.vertices, self.faces, self.incidence)
 
     @property
     def vertex_normals(self):
-        return core.vertex_normals(self.vertices, self.faces)
+        return core.vertex_normals(self.vertices, self.faces, self.incidence)
 
     @property
     def face_textures(self):
@@ -129,7 +142,8 @@ class Mesh(nn.Module):
         if self.texture_type == 'surface':
             return self.textures
         if self.texture_type == 'vertex':
-            return core.face_vertices(self.textures, self.faces)
+            return core.face_vertices(self.textures, self.faces,
+                                      self.incidence)
         raise ValueError('texture type not applicable')
 
     def voxelize(self, voxel_size=32):
@@ -140,17 +154,33 @@ class Mesh(nn.Module):
 
     # -- functional updates ---------------------------------------------------
 
+    def with_incidence(self) -> 'Mesh':
+        """This mesh with its incidence table built, once, from the faces of
+        its first batch element (a batch shares its faces)."""
+        return Mesh(self.vertices, self.faces, self.textures, self.texture_res,
+                    self.texture_type,
+                    core.incidence(self.faces[0], self.num_vertices))
+
     def with_vertices(self, vertices) -> 'Mesh':
         return Mesh(vertices, self.faces, self.textures, self.texture_res,
-                    self.texture_type)
+                    self.texture_type, self.incidence)
 
     def with_textures(self, textures) -> 'Mesh':
         return Mesh(self.vertices, self.faces, textures, self.texture_res,
-                    self.texture_type)
+                    self.texture_type, self.incidence)
 
     def repeat(self, n) -> 'Mesh':
         """Tile the batch dimension n times."""
         return Mesh(self.vertices.repeat(n, 1, 1), self.faces.repeat(n, 1, 1),
                     self.textures.repeat((n,) + (1,) * (self.textures.ndim
                                                         - 1)),
-                    self.texture_res, self.texture_type)
+                    self.texture_res, self.texture_type,
+                    self._shared_incidence())
+
+    def _shared_incidence(self):
+        """The incidence table if it serves every batch element alike (1-d
+        tables), else None: a tiled batch's per-element table would not."""
+        inc = self.incidence
+        if inc is None or inc.gather.order.ndim != 1:
+            return None
+        return inc

@@ -294,6 +294,8 @@ def _forward(face_vertices, textures, cfg: C.RenderConfig, params: Dict,
 
     aux = None
     if engine is CB:
+        # a shard passes its fvalid even at fp=1, so per-tile face
+        # compaction stays off on every sharded render, as in gendr_tpu
         carry, aux = CB.forward_partial(fv_l, tex_l, cfg, params,
                                         base_offset=base_offset,
                                         fvalid=fvalid_l, row_band=band)

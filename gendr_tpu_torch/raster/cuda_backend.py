@@ -88,6 +88,11 @@ MAX_BWD_CHUNK = 256
 # BWD_WORKSPACE_BYTES (bwd_slice_count)
 BWD_SLICE_CAP = 128
 BWD_WORKSPACE_BYTES = 256 << 20
+# under per-tile face compaction the sorted chunks list only the tiles
+# whose octets overflow their slabs (at most 2 a chunk on the flagship,
+# none on the default GenDR): at most this many slices, so that the
+# blocks of empty slices and their workspace stay few
+COMPACT_SLICE_CAP = 4
 # softmax RGB samples surface textures of up to this many texels per face
 # (gendr_tpu's SOFTMAX_TS_CAP: texture_res 32, four times load_obj's 16);
 # hard RGB has no cap
@@ -124,14 +129,6 @@ def check_envelope(cfg: C.RenderConfig, TS: int):
             f'use backend="torch", or hard RGB')
 
 
-def _spread(v):
-    v = (v | (v << 16)) & 0x030000FF
-    v = (v | (v << 8)) & 0x0300F00F
-    v = (v | (v << 4)) & 0x030C30C3
-    v = (v | (v << 2)) & 0x09249249
-    return v
-
-
 def _sorted_faces(face_vertices, textures, FC, fvalid_in=None):
     """Pad to a chunk multiple and Morton-sort faces by projected bbox
     centre (tight chunk bboxes make the tile x chunk cull selective).
@@ -149,15 +146,7 @@ def _sorted_faces(face_vertices, textures, FC, fvalid_in=None):
         fvalid = fvalid & torch.nn.functional.pad(
             fvalid_in.to(device=fvalid.device, dtype=torch.bool),
             (0, fvalid.shape[0] - F))
-    xs = fv[..., 0::3]
-    ys = fv[..., 1::3]
-    cx = 0.5 * (xs.amin(-1) + xs.amax(-1))
-    cy = 0.5 * (ys.amin(-1) + ys.amax(-1))
-    qx = torch.clamp((cx + 1.0) * 512.0, 0, 1023).to(torch.int32)
-    qy = torch.clamp((cy + 1.0) * 512.0, 0, 1023).to(torch.int32)
-    key = _spread(qx) | (_spread(qy) << 1)
-    key = torch.where(fvalid[None, :], key, 0x7FFFFFFF)
-    perm = torch.argsort(key, dim=1, stable=True)  # [B, Fp]
+    perm = pack.morton_order(fv, fvalid)  # [B, Fp]
 
     bidx = torch.arange(fv.shape[0], device=fv.device)[:, None]
     return fv[bidx, perm], tex[bidx, perm], fvalid[perm], perm
@@ -172,29 +161,115 @@ def _band(cfg: C.RenderConfig, row_band):
     return int(row0), int(height)
 
 
+# the alpha modes whose fold compaction may re-order (gendr_tpu's gate:
+# order-exact or already re-associated per lane); the parametric folds keep
+# the chunk-granular lists
+COMPACT_ALPHA = (C.ALPHA_HARD, C.MAX_TCN, C.PROBABILISTIC_TCN,
+                 C.EINSTEIN_TCN)
+# the appended slot rows' budget (write-once traffic of the prepass)
+COMPACT_BYTES = 128 * 1024 * 1024
+
+
+def _compact_eligible(cfg: C.RenderConfig, allow_compact):
+    """Static gate for per-tile face compaction (RenderConfig.compact;
+    pallas_backend.py:563-582): 'auto', a render of all the faces
+    (allow_compact False for a face shard, whose winner ids must stay in
+    its own contiguous range), and an alpha mode of COMPACT_ALPHA."""
+    if cfg.compact != 'auto' or not allow_compact:
+        return False
+    return cfg.aggr_alpha_func in COMPACT_ALPHA
+
+
+def _compact_slabs(cfg: C.RenderConfig, TS, T_tiles, Fp):
+    """How many 128-slot slabs each tile's compacted chunks get (0:
+    compaction off for this scene shape), gendr_tpu's arithmetic
+    (pallas_backend.py:585-630): off for surface textures of more than
+    pack.TEXEL_UNROLL_CAP texels; else by the density r = Fp / (8 T), the
+    octets an active tile should hit: 1 slab to r = 1, 2 to r = 4 (and
+    at most 1024 appended chunks), off above; off where the appended rows
+    would pass COMPACT_BYTES; never more slabs than chunks.  T_tiles is
+    the full image's tile count, so a band builds the full render's
+    slot layout."""
+    if (cfg.texture_type == C.TEXTURE_SURFACE
+            and TS > pack.TEXEL_UNROLL_CAP):
+        return 0
+    if T_tiles <= 0:
+        return 0
+    r = Fp / (8.0 * T_tiles)
+    if r <= 1.0:
+        S = 1
+    elif r <= 4.0:
+        S = 2
+    else:
+        return 0
+    if S > 1 and T_tiles * S > 1024:
+        return 0
+    NI = pack.num_rows(cfg.texture_type, TS)
+    if T_tiles * S * 128 * NI * 4 > COMPACT_BYTES:
+        return 0
+    return min(S, max(1, Fp // 128))
+
+
 def prepass(face_vertices, textures, cfg: C.RenderConfig, params: Dict,
-            fvalid=None, row_band=None):
+            fvalid=None, row_band=None, allow_compact=True):
     """Sort, pack and build the hit lists: the kernels' inputs (per tile
     its hit chunks for the forward, per chunk its hit tiles for the
     backward).  ``fvalid`` ([F] bool) marks the faces a caller padded;
     ``row_band=(row0, height)`` lists the tiles of those image rows alone
-    (the aux records the band as 'row0' and 'height')."""
+    (the aux records the band as 'row0' and 'height').
+
+    Where per-tile face compaction is on (:func:`_compact_eligible`,
+    :func:`_compact_slabs`; never with ``fvalid``, never without
+    ``allow_compact``), the slot faces of ``pack.compact_plan`` are packed
+    after the Fp sorted faces, ``perm`` gives each slot its source face's
+    input id, the lists are the plan's, and the aux keeps 'oct_ids' for
+    the backward's fold of the slot rows."""
     FC = cfg.face_chunk
     row0, height = _band(cfg, row_band)
-    fv, tex, fvalid, perm = _sorted_faces(face_vertices, textures, FC,
-                                          fvalid)
-    packed = pack.pack_faces(fv, tex, fvalid, cfg,
-                             with_tex=cfg.channels != 'alpha')
-    par = PM._params_vec(params, cfg, packed.device)
+    fv, tex, fvalid_s, perm = _sorted_faces(face_vertices, textures, FC,
+                                            fvalid)
+    B, Fp = fv.shape[:2]
+    with_tex = cfg.channels != 'alpha'
+    par = PM._params_vec(params, cfg, fv.device)
     # the cull's margin is the vector's slot (pack.cull_margin's value)
-    mask = pack.tile_chunk_mask(packed, cfg.image_size, TILE, TILE, FC,
-                                par[PM.P_MARGIN], height, row0)
-    tile_counts, tile_ids, chunk_counts, chunk_ids = pack.compact_hits(mask)
-    return dict(packed=packed, perm=perm.to(torch.int32),
+    margin = par[PM.P_MARGIN]
+    slabs = _compact_slabs(cfg, textures.shape[2],
+                           _num_tiles(cfg, cfg.image_size), Fp)
+    aux = dict(par=par, row0=row0, height=height)
+    if (FC == pack.OCT * pack.OCT_CAP and fvalid is None and slabs > 0
+            and _compact_eligible(cfg, allow_compact)):
+        plan = pack.compact_plan(fv, tex if with_tex else None, fvalid_s,
+                                 cfg.image_size, TILE, TILE, margin,
+                                 Fp // FC, FC, height, row0, slabs)
+        fv = torch.cat([fv, plan['slot_fv']], 1)
+        if with_tex:
+            tex = torch.cat([tex, plan['slot_tex']], 1)
+        fvalid_s = torch.cat([fvalid_s, plan['slot_fvalid']], 1)
+        # a slot's input id is its source face's
+        src = (plan['oct_ids'].long()[..., None] * pack.OCT
+               + torch.arange(pack.OCT, device=fv.device)).reshape(B, -1)
+        perm = torch.cat([perm, torch.gather(perm, 1, src)], 1)
+        lists = (plan['tile_counts'], plan['tile_ids'], plan['chunk_counts'],
+                 plan['chunk_ids'])
+        aux['oct_ids'] = plan['oct_ids']
+    packed = pack.pack_faces(fv, tex, fvalid_s, cfg, with_tex=with_tex)
+    if 'oct_ids' not in aux:
+        mask = pack.tile_chunk_mask(packed, cfg.image_size, TILE, TILE, FC,
+                                    margin, height, row0)
+        lists = pack.compact_hits(mask)
+    tile_counts, tile_ids, chunk_counts, chunk_ids = lists
+    return dict(aux, packed=packed, perm=perm.to(torch.int32),
                 tile_counts=tile_counts, tile_ids=tile_ids,
-                chunk_counts=chunk_counts,
-                chunk_ids=chunk_ids.contiguous(), par=par,
-                row0=row0, height=height)
+                chunk_counts=chunk_counts, chunk_ids=chunk_ids.contiguous())
+
+
+def sorted_face_count(aux):
+    """Fp, the sorted faces of a prepass's packed columns: all of them, or
+    those before compaction's appended slots."""
+    Fp = aux['packed'].shape[2]
+    if 'oct_ids' in aux:
+        Fp -= aux['oct_ids'].shape[1] * pack.OCT
+    return Fp
 
 
 def _check_tensors(dev, *named):
@@ -304,10 +379,11 @@ def rasterize_fwd(tile_counts, tile_ids, par, packed, perm,
 
 
 def tile_face_survivors(packed, cfg: C.RenderConfig, margin, row0=0,
-                        height=None):
+                        height=None, lists=None):
     """The forward kernel's cull, in plain PyTorch: of each chunk a tile
-    lists (``pack.tile_chunk_mask`` with this margin, as the prepass
-    builds the lists), the faces the kernel's block keeps and walks.
+    lists (``lists`` = (tile_counts, tile_ids), the prepass's; None:
+    ``pack.tile_chunk_mask`` with this margin, as an uncompacted prepass
+    builds them), the faces the kernel's block keeps and walks.
 
     A face survives when its fvalid row is set and its bbox + margin
     meets the tile's rectangle of pixel centres, clipped to the image
@@ -327,8 +403,11 @@ def tile_face_survivors(packed, cfg: C.RenderConfig, margin, row0=0,
     height = is_ if height is None else height
     dev = packed.device
     margin = torch.as_tensor(margin, dtype=torch.float32, device=dev)
-    listed = pack.tile_chunk_mask(packed, is_, TILE, TILE, FC, margin,
-                                  height, row0)
+    if lists is None:
+        listed = pack.tile_chunk_mask(packed, is_, TILE, TILE, FC, margin,
+                                      height, row0)
+    else:
+        listed = _hit(*lists, Fp // FC)
     listed = listed.repeat_interleave(FC, dim=2) > 0        # [B, T, Fp]
 
     tx = -(-is_ // TILE)
@@ -374,6 +453,23 @@ def _chunk_textures(pk, cfg: C.RenderConfig, TS):
         .permute(0, 3, 1, 2)
 
 
+def _tile_pixels(image_size, height, device):
+    """[T, TILE * TILE] int64: each tile's band-local pixel indices in
+    row-major order, -1 past the image's or the band's edge."""
+    tx, ty = -(-image_size // TILE), -(-height // TILE)
+    t = torch.arange(tx * ty, device=device)[:, None]
+    i = torch.arange(TILE * TILE, device=device)
+    r, c = t // tx * TILE + i // TILE, t % tx * TILE + i % TILE
+    return torch.where((r < height) & (c < image_size), r * image_size + c,
+                       -1)
+
+
+def _listed_pixels(listed, tile_pix):
+    """The pixels, ascending, of the tiles listed ([T] bool) marks."""
+    p = tile_pix[listed].reshape(-1)
+    return p[p >= 0].sort().values
+
+
 def _hit(counts, ids, n):
     """[B, A, n] int32: is item i on row a's list (the first counts[b, a]
     entries of ids[b, a])?"""
@@ -381,8 +477,114 @@ def _hit(counts, ids, n):
     listed = (torch.arange(ids.shape[2], device=ids.device)[None, None, :]
               < counts[..., None]).to(torch.int32)
     hit = torch.zeros((B, A, n), dtype=torch.int32, device=ids.device)
-    hit.scatter_add_(2, ids.long(), listed)
+    # entries past a row's count may name anything (a compacted tile's
+    # unused slab ids): they add 0 at item 0
+    hit.scatter_add_(2, torch.where(listed > 0, ids, 0).long(), listed)
     return hit
+
+
+def _fold_chunk(pk, oid, on, xp, yp, par, cfg: C.RenderConfig, TS, state):
+    """rasterize_fwd_plain's fold of one chunk (packed rows pk [B, NI, FC],
+    input ids oid [B, 1, FC]) into the state (acc, best, best_id, ssum,
+    smax, rgb) of the P pixels at (xp, yp) ([P], or [B, P] for pixels of
+    each batch row's own); on [B, P]: does the pixel's tile list the
+    chunk?  Returns the new state."""
+    acc, best, best_id, ssum, smax, rgb = state
+    B, P = on.shape
+    FC = pk.shape[2]
+    mode = render_mode(cfg)
+    tid = cfg.aggr_alpha_func
+    gamma, near, far = par[PM.P_GAMMA], par[PM.P_NEAR], par[PM.P_FAR]
+    big_id = torch.iinfo(torch.int32).max
+
+    def row(i):
+        return pk[:, i, None, :]                            # [B, 1, FC]
+    xp, yp = (x.expand(B, P)[..., None] for x in (xp, yp))
+    q = PM._pair_math(row, xp, yp, par, cfg, fwd_only=True,
+                      need_depth=mode != MODE_ALPHA)
+    valid = q['valid'] & on[..., None]
+    frag = torch.where(valid, q['frag'], 0.0)
+
+    if tid == C.ALPHA_HARD:
+        acc = torch.where((frag > 0.5).any(-1), 1.0, acc)
+    elif tid == C.MAX_TCN:
+        acc = torch.maximum(acc, frag.amax(-1))
+    elif tid == C.PROBABILISTIC_TCN:
+        for f in range(FC):
+            acc = acc * (1.0 - frag[..., f])
+    elif tid == C.EINSTEIN_TCN:
+        for f in range(FC):
+            acc = (acc + frag[..., f]) / (1.0 + acc * frag[..., f])
+    else:
+        for f in range(FC):
+            acc = TC.fold_step(tid, acc, frag[..., f], par[PM.P_TCP])
+    if mode == MODE_ALPHA:
+        return acc, best, best_id, ssum, smax, rgb
+    # each pair's colour [B, P, FC, 3] (csrc/pairmath.cuh:sample_color)
+    col = TB._sample_colors(_chunk_textures(pk, cfg, TS), q['wcn'], cfg)
+
+    if mode == MODE_HARD:
+        hmask = valid & q['zvalid'] & q['in_loose'] & q['front_ok']
+        dm = torch.where(hmask, q['denom'], NEG_INF)     # [B, P, FC]
+        dmax = dm.amax(-1)
+        tie = hmask & (dm == dmax[..., None])
+        oid_sel = torch.where(tie, oid, big_id).amin(-1)
+        better = (dmax > best) | ((dmax == best) & (oid_sel < best_id))
+        pos = (tie & (oid == oid_sel[..., None])).to(torch.int32) \
+            .argmax(-1)                                   # [B, P]
+        col = torch.gather(col, 2, pos[..., None, None]
+                           .expand(B, P, 1, 3))[:, :, 0]
+        best = torch.where(better, dmax, best)
+        best_id = torch.where(better, oid_sel, best_id)
+        rgb = torch.where(better[..., None], col, rgb)
+    else:
+        # streaming softmax, a face at a time: rescale when the max
+        # rises, then add the pair's weight (cu:824-839)
+        cm = valid & q['zvalid'] & q['front_ok']
+        zn = (far - q['zp']) / (far - near)
+        for f in range(FC):
+            m, z = cm[..., f], zn[..., f]
+            rise = m & (z > smax)
+            sc = torch.exp((smax - z) / gamma)
+            ssum = torch.where(rise, ssum * sc, ssum)
+            rgb = torch.where(rise[..., None], rgb * sc[..., None], rgb)
+            smax = torch.where(rise, z, smax)
+            wgt = frag[..., f] * torch.exp((z - smax) / gamma)
+            ssum = torch.where(m, ssum + wgt, ssum)
+            rgb = torch.where(m[..., None], rgb + wgt[..., None]
+                              * col[:, :, f], rgb)
+    return acc, best, best_id, ssum, smax, rgb
+
+
+def _fold_tile_group(group, tile_of, listed, tile_pix, packed, perm, xp, yp,
+                     par, cfg: C.RenderConfig, TS, state):
+    """rasterize_fwd_plain's fold of the chunks of group (each listed by
+    one tile, tile_of[k], no two by the same) into the state, in place:
+    one _fold_chunk over batch rows (batch element, chunk), each with its
+    tile's pixels (a ragged tile's missing ones left out)."""
+    if not group:
+        return
+    B, NI, _ = packed.shape
+    FC = cfg.face_chunk
+    G = len(group)
+    dev = packed.device
+    ks = torch.tensor(group, device=dev)
+    tiles = torch.tensor([tile_of[k] for k in group], device=dev)
+    pix = tile_pix[tiles]                                   # [G, 256]
+    inside = pix >= 0
+    pix = pix.clamp(min=0)
+    cols = (ks[:, None] * FC + torch.arange(FC, device=dev)).reshape(-1)
+    pk = packed[:, :, cols].reshape(B, NI, G, FC).transpose(1, 2) \
+        .reshape(B * G, NI, FC)
+    oid = perm[:, cols].reshape(B * G, 1, FC)
+    on = (listed[:, tiles, ks][..., None] & inside).reshape(B * G, -1)
+    xg, yg = (x[pix].expand(B, G, -1).reshape(B * G, -1) for x in (xp, yp))
+    part = _fold_chunk(pk, oid, on, xg, yg, par, cfg, TS, [
+        x[:, pix].reshape((B * G, pix.shape[1]) + x.shape[2:])
+        for x in state])
+    for x, y in zip(state, part):
+        y = y.reshape((B, G) + y.shape[1:])
+        x[:, pix[inside]] = y[:, inside]
 
 
 def rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
@@ -404,7 +606,6 @@ def rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
     tx = -(-is_ // TILE)
     mode = render_mode(cfg)
     tid = cfg.aggr_alpha_func
-    gamma, near, far = par[PM.P_GAMMA], par[PM.P_NEAR], par[PM.P_FAR]
 
     height = is_ if height is None else height
     hit = _hit(tile_counts, tile_ids, K)                    # [B, T, K]
@@ -420,71 +621,39 @@ def rasterize_fwd_plain(tile_counts, tile_ids, par, packed, perm,
     ssum = torch.zeros((B, P), device=dev)
     smax = torch.full((B, P), NEG_INF, device=dev)
     rgb = torch.zeros((B, P, 3), device=dev)
-    big_id = torch.iinfo(torch.int32).max
 
+    state = (acc, best, best_id, ssum, smax, rgb)
+    tile_pix = _tile_pixels(is_, height, dev)
+    listed = hit > 0                                        # [B, T, K]
+    ntiles = listed.any(0).sum(0).tolist()
+    tile_of = listed.any(0).to(torch.int8).argmax(0).tolist()
+    # chunks that one tile lists (compaction's slabs) fold in groups of
+    # distinct tiles, one batch row per (batch element, chunk); a group
+    # ends before a chunk of several tiles or a second of one of its tiles,
+    # so every pixel still folds its chunks in ascending order
+    group, most = [], max(1, TB.PAIR_BUDGET // (B * TILE * TILE * FC))
     for k in range(K):
-        on = hit[:, ptile, k] > 0                           # [B, P]
-        if not bool(on.any()):
+        if ntiles[k] == 1 and len(group) < most \
+                and tile_of[k] not in (tile_of[j] for j in group):
+            group.append(k)
             continue
-        pk = packed[:, :, k * FC:(k + 1) * FC]
-
-        def row(i):
-            return pk[:, i, None, :]                        # [B, 1, FC]
-        q = PM._pair_math(row, xp[None, :, None], yp[None, :, None], par,
-                          cfg, fwd_only=True,
-                          need_depth=mode != MODE_ALPHA)
-        valid = q['valid'] & on[..., None]
-        frag = torch.where(valid, q['frag'], 0.0)
-
-        if tid == C.ALPHA_HARD:
-            acc = torch.where((frag > 0.5).any(-1), 1.0, acc)
-        elif tid == C.MAX_TCN:
-            acc = torch.maximum(acc, frag.amax(-1))
-        elif tid == C.PROBABILISTIC_TCN:
-            for f in range(FC):
-                acc = acc * (1.0 - frag[..., f])
-        elif tid == C.EINSTEIN_TCN:
-            for f in range(FC):
-                acc = (acc + frag[..., f]) / (1.0 + acc * frag[..., f])
-        else:
-            for f in range(FC):
-                acc = TC.fold_step(tid, acc, frag[..., f], par[PM.P_TCP])
-        if mode == MODE_ALPHA:
-            continue
-        # each pair's colour [B, P, FC, 3] (csrc/pairmath.cuh:sample_color)
-        col = TB._sample_colors(_chunk_textures(pk, cfg, TS), q['wcn'], cfg)
-
-        if mode == MODE_HARD:
-            hmask = valid & q['zvalid'] & q['in_loose'] & q['front_ok']
-            dm = torch.where(hmask, q['denom'], NEG_INF)     # [B, P, FC]
-            dmax = dm.amax(-1)
-            oid = perm[:, None, k * FC:(k + 1) * FC]          # [B, 1, FC]
-            tie = hmask & (dm == dmax[..., None])
-            oid_sel = torch.where(tie, oid, big_id).amin(-1)
-            better = (dmax > best) | ((dmax == best) & (oid_sel < best_id))
-            pos = (tie & (oid == oid_sel[..., None])).to(torch.int32) \
-                .argmax(-1)                                   # [B, P]
-            col = torch.gather(col, 2, pos[..., None, None]
-                               .expand(B, P, 1, 3))[:, :, 0]
-            best = torch.where(better, dmax, best)
-            best_id = torch.where(better, oid_sel, best_id)
-            rgb = torch.where(better[..., None], col, rgb)
-        else:
-            # streaming softmax, a face at a time: rescale when the max
-            # rises, then add the pair's weight (cu:824-839)
-            cm = valid & q['zvalid'] & q['front_ok']
-            zn = (far - q['zp']) / (far - near)
-            for f in range(FC):
-                m, z = cm[..., f], zn[..., f]
-                rise = m & (z > smax)
-                sc = torch.exp((smax - z) / gamma)
-                ssum = torch.where(rise, ssum * sc, ssum)
-                rgb = torch.where(rise[..., None], rgb * sc[..., None], rgb)
-                smax = torch.where(rise, z, smax)
-                wgt = frag[..., f] * torch.exp((z - smax) / gamma)
-                ssum = torch.where(m, ssum + wgt, ssum)
-                rgb = torch.where(m[..., None], rgb + wgt[..., None]
-                                  * col[:, :, f], rgb)
+        _fold_tile_group(group, tile_of, listed, tile_pix, packed, perm, xp,
+                         yp, par, cfg, TS, state)
+        group = [k] if ntiles[k] == 1 else []
+        if ntiles[k] > 1:
+            # the pixels of the tiles that list chunk k: a pixel's fold is
+            # its own, so the others can be left out
+            tiles = listed[:, :, k]                         # [B, T]
+            pixels = _listed_pixels(tiles.any(0), tile_pix)
+            sl = slice(k * FC, (k + 1) * FC)
+            part = _fold_chunk(packed[:, :, sl], perm[:, None, sl],
+                               tiles[:, ptile[pixels]], xp[pixels],
+                               yp[pixels], par, cfg, TS,
+                               [x[:, pixels] for x in state])
+            for x, y in zip(state, part):
+                x[:, pixels] = y
+    _fold_tile_group(group, tile_of, listed, tile_pix, packed, perm, xp, yp,
+                     par, cfg, TS, state)
 
     alpha = 1.0 - acc if tid == C.PROBABILISTIC_TCN else acc
     if mode == MODE_ALPHA:
@@ -570,11 +739,15 @@ def forward_partial(face_vertices, textures, cfg: C.RenderConfig,
     bool) marks faces the caller padded; ``row_band=(row0, height)``
     renders those image rows alone; hard-RGB winner ids are this shard's
     input ids plus ``base_offset``, so they are global across face shards.
+    Per-tile face compaction stays off for a face shard (``fvalid`` given
+    or ``base_offset`` not 0: its slots' ids would leave the shard's id
+    range, pallas_backend.py:876-879); a band of all the faces keeps it.
     Returns (carry, aux); aux (the prepass) serves backward_from_aux."""
     TS = textures.shape[2]
     check_envelope(cfg, TS)
     if aux is None:
-        aux = prepass(face_vertices, textures, cfg, params, fvalid, row_band)
+        aux = prepass(face_vertices, textures, cfg, params, fvalid, row_band,
+                      _whole(base_offset, fvalid))
     out = rasterize_fwd(aux['tile_counts'], aux['tile_ids'], aux['par'],
                         aux['packed'], aux['perm'], cfg, TS, aux['row0'],
                         aux['height'])
@@ -590,6 +763,13 @@ def forward_partial(face_vertices, textures, cfg: C.RenderConfig,
         fidx = torch.where(fidx >= 0, fidx + base_offset, fidx)
         return (alpha, empty[1], empty[2], rgb, out[:, 1], fidx), aux
     return (alpha, out[:, 2], out[:, 1], rgb, empty[4], empty[5]), aux
+
+
+def _whole(base_offset, fvalid):
+    """May a render with this base_offset and fvalid compact its faces?
+    Only a render of all the faces: no face shard."""
+    return isinstance(base_offset, int) and base_offset == 0 \
+        and fvalid is None
 
 
 # pixel columns of the backward kernel, rows of its [B, NPIX, P] input:
@@ -628,25 +808,30 @@ def _bwd_smem(cfg: C.RenderConfig, TS):
     return (2 * npix * TILE * TILE + tex) * 4
 
 
-def bwd_slice_count(B, NO, Fp, T):
+def bwd_slice_count(B, NO, Fp, T, compacted=False):
     """S, the slices the backward kernel cuts each chunk's hit-tile list
-    into (one block each): BWD_SLICE_CAP, or the T tiles of a shorter
-    list, or fewer where the workspace [B, S, NO, Fp] of float32 would
-    pass BWD_WORKSPACE_BYTES; 1 where a single slice passes it, and then
-    the kernel needs no workspace (:func:`_bwd_workspace`).  A
-    function of shapes alone, so a run's sum order is too."""
+    into (one block each): BWD_SLICE_CAP (COMPACT_SLICE_CAP where
+    ``compacted``: the chunks of a compacted prepass, which list the
+    overflow tiles alone), or the T tiles of a shorter list, or fewer
+    where the workspace [B, S, NO, Fp] of float32 would pass
+    BWD_WORKSPACE_BYTES; 1 where a single slice passes it, and then the
+    kernel needs no workspace (:func:`_bwd_workspace`).  A function of
+    shapes alone, so a run's sum order is too."""
+    cap = COMPACT_SLICE_CAP if compacted else BWD_SLICE_CAP
     slot = B * NO * Fp * 4
-    return max(1, min(BWD_SLICE_CAP, T, BWD_WORKSPACE_BYTES // slot))
+    return max(1, min(cap, T, BWD_WORKSPACE_BYTES // slot))
 
 
-def _bwd_workspace(out, S):
-    """The backward kernel's workspace [B, S, NO, Fp] for the result out
-    [B, NO, Fp]: out itself where S = 1 (its one slice writes the result
-    and the C entry launches no second pass), else a new tensor."""
+def _bwd_workspace(out, S, Fs=None):
+    """The backward kernel's workspace [B, S, NO, Fs] for the result out
+    [B, NO, Fp] whose first Fs columns (None: all) are summed in slices:
+    out itself where S = 1 (its one slice writes the result and the C entry
+    launches no second pass), else a new tensor."""
     if S == 1:
         return out
     B, NO, Fp = out.shape
-    return torch.empty((B, S, NO, Fp), dtype=out.dtype, device=out.device)
+    Fs = Fp if Fs is None else Fs
+    return torch.empty((B, S, NO, Fs), dtype=out.dtype, device=out.device)
 
 
 def bwd_slices(n, S):
@@ -657,7 +842,7 @@ def bwd_slices(n, S):
 
 
 def _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
-                      TS, row0, height):
+                      TS, row0, height, n_sliced):
     _check_tensors(packed.device,
                    ('chunk_counts', chunk_counts, torch.int32),
                    ('chunk_ids', chunk_ids, torch.int32),
@@ -681,6 +866,8 @@ def _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
         raise ValueError(f'chunk hit lists must be [B={B}, K={K}] and '
                          f'[B, K, T={T}], got {tuple(chunk_counts.shape)} '
                          f'and {tuple(chunk_ids.shape)}')
+    if not 1 <= n_sliced <= K:
+        raise ValueError(f'n_sliced={n_sliced} is not in 1..{K}')
     if tuple(perm.shape) != (B, Fp) or tuple(par.shape) != (PM.NPAR,):
         raise ValueError(f'perm must be [{B}, {Fp}] and par [{PM.NPAR}]')
     _check_rows(NI, cfg, TS)
@@ -693,29 +880,37 @@ def _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
 
 
 def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
-                  cfg: C.RenderConfig, TS=1, row0=0, height=None):
+                  cfg: C.RenderConfig, TS=1, row0=0, height=None,
+                  n_sliced=None):
     """The backward kernel: per-face gradient rows [B, NO, Fp] float32 in
     sorted face order (see _bwd_layout), from the pixel columns pix
     [B, NPIX, P] (PIX_*) in row-major pixel order.  TS: texels per face of
     surface textures.  The sums run over image rows [row0, row0 + height)
     (None: all), P = height x image_size, with the hit lists of that
-    band's tiles.
+    band's tiles.  The first n_sliced chunks (None: all) are cut into
+    slices; the chunks after them, compaction's appended slabs, which list
+    at most one tile each, get one block each.
 
     CUDA tensors launch ``csrc/rasterize_bwd.cu`` on the current stream:
-    its two passes, one block per (chunk, batch element, slice of the
-    chunk's hit list) into a workspace [B, S, NO, Fp] (S =
-    :func:`bwd_slice_count`), then the slices summed in a fixed order;
-    where S = 1, the one pass straight into the result.
-    ``LAUNCHES['rasterize_bwd']`` counts one per call, for both passes.
-    CPU tensors run :func:`rasterize_bwd_plain`.
+    one block per (sliced chunk, batch element, slice of the chunk's hit
+    list) into a workspace [B, S, NO, n_sliced x FC] (S =
+    :func:`bwd_slice_count` of those columns, ``compacted`` where chunks
+    follow them), then the slices summed in
+    a fixed order; where S = 1, that pass straight into the result; and
+    one block per (appended chunk, batch element) straight into the
+    result.  ``LAUNCHES['rasterize_bwd']`` counts one per call, for all
+    its passes.  CPU tensors run :func:`rasterize_bwd_plain`.
     """
     height = cfg.image_size if height is None else height
     check_envelope(cfg, TS)
+    K = packed.shape[2] // cfg.face_chunk
+    n_sliced = K if n_sliced is None else n_sliced
     _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
-                      TS, row0, height)
+                      TS, row0, height, n_sliced)
     if packed.device.type == 'cpu':
         return rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed,
-                                   perm, pix, cfg, TS, row0, height)
+                                   perm, pix, cfg, TS, row0, height,
+                                   n_sliced)
     if packed.device.type != 'cuda':
         raise ValueError(f'no backward kernel for device {packed.device}')
 
@@ -724,15 +919,17 @@ def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
     B, NI, Fp = packed.shape
     _, NO = _bwd_layout(cfg, TS)
     T = chunk_ids.shape[2]
-    S = bwd_slice_count(B, NO, Fp, T)
+    Fs = n_sliced * cfg.face_chunk
+    S = bwd_slice_count(B, NO, Fs, T, compacted=Fs < Fp)
     out = torch.empty((B, NO, Fp), dtype=torch.float32, device=packed.device)
-    ws = _bwd_workspace(out, S)
+    ws = _bwd_workspace(out, S, Fs)
     stream = torch.cuda.current_stream(packed.device)
     err = lib.gendr_rasterize_bwd(
         chunk_counts.data_ptr(), chunk_ids.data_ptr(), T,
         par.data_ptr(), packed.data_ptr(), perm.data_ptr(), pix.data_ptr(),
         ws.data_ptr(), out.data_ptr(), B, NI, NO, Fp, cfg.face_chunk, S,
-        cfg.image_size, row0, height, cfg.dist_func, int(cfg.dist_squared),
+        n_sliced, cfg.image_size, row0, height, cfg.dist_func,
+        int(cfg.dist_squared),
         cfg.aggr_alpha_func,
         render_mode(cfg), int(cfg.double_side), cfg.texture_type,
         texture_res(TS), packed.device.index or 0,
@@ -745,7 +942,8 @@ def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
 
 
 def rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed, perm, pix,
-                        cfg: C.RenderConfig, TS=1, row0=0, height=None):
+                        cfg: C.RenderConfig, TS=1, row0=0, height=None,
+                        n_sliced=None):
     """The backward kernel's function in plain PyTorch, on any device,
     over image rows [row0, row0 + height) (None: all).
 
@@ -754,7 +952,9 @@ def rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed, perm, pix,
     alpha rule (hard: the incoming gradient unmultiplied, cu:975-976), the
     winner-masked texture gradient for hard RGB or the softmax colour, z and
     texture chain for softmax RGB, the PDF chain and the closest-point
-    weights, summed over the pixels.
+    weights, summed over the pixels: all the band's pixels for the first
+    n_sliced chunks (None: all), those of the listed tiles alone for the
+    chunks after them (compaction's slabs, a tile each).
     """
     B, NI, Fp = packed.shape
     FC = cfg.face_chunk
@@ -769,19 +969,29 @@ def rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed, perm, pix,
     t0 = 9 if mode == MODE_SOFTMAX else 6  # first texture row
 
     height = is_ if height is None else height
+    n_sliced = K if n_sliced is None else n_sliced
     hit = _hit(chunk_counts, chunk_ids, _num_tiles(cfg, height))  # [B,K,T]
     idx = torch.arange(height * is_, device=dev)            # band-local
     ptile = (idx // is_ // TILE) * tx + idx % is_ // TILE   # [P]
-    xp, yp = TB.pixel_grid(is_, height, row0, dev)
-
-    def col(i):
-        return pix[:, i, :, None]                           # [B, P, 1]
+    xp_all, yp_all = TB.pixel_grid(is_, height, row0, dev)
+    tile_pix = _tile_pixels(is_, height, dev)
 
     out = torch.zeros((B, NO, Fp), dtype=torch.float32, device=dev)
     for k in range(K):
-        on = hit[:, k, ptile] > 0                           # [B, P]
-        if not bool(on.any()):
+        tiles = hit[:, k] > 0                               # [B, T]
+        if not bool(tiles.any()):
             continue
+        if k < n_sliced:
+            pixels = slice(None)
+            on = tiles[:, ptile]                            # [B, P]
+        else:
+            pixels = _listed_pixels(tiles.any(0), tile_pix)
+            on = tiles[:, ptile[pixels]]
+        xp, yp = xp_all[pixels], yp_all[pixels]
+        pix_k = pix[:, :, pixels]
+
+        def col(i):
+            return pix_k[:, i, :, None]                     # [B, P, 1]
         sl = slice(k * FC, (k + 1) * FC)
         pk = packed[:, :, sl]
 
@@ -885,15 +1095,24 @@ def pixel_columns(soft_colors, aggrs_info, grad_soft_colors,
     return torch.cat(cols, dim=1).to(torch.float32).contiguous()
 
 
-def unpermute_grads(rows, perm, textures, cfg: C.RenderConfig):
+def unpermute_grads(rows, perm, textures, cfg: C.RenderConfig,
+                    oct_ids=None):
     """The kernel's gradient rows [B, NO, Fp] in sorted face order ->
     (grad_face_vertices [B,F,9], grad_textures [B,F,TS,3] or [B,F,3,3]) in
     input order; the z columns are zero but for softmax RGB
-    (pallas_backend.py:1546-1580)."""
+    (pallas_backend.py:1546-1580).  With compaction's oct_ids (the
+    prepass's), the rows of the appended slots (geometry and texture
+    alike) are first folded onto their faces by ``pack.scatter_slots``
+    (pallas_backend.py:1549-1553, 1573-1575)."""
     B, F = textures.shape[:2]
+    out = rows.transpose(1, 2)                              # [B, Fp, NO]
+    if oct_ids is not None:
+        Fp = out.shape[1] - oct_ids.shape[1] * pack.OCT
+        out = out[:, :Fp] + pack.scatter_slots(out[:, Fp:], oct_ids,
+                                               Fp // pack.OCT)
+        perm = perm[:, :Fp]
     # the row of sorted slot i belongs to input face perm[i]; padded faces
     # map past F and are dropped
-    out = rows.transpose(1, 2)                              # [B, Fp, NO]
     res = torch.empty_like(out)
     res.scatter_(1, perm.long()[..., None].expand_as(out), out)
     res = res[:, :F]
@@ -924,7 +1143,8 @@ def backward_from_aux(face_vertices, textures, aux, soft_colors, aggrs_info,
     TS = textures.shape[2]
     check_envelope(cfg, TS)
     if aux is None:
-        aux = prepass(face_vertices, textures, cfg, params, fvalid, row_band)
+        aux = prepass(face_vertices, textures, cfg, params, fvalid, row_band,
+                      _whole(base_offset, fvalid))
     elif row_band is not None and _band(cfg, row_band) != (aux['row0'],
                                                             aux['height']):
         raise ValueError(f'row band {row_band} is not the prepass\'s '
@@ -933,5 +1153,7 @@ def backward_from_aux(face_vertices, textures, aux, soft_colors, aggrs_info,
                         base_offset)
     rows = rasterize_bwd(aux['chunk_counts'], aux['chunk_ids'], aux['par'],
                          aux['packed'], aux['perm'], pix, cfg, TS,
-                         aux['row0'], aux['height'])
-    return unpermute_grads(rows, aux['perm'], textures, cfg)
+                         aux['row0'], aux['height'],
+                         sorted_face_count(aux) // cfg.face_chunk)
+    return unpermute_grads(rows, aux['perm'], textures, cfg,
+                           aux.get('oct_ids'))

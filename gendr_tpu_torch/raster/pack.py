@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from gendr_tpu_torch import config as C
+from gendr_tpu_torch.ops.segments import segment_sum, segments
 
 NI_BASE = 48
 
@@ -230,6 +231,30 @@ def cull_margin(cfg, params):
     return torch.minimum(thr_margin, r)
 
 
+def _tile_rects(image_size, tile_w, tile_h, height=None, row0=0,
+                device=None):
+    """NDC rectangles of the pixel tiles of the band of image rows [row0,
+    row0 + height) ([T] each of xmin, xmax, ymin, ymax): tiles numbered
+    row-major over a ceil(width / tile_w) x ceil(height / tile_h) grid, a
+    ragged edge tile's rectangle the full tile's (it only over-covers).
+    For sizes the tile divides, ``gendr_tpu``'s ``_tile_rects``
+    (pack.py:419-435) exactly."""
+    is_ = image_size
+    height = is_ if height is None else height
+    tx_n = -(-is_ // tile_w)
+    ty_n = -(-height // tile_h)
+    t_idx = torch.arange(tx_n * ty_n, device=device)
+    ty, tx = t_idx // tx_n, t_idx % tx_n
+    c0 = tx * tile_w
+    r0 = row0 + ty * tile_h
+    tx_min = (2.0 * c0 + 1.0 - is_) / is_
+    tx_max = (2.0 * (c0 + tile_w - 1) + 1.0 - is_) / is_
+    # y decreases with row index (vertical flip, cu:716-719)
+    ty_max = (2.0 * (is_ - 1 - r0) + 1.0 - is_) / is_
+    ty_min = (2.0 * (is_ - 1 - (r0 + tile_h - 1)) + 1.0 - is_) / is_
+    return tx_min, tx_max, ty_min, ty_max
+
+
 def tile_chunk_mask(packed, image_size, tile_w, tile_h, face_chunk, margin,
                     height=None, row0=0):
     """[B, T, K] int32 mask: does face-chunk k (bbox union + margin) overlap
@@ -262,19 +287,8 @@ def tile_chunk_mask(packed, image_size, tile_w, tile_h, face_chunk, margin,
     cymin = torch.where(fval, ymin, big).amin(-1)
     cymax = torch.where(fval, ymax, -big).amax(-1)
 
-    height = is_ if height is None else height
-    tx_n = -(-is_ // tile_w)
-    ty_n = -(-height // tile_h)
-    t_idx = torch.arange(tx_n * ty_n, device=dev)
-    ty, tx = t_idx // tx_n, t_idx % tx_n
-    c0 = tx * tile_w
-    r0 = row0 + ty * tile_h
-    tx_min = (2.0 * c0 + 1.0 - is_) / is_
-    tx_max = (2.0 * (c0 + tile_w - 1) + 1.0 - is_) / is_
-    # y decreases with row index (vertical flip, cu:716-719)
-    ty_max = (2.0 * (is_ - 1 - r0) + 1.0 - is_) / is_
-    ty_min = (2.0 * (is_ - 1 - (r0 + tile_h - 1)) + 1.0 - is_) / is_
-
+    tx_min, tx_max, ty_min, ty_max = _tile_rects(is_, tile_w, tile_h,
+                                                 height, row0, dev)
     ov_x = (tx_min[None, :, None] <= cxmax[:, None, :] + margin) & \
            (tx_max[None, :, None] >= cxmin[:, None, :] - margin)
     ov_y = (ty_min[None, :, None] <= cymax[:, None, :] + margin) & \
@@ -297,3 +311,189 @@ def compact_hits(mask):
     chunk_ids = chunk_ids.transpose(1, 2).to(torch.int32)  # [B, K, T]
     chunk_counts = hit.sum(1).to(torch.int32)
     return tile_counts, tile_ids, chunk_counts, chunk_ids
+
+
+# ---------------------------------------------------------------------------
+# Per-tile face compaction (octet-granular), gendr_tpu/raster/pack.py:412-610
+# ---------------------------------------------------------------------------
+
+OCT = 8          # compaction granule: 8 Morton-consecutive faces
+OCT_CAP = 16     # octets per tile slab -> OCT_CAP*OCT = 128 slots = 1 chunk
+
+
+def compact_plan(fv, tex, fvalid, image_size, tile_w, tile_h, margin,
+                 n_chunks, face_chunk, height=None, row0=0, slabs=1):
+    """Per-tile face compaction plan (gendr_tpu's ``compact_plan``).
+
+    fv: [B, Fp, 9] Morton-sorted faces; tex: [B, Fp, TS, 3] or None (no
+    texture rows: channels 'alpha'); fvalid: [B, Fp] or [Fp] bool.  Groups
+    faces into octets (OCT Morton-consecutive faces) and, per pixel tile of
+    the band of rows [row0, row0 + height), compacts the hit octets (octet
+    bbox union + margin overlaps the tile) into up to ``slabs`` dedicated
+    128-slot chunks appended after the Fp faces (chunk ids n_chunks +
+    t * slabs + j).  A tile whose hit octets pass slabs * OCT_CAP keeps its
+    chunk-granular hit list (a per-tile fallback), so correctness never
+    depends on the cap.
+
+    Returns a dict:
+      slot_fv [B, S, 9], slot_tex [B, S, TS, 3] (None without tex),
+          slot_fvalid [B, S] (S = T * slabs * OCT_CAP * OCT): the appended
+          faces; dead slots (padding, overflow tiles) have fvalid 0.
+      oct_ids [B, T * slabs * OCT_CAP] int32: the source octet of each
+          slot group (the backward's slot -> face sum, scatter_slots).
+      tile_counts [B, T], tile_ids [B, T, max(K, slabs) + 1]: the forward's
+          lists: a compacted tile lists its appended chunks, an overflow
+          tile its original hit chunks.
+      chunk_counts [B, K'], chunk_ids [B, K', T]: the backward's lists over
+          the K' = n_chunks + T * slabs chunks.
+    """
+    # an appended slab IS one kernel chunk: its slot count must equal the
+    # face-chunk width or the K + t*slabs + j chunk-id addressing breaks
+    assert OCT_CAP * OCT == face_chunk, (OCT_CAP, OCT, face_chunk)
+    CAP = slabs * OCT_CAP
+    B, Fp = fv.shape[:2]
+    K = n_chunks
+    noct = Fp // OCT
+    dev = fv.device
+    xs = fv[..., 0::3]
+    ys = fv[..., 1::3]
+    if fvalid.ndim == 1:
+        fvalid = fvalid[None, :].expand(B, Fp)
+    big = 1e30
+    fxmin = torch.where(fvalid, xs.amin(-1), big).reshape(B, noct, OCT)
+    fxmax = torch.where(fvalid, xs.amax(-1), -big).reshape(B, noct, OCT)
+    fymin = torch.where(fvalid, ys.amin(-1), big).reshape(B, noct, OCT)
+    fymax = torch.where(fvalid, ys.amax(-1), -big).reshape(B, noct, OCT)
+    oxmin = fxmin.amin(-1)
+    oxmax = fxmax.amax(-1)
+    oymin = fymin.amin(-1)
+    oymax = fymax.amax(-1)
+
+    txmin, txmax, tymin, tymax = _tile_rects(image_size, tile_w, tile_h,
+                                             height, row0, dev)
+    T = txmin.shape[0]
+    ov = ((txmin[None, :, None] <= oxmax[:, None, :] + margin)
+          & (txmax[None, :, None] >= oxmin[:, None, :] - margin)
+          & (tymin[None, :, None] <= oymax[:, None, :] + margin)
+          & (tymax[None, :, None] >= oymin[:, None, :] - margin))
+    # [B, T, noct] octet-hit mask
+    ov_i = ov.to(torch.int32)
+    n_oct = ov_i.sum(-1, dtype=torch.int32)                   # [B, T]
+    overflow = n_oct > CAP
+    active = (n_oct > 0) & ~overflow
+    # slabs a tile needs: ceil(n_oct / OCT_CAP), 0 if inactive
+    nslab = torch.where(active,
+                        -(-torch.clamp(n_oct, max=CAP) // OCT_CAP), 0)
+
+    # the first CAP hit octets of each tile, in ascending Morton order
+    oct_sort = torch.argsort(1 - ov_i, dim=2, stable=True).to(torch.int32)
+    oct_ids = oct_sort[:, :, :CAP]                            # [B, T, CAP]
+    oct_slot_valid = (torch.arange(CAP, device=dev)[None, None, :]
+                      < n_oct[..., None]) & active[..., None]  # [B, T, CAP]
+
+    # gather the slot faces (and textures) octet-wise: contiguous 8-face
+    # slices
+    flat_ids = oct_ids.reshape(B, T * CAP)
+    idx = flat_ids.long()[..., None]
+
+    def octets(x):
+        xo = x.reshape(B, noct, -1)
+        return torch.gather(xo, 1, idx.expand(B, T * CAP, xo.shape[2]))
+    slot_fv = octets(fv).reshape(B, T * CAP * OCT, 9)
+    slot_tex = None
+    if tex is not None:
+        slot_tex = octets(tex).reshape((B, T * CAP * OCT) + tex.shape[2:])
+    slot_fvalid = octets(fvalid) \
+        & oct_slot_valid.reshape(B, T * CAP)[..., None]
+    slot_fvalid = slot_fvalid.reshape(B, T * CAP * OCT)
+
+    # forward hit lists: chunk-granular for overflow tiles, the tile's
+    # nslab appended chunks otherwise; capacity max(K, slabs) + 1 covers
+    # both list shapes
+    chunk_mask = _chunk_mask_from_octets(ov_i, face_chunk)    # [B, T, K]
+    orig_sorted = torch.argsort(1 - chunk_mask, dim=2,
+                                stable=True).to(torch.int32)
+    orig_counts = chunk_mask.sum(-1, dtype=torch.int32)
+    Kcap = max(K, slabs) + 1
+    ids_over = torch.cat(
+        [orig_sorted,
+         torch.zeros((B, T, Kcap - K), dtype=torch.int32, device=dev)], 2)
+    slot_chunk0 = K + torch.arange(T, dtype=torch.int32, device=dev) * slabs
+    ids_compact = (slot_chunk0[None, :, None]
+                   + torch.arange(Kcap, dtype=torch.int32,
+                                  device=dev)[None, None, :])
+    tile_ids = torch.where(overflow[..., None], ids_over,
+                           ids_compact.expand(B, T, Kcap))
+    tile_counts = torch.where(overflow, orig_counts, nslab)
+
+    # backward lists over K' = K + T * slabs chunks: the original chunks
+    # serve only overflow tiles; appended chunk K + t * slabs + j serves
+    # tile t when active and j < nslab(t)
+    mask_oo = chunk_mask * overflow[..., None].to(torch.int32)
+    mask_oo_t = mask_oo.transpose(1, 2)                       # [B, K, T]
+    orig_tiles = torch.argsort(1 - mask_oo_t, dim=2,
+                               stable=True).to(torch.int32)
+    orig_tcounts = mask_oo_t.sum(-1, dtype=torch.int32)
+    slot_tiles = torch.arange(T, dtype=torch.int32, device=dev)[
+        None, :, None, None].expand(B, T, slabs, T).reshape(B, T * slabs, T)
+    slot_counts = (torch.arange(slabs, dtype=torch.int32,
+                                device=dev)[None, None, :]
+                   < nslab[..., None]).to(torch.int32).reshape(B, T * slabs)
+    chunk_ids = torch.cat([orig_tiles, slot_tiles], 1)
+    chunk_counts = torch.cat([orig_tcounts, slot_counts], 1)
+
+    return dict(slot_fv=slot_fv, slot_tex=slot_tex,
+                slot_fvalid=slot_fvalid, oct_ids=flat_ids,
+                tile_counts=tile_counts.to(torch.int32),
+                tile_ids=tile_ids.contiguous(),
+                chunk_counts=chunk_counts,
+                chunk_ids=chunk_ids.contiguous())
+
+
+def _chunk_mask_from_octets(ov, face_chunk):
+    """[B, T, noct] octet-hit mask -> [B, T, K] int32 chunk-hit mask (a
+    chunk is hit iff any of its octets is)."""
+    B, T, noct = ov.shape
+    opc = face_chunk // OCT
+    return (ov.reshape(B, T, noct // opc, opc) > 0).any(-1).to(torch.int32)
+
+
+def scatter_slots(slot_vals, oct_ids, noct):
+    """The slot -> face sum of the backward: slot_vals [B, S, C], per-slot
+    values in slot order (S = G * OCT); oct_ids [B, G], the source octet
+    of each slot group.  Returns [B, noct * OCT, C]: each face's sum over
+    every tile that compacted it, in ascending slot order (the order of
+    the tiles), with no atomics and static shapes (``ops.segments``); the
+    rows of a group whose octet no slot names are 0.  Slots are octet-
+    contiguous, so the sum runs over G groups of OCT rows."""
+    B, S, Cc = slot_vals.shape
+    G = oct_ids.shape[1]
+    v = slot_vals.reshape(B, G, OCT * Cc)
+    out = segment_sum(v, segments(oct_ids, noct))
+    return out.reshape(B, noct * OCT, Cc)
+
+
+def _spread(v):
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def morton_order(fv, fvalid):
+    """Spatial (Morton / Z-curve) face order: [B, Fp] permutation of the
+    faces fv [B, Fp, 9] by the interleaved bits of their projected bbox
+    centres (gendr_tpu's ``morton_order``, the key of its
+    ``pallas_backend._sorted_faces``), so a chunk of consecutive faces is
+    spatially tight; faces whose fvalid ([Fp] bool) is False sort to the
+    end.  The sort is stable, so ties keep input order."""
+    xs = fv[..., 0::3]
+    ys = fv[..., 1::3]
+    cx = 0.5 * (xs.amin(-1) + xs.amax(-1))
+    cy = 0.5 * (ys.amin(-1) + ys.amax(-1))
+    qx = torch.clamp((cx + 1.0) * 512.0, 0, 1023).to(torch.int32)
+    qy = torch.clamp((cy + 1.0) * 512.0, 0, 1023).to(torch.int32)
+    key = _spread(qx) | (_spread(qy) << 1)
+    key = torch.where(fvalid[None, :], key, 0x7FFFFFFF)
+    return torch.argsort(key, dim=1, stable=True)

@@ -102,6 +102,7 @@ def render(
     backend: Optional[str] = None,
     face_chunk=128,
     channels='rgba',
+    compact='auto',
     par=None,
 ):
     """Generalized rasterization (forward).
@@ -115,6 +116,9 @@ def render(
     over more than 1024 texels per face), 'torch' (the plain streaming
     backend), or None ('cuda' for CUDA tensors, 'torch' for CPU tensors).
 
+    compact: per-tile face compaction of backend='cuda', 'auto' (where
+    gendr_tpu's gate turns it on) or 'off' (RenderConfig.compact).
+
     par: the [16] float32 parameter vector on the inputs' device to render
     with (``pairmath.params_vector`` of these keywords, whose continuous
     values it then stands for); None derives it here and copies it to the
@@ -127,7 +131,7 @@ def render(
         aggr_alpha_t_conorm_p=aggr_alpha_t_conorm_p,
         aggr_rgb_func=aggr_rgb_func, double_side=double_side,
         texture_type=texture_type, backend=backend, face_chunk=face_chunk,
-        channels=channels)
+        channels=channels, compact=compact)
 
     face_vertices = torch.as_tensor(face_vertices, dtype=torch.float32)
     if face_vertices.ndim == 4:
@@ -157,14 +161,14 @@ def render(
 def checked_config(*, image_size, dist_func, dist_scale, dist_squared,
                    dist_eps, aggr_alpha_func, aggr_alpha_t_conorm_p,
                    aggr_rgb_func, double_side, texture_type, backend,
-                   face_chunk, channels):
+                   face_chunk, channels, compact='auto'):
     """The RenderConfig of ``render``'s keywords, after its eager checks of
     the continuous ones given as numbers."""
     cfg = C.RenderConfig.create(
         image_size=image_size, dist_func=dist_func, dist_squared=dist_squared,
         aggr_alpha_func=aggr_alpha_func, aggr_rgb_func=aggr_rgb_func,
         double_side=double_side, texture_type=texture_type, backend=backend,
-        face_chunk=face_chunk, channels=channels)
+        face_chunk=face_chunk, channels=channels, compact=compact)
 
     # dist_scale >= 0 and dist_eps >= 1 (functional/renderer.py:96, 101);
     # plain numbers are checked eagerly, tensors pass through
@@ -183,7 +187,8 @@ def render_config(*, image_size, background_color, dist_func, dist_scale,
                   dist_squared, dist_shape, dist_shift, dist_eps,
                   aggr_alpha_func, aggr_alpha_t_conorm_p, aggr_rgb_func,
                   aggr_rgb_eps, aggr_rgb_gamma, near, far, double_side,
-                  texture_type, backend, face_chunk, channels):
+                  texture_type, backend, face_chunk, channels,
+                  compact='auto'):
     """(RenderConfig, params dict) of ``render``'s keywords, after its
     eager checks; what the backends' kernels and plain versions take."""
     cfg = checked_config(
@@ -193,7 +198,7 @@ def render_config(*, image_size, background_color, dist_func, dist_scale,
         aggr_alpha_t_conorm_p=aggr_alpha_t_conorm_p,
         aggr_rgb_func=aggr_rgb_func, double_side=double_side,
         texture_type=texture_type, backend=backend, face_chunk=face_chunk,
-        channels=channels)
+        channels=channels, compact=compact)
     params = C.RenderParams(
         dist_scale=dist_scale, dist_shape=dist_shape, dist_shift=dist_shift,
         dist_eps=dist_eps, aggr_alpha_t_conorm_p=aggr_alpha_t_conorm_p,

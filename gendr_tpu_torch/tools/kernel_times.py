@@ -3,6 +3,7 @@ launch them on, in one checkout of the repository, so that two commits are
 compared on one card in one call.
 
     python3 gendr_tpu_torch/tools/kernel_times.py [--root DIR] [--reps 50]
+        [--shapes NAME,NAME,...]
 
 ``--root`` names the checkout whose ``chip_smoke.py`` and
 ``gendr_tpu_torch`` are timed (default: the one holding this script), for
@@ -10,7 +11,7 @@ example a ``git archive`` of the parent commit unpacked into a git-ignored
 directory.  Each shape goes through that checkout's own
 ``chip_smoke.time_kernels`` (each kernel's median over ``--reps`` calls by
 CUDA events, beside one call of its plain version), which prints its line.
-The shapes: the flagship (hard RGB; softmax with one texel), its 128-row
+``--shapes`` times the named shapes alone (default: all).  The shapes: the flagship (hard RGB; softmax with one texel), its 128-row
 band, its first face half and the four ranks of the sharded path's fp=2 x
 sp=2 split; the default GenDR on 4 views at 512x512 (25 texels, vertex
 colours); the shape optimizer's soft renderer (24 views at 64x64, yager
@@ -48,6 +49,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--root', default=os.path.dirname(os.path.dirname(here)))
     p.add_argument('--reps', type=int, default=50)
+    p.add_argument('--shapes', default='',
+                   help='comma-separated shape names to time (default: '
+                        'all)')
     return p.parse_args(argv)
 
 
@@ -190,10 +194,16 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as obj_dir:
         obj_file = cs.make_obj(obj_dir)
         # the inputs are made with deterministic algorithms, so that every
-        # run gets the same bytes (vertex normals are an index_add_, whose
-        # CUDA sums otherwise run in atomic order) and outputs compare
+        # checkout gets the same bytes (before their fixed-order sums, the
+        # vertex normals were an index_add_ in atomic order) and outputs
+        # compare
         torch.use_deterministic_algorithms(True, warn_only=True)
-        inputs = list(shapes(cs, obj_file))
+        wanted = set(filter(None, args.shapes.split(',')))
+        inputs = [x for x in shapes(cs, obj_file)
+                  if not wanted or x[0] in wanted]
+        missing = wanted - {x[0] for x in inputs}
+        if missing:
+            raise SystemExit(f'kernel_times: no shape named {sorted(missing)}')
         torch.use_deterministic_algorithms(False)
         # about a second of matrix products first, so that the first shape
         # is not timed while the card's clocks ramp up

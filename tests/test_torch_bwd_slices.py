@@ -68,6 +68,21 @@ def test_slice_count_keeps_the_workspace_within_budget(B, NO, Fp, T_, want):
         or (S + 1) * slot > CB.BWD_WORKSPACE_BYTES
 
 
+@pytest.mark.parametrize('B,NO,Fp,T_,want', [
+    (1, 9, 1280, 256, 4),       # the flagship, hard RGB
+    (4, 84, 1280, 1024, 4),     # the default GenDR, 25 texels
+    (4, 3081, 1280, 1024, 4),   # 1024 texels: the budget allows 4 too
+    (2, 9, 128, 3, 3),          # fewer tiles than the cap
+    (64, 3081, 4096, 1024, 1),  # one slice passes the budget
+])
+def test_slice_count_of_compacted_chunks(B, NO, Fp, T_, want):
+    """The sorted chunks of a compacted prepass list only the overflow
+    tiles: at most COMPACT_SLICE_CAP slices, within the same budget."""
+    S = CB.bwd_slice_count(B, NO, Fp, T_, compacted=True)
+    assert S == want
+    assert S == min(CB.COMPACT_SLICE_CAP, CB.bwd_slice_count(B, NO, Fp, T_))
+
+
 @pytest.mark.parametrize('S', [1, 2, 128])
 def test_one_slice_writes_the_result_without_a_workspace(S):
     out = torch.zeros((2, 9, 128))

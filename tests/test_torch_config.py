@@ -44,7 +44,7 @@ def test_render_config_defaults_equal():
     shared = {f.name for f in dataclasses.fields(C.RenderConfig)} - {'backend'}
     # the TPU tiling knobs have no counterpart in the port
     assert {f.name for f in dataclasses.fields(JC.RenderConfig)} - shared \
-        == {'backend', 'pixel_tile', 'on_fallback', 'compact'}
+        == {'backend', 'pixel_tile', 'on_fallback'}
     for name in shared:
         assert getattr(port, name) == getattr(ref, name), name
     assert port.backend is None
@@ -60,6 +60,9 @@ def test_render_config_resolves_names_and_ids():
         C.RenderConfig.create(backend='pallas')
     with pytest.raises(ValueError):
         C.RenderConfig.create(channels='rgb')
+    assert C.RenderConfig.create(compact='off').compact == 'off'
+    with pytest.raises(ValueError):
+        C.RenderConfig.create(compact='on')
 
 
 def _imports(path):

@@ -111,11 +111,12 @@ MODES = {'alpha': dict(channels='alpha'), 'hard': {},
 @pytest.mark.cuda
 @pytest.mark.parametrize('mode', MODES)
 def test_kernel_where_the_cull_drops_most_of_each_list(cuda, mode):
-    """The flagship at tau 1e-3: each tile's listed chunks hold mostly
-    faces that meet no pixel of it, which the block's cull drops
-    (cuda_backend.tile_face_survivors keeps under a tenth of them)."""
+    """The flagship at tau 1e-3, uncompacted: each tile's listed chunks
+    hold mostly faces that meet no pixel of it, which the block's cull
+    drops (cuda_backend.tile_face_survivors keeps under a tenth of
+    them)."""
     from gendr_tpu_torch.raster import pairmath as PM
-    cfg = flagship_cfg(256, **MODES[mode])
+    cfg = flagship_cfg(256, compact='off', **MODES[mode])
     params = C.RenderParams(dist_scale=1e-3).as_dict()
     fv, tex = flagship_scene(cuda)
     aux = CB.prepass(fv, tex, cfg, params)
@@ -440,7 +441,7 @@ def test_split_bwd_kernel_on_lists_longer_than_their_slices(cuda, ts,
     texels per face S = 128 and the longest list is longer, so a block
     walks two tiles; at 1024 the workspace cuts S to 4.  Kernel vs plain
     and bitwise repeats (check_kernels)."""
-    cfg = flagship_cfg(512, aggr_rgb_func='softmax')
+    cfg = flagship_cfg(512, aggr_rgb_func='softmax', compact='off')
     params = C.RenderParams(dist_scale=1e-2).as_dict()
     fv, tex = flagship_scene(cuda, 4, TS=ts)
     aux = CB.prepass(fv, tex, cfg, params)
@@ -481,3 +482,72 @@ def test_split_bwd_kernel_on_a_band_of_a_face_shard(cuda):
     aux = CB.prepass(f, t, cfg, params, valid, (37, 100))
     assert int(aux['chunk_counts'].max()) > 1
     check_kernels('split band', cfg, params, f, t, aux)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['flagship', 'band', 'overflow'])
+def test_kernels_on_compacted_inputs(cuda, name):
+    """Per-tile face compaction: the gate fires (packed columns past the
+    sorted faces), both kernels hold against their plain versions, K2
+    sums the appended slabs unsliced, and the forward's output is bitwise
+    that of compact='off'."""
+    import dataclasses
+    from chip_smoke import overflow_scene
+    if name == 'overflow':
+        cfg = flagship_cfg(128, dist_func='logistic')
+        params = C.RenderParams(dist_scale=3e-3).as_dict()
+        fv, tex = overflow_scene(cuda)
+    else:
+        cfg = flagship_cfg()
+        params = C.RenderParams(dist_scale=1e-2).as_dict()
+        fv, tex = flagship_scene(cuda)
+    band = (128, 128) if name == 'band' else None
+    aux = CB.prepass(fv, tex, cfg, params, row_band=band)
+    assert 'oct_ids' in aux
+    assert aux['packed'].shape[2] > CB.sorted_face_count(aux)
+    if name == 'overflow':
+        assert int(aux['tile_counts'].max()) > 1
+    check_kernels(f'compact {name}', cfg, params, fv, tex, aux)
+    off = CB.prepass(fv, tex, dataclasses.replace(cfg, compact='off'),
+                     params, row_band=band)
+    outs = [CB.rasterize_fwd(a['tile_counts'], a['tile_ids'], a['par'],
+                             a['packed'], a['perm'], cfg, 1, a['row0'],
+                             a['height']) for a in (aux, off)]
+    assert torch.equal(*outs)
+
+
+@pytest.mark.cuda
+def test_training_is_reproducible_without_deterministic_algorithms(cuda):
+    """Two runs from one start, with no deterministic algorithms asked for:
+    5 eager opt_shape steps (24 views at 64x64) and 3 reconstruction steps
+    at batch 64 give bitwise equal losses and parameters (every sum of
+    the training paths runs in a fixed order, and the reconstruction asks
+    cuDNN for its deterministic algorithms)."""
+    import tempfile
+    from chip_smoke import (TRAIN_LR, TRAIN_SIGMA, _shape_experiment,
+                            reconstruction_args)
+    from gendr_tpu_torch.experiments import train_reconstruction as TR
+    assert not torch.are_deterministic_algorithms_enabled()
+
+    def shape_run():
+        exp, eyes, targets = _shape_experiment(None,
+                                               extra=['--chain', '1'])
+        rec = exp.run(TRAIN_LR, TRAIN_SIGMA, eyes, targets, 5)
+        return rec['losses'], torch.cat([p.detach().reshape(-1)
+                                         for p in exp.model.parameters()])
+
+    def recon_run():
+        with tempfile.TemporaryDirectory() as tmp:
+            res = TR.main(reconstruction_args(cuda, [
+                '--eval_freq', '3', '--print_freq', '3',
+                '--max-eval-batches', '1']) + [
+                '-ni', '3', '--chain', '1', '--checkpoint-dir', tmp])
+            state = torch.load(TR._checkpoints(tmp)[-1], weights_only=True)
+        return res['losses'], torch.cat([
+            v.reshape(-1).float() for part in ('encoder', 'decoder')
+            for v in state[part].values()])
+
+    for run in (shape_run, recon_run):
+        (l1, p1), (l2, p2) = run(), run()
+        assert list(l1) == list(l2), run.__name__
+        assert torch.equal(p1, p2), run.__name__
