@@ -150,7 +150,18 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    both kernels per call and back to back, the prepass's device kernels
    and host time, the eager flagship render and forward + backward, the
    default GenDR's forward + backward, visited pairs and the chained
-   opt_camera --quick step.
+   opt_camera --quick step;
+13. drives path (k), ``experiments.opt_camera`` at its command line's
+   defaults (200 poses at 64x64, logistic x probabilistic, --chain 20, the
+   cube stand-in, starting angles 15-35 degrees): (k1) both kernels
+   against their plain versions with phase 1's gates on the soft render of
+   the first step at B=200, at tau 1e-1 and 1e-7 (the anneal's ends;
+   compaction fires: one slab a tile, 3200 slab blocks in K2), each timed
+   beside its bound; (k2) 100 annealed steps with --chain 20 against
+   --chain 1 from the same poses, bitwise, the first replay's kernels
+   against their plain versions, one launch of each kernel a step; (k3)
+   each step eager and chained, timed as (j6).  ``--camera-only`` runs it
+   alone.
 
 Every failure raises, and the script then exits non-zero.  It exits
 non-zero with no result where there is no CUDA device.  The last line of
@@ -276,6 +287,15 @@ RECON_SIL_AGREE = 0.999
 CHAIN_SHAPE, CHAIN_CAMERA, CHAIN_RECON = 10, 20, 8
 CHAIN_RECON_STEPS, CHAIN_RECON_DECAY = 16, 6
 CHAIN_TIMED_BLOCKS = 3
+# the first range of the camera experiment's starting angles, which (j2)
+# and path (k) run; path (k): opt_camera at its command line's defaults
+# (200 poses at 64x64, logistic x probabilistic, lr 0.3, dist-eps 100,
+# --chain 20, the cube stand-in): (k1) the kernels at the anneal's first
+# and last tau; (k2) CAMERA_DEFAULT_STEPS steps (5 blocks of 20) chained
+# against eager
+CAMERA_RANGE = (15, 35)
+CAMERA_DEFAULT_TAUS = (1e-1, 1e-7)
+CAMERA_DEFAULT_STEPS = 100
 # (j2)'s Adam against optax's rule: test_torch_camera.py's tolerance
 ADAM_RTOL, ADAM_ATOL = 1e-5, 1e-6
 # the backend='torch' frame of phase 4b peaked at 52.6 GiB before its
@@ -507,9 +527,12 @@ def check_kernels(name, cfg, params, fv, tex, aux=None):
     grad_err = float((gk[0] - gp[0]).abs().max())
     grad_scale = float(gp[0].abs().max())
     bitwise = all(torch.equal(a, b) for a, b in zip(gk, gk2))
+    # where the CDF is nearly a step (tau 1e-7) a handful of entries are
+    # not zero, and agreement is won mostly by zeros: print how many
+    nonzero = '/'.join(str(int((g[0] != 0).sum())) for g in (gk, gp))
     line += (f' | grad_agree={grad_agree:.6f} '
              f'texgrad_agree={tex_agree:.6f} grad_err={grad_err:.3g} '
-             f'grad_scale={grad_scale:.3g} '
+             f'grad_scale={grad_scale:.3g} grad_nonzero={nonzero} '
              f'texgrad_scale={float(gp[1].abs().max()):.3g} '
              f'bitwise_repeat={bitwise}')
     print(line, flush=True)
@@ -1683,11 +1706,15 @@ def reconstruction_dp_phase(device='cuda'):
     parameters' differences over the seeds.  Returns each kernel's
     launches summed over the ranks of every seed's step."""
     launches, params, floors = {}, [], []
+    ratios = {'parameters': [], 'gradient': []}
     for seed in RECON_DP_SEEDS:
-        errs, floor, step_launches = _reconstruction_dp_step(
+        errs, floor, step_launches, by_tensor = _reconstruction_dp_step(
             device, seed, first=seed == RECON_DP_SEEDS[0])
         params.append(errs['parameters'])
         floors.append(floor)
+        for kind, rows in by_tensor.items():
+            ratios[kind] += [(_ratio(d, f), n, seed)
+                             for n, (d, f) in rows.items()]
         for k, n in step_launches.items():
             launches[k] = launches.get(k, 0) + n
     print(f'[reconstruction dp] seeds {list(RECON_DP_SEEDS)}: parameters '
@@ -1697,7 +1724,20 @@ def reconstruction_dp_phase(device='cuda'):
           f'with the batch reordered, the largest of {RECON_DP_REORDERS} '
           f'orders {[float(f"{e:.3g}") for e in floors]} (gate: '
           f'{RECON_DP_FLOOR_K:g} times, at every seed)', flush=True)
+    for kind, rs in ratios.items():
+        print(f'[reconstruction dp] the {kind} by tensor, the largest dp / '
+              f'floor ratios: ' + ', '.join(
+                  f'{n} {r:.2f} (seed {sd})'
+                  for r, n, sd in sorted(rs, reverse=True)[:5])
+              + f'; above {RECON_DP_FLOOR_K:g} times their floor: '
+              f'{sum(r > RECON_DP_FLOOR_K for r, _, _ in rs)} of {len(rs)}',
+              flush=True)
     return launches
+
+
+def _ratio(d, f):
+    """d / f, where a floor of 0 gives inf (or 0 where d is 0 too)."""
+    return d / f if f > 0 else (float('inf') if d > 0 else 0.0)
 
 
 def _reconstruction_dp_step(device, seed, first=True):
@@ -1716,9 +1756,11 @@ def _reconstruction_dp_step(device, seed, first=True):
     gradient is 0 under the BatchNorm that follows, is held to no more
     than lr on both sides.  The parameters are held to RECON_DP_REL where
     ``first`` and to RECON_DP_FLOOR_K times their floor at every seed;
-    the other differences to their bounds at every seed.  Returns (the
-    differences by name, the parameters' floor, each kernel's launches
-    summed over the ranks)."""
+    the other differences to their bounds at every seed.  Prints the
+    parameters' and the gradient's numbers tensor by tensor too.  Returns
+    (the differences by name, the parameters' floor, each kernel's
+    launches summed over the ranks, {'parameters' or 'gradient':
+    {parameter name: (its dp difference, its floor)}})."""
     import tempfile
     import torch
     from gendr_tpu_torch.experiments import train_reconstruction as TR
@@ -1774,12 +1816,36 @@ def _reconstruction_dp_step(device, seed, first=True):
     def adam_step(g):
         # Adam's first step from zero moments: -lr g / (|g| + eps)
         return theta - lr * g / (g.abs() + 1e-8)
+    sizes = [p.numel() for p in exp.parameters()]
     g0 = _grad(exp, batch, args.dist_scale, order)
     floor_grad = floor_params = 0.0
+    # the same two floors parameter tensor by parameter tensor
+    floor_by = {'parameters': [0.0] * len(names),
+                'gradient': [0.0] * len(names)}
+
+    def by_tensor_max(kind, a, b):
+        floor_by[kind] = [max(f, _rel(x, y)) for f, x, y in
+                          zip(floor_by[kind], a.split(sizes), b.split(sizes))]
     for o in orders:
         g1 = _grad(exp, batch, args.dist_scale, o)
         floor_grad = max(floor_grad, _rel(g1, g0))
-        floor_params = max(floor_params, _rel(adam_step(g1), adam_step(g0)))
+        a1, a0 = adam_step(g1), adam_step(g0)
+        floor_params = max(floor_params, _rel(a1, a0))
+        by_tensor_max('parameters', a1, a0)
+        by_tensor_max('gradient', g1, g0)
+    dp_by = {'parameters': [_rel(got[part][k], want[part][k]) for part, k in
+                            (n.split('.', 1) for n in names)],
+             'gradient': [_rel(x, y) for x, y in zip(
+                 moment(got).split(sizes), moment(want).split(sizes))]}
+    by_tensor = {kind: {n: (d, f) for n, d, f in
+                        zip(names, dp_by[kind], floor_by[kind])}
+                 for kind in dp_by}
+    for kind, rows in by_tensor.items():
+        print(f'[reconstruction dp] seed {seed}, the {kind} by tensor, '
+              f'norm-relative: dp against one process / the largest of '
+              f'{RECON_DP_REORDERS} one-process reorders = ratio: '
+              + '; '.join(f'{n} {d:.3g} / {f:.3g} = {_ratio(d, f):.2f}'
+                          for n, (d, f) in rows.items()), flush=True)
     worst = max((k for k in errs if k != 'parameters'), key=errs.get)
     launches = {k: sum(r[k] for r in two['launches'])
                 for k in two['launches'][0]}
@@ -1811,7 +1877,7 @@ def _reconstruction_dp_step(device, seed, first=True):
                                    for n in r.values()):
         raise AssertionError(f'a dp rank launched no kernel: '
                              f'{two["launches"]}')
-    return errs, floor_params, launches
+    return errs, floor_params, launches, by_tensor
 
 
 # ---------------------------------------------------------------------------
@@ -2135,32 +2201,10 @@ def chain_camera_path(smi):
     whose replay (j4) checks.  The captured Adam against optax's rule;
     (j6) on new experiments, after two eager runs, bitwise equal too."""
     import torch
-    from gendr_tpu_torch.experiments import opt_camera as OC
 
     def experiment(chain):
-        args = OC.parse_args(['--quick', '--device', 'cuda', '--chain',
-                              str(chain)])
-        exp = OC.CameraExperiment(args, args.device, args.backend)
-        return exp, OC.initial_poses(args.batch_size, 15, 35)
-    runs = {}
-    errs = (0.0, 0.0)
-    for chain in (1, CHAIN_CAMERA):
-        exp, init = experiment(chain)
-        if chain > 1:
-            calls, restore = record_captured_kernels()
-            try:
-                exp.run(init, num_iterations=1)
-            finally:
-                restore()
-            errs = replay_vs_plain('opt_camera (the first replay)', calls)
-            del calls
-        else:
-            exp.run(init, num_iterations=1)
-        steps = exp.chain('iou')
-        rec, launches, fetches = chained_run(steps,
-                                             lambda: exp.run(init))
-        runs[chain] = dict(rec=rec, launches=launches, fetches=fetches,
-                           steps=steps)
+        return camera_experiment(chain, ['--quick'])
+    runs, errs = camera_chained_vs_eager(experiment, 'opt_camera')
     e, c = runs[1], runs[CHAIN_CAMERA]
     n = e['rec']['iterations']
     rel = dict(loss=_rel_list(c['rec']['losses'], e['rec']['losses']),
@@ -2317,6 +2361,164 @@ def chain_phase(smi):
                       for k, r in t.items()} for name, t in timing.items()}
     print(f'[chain] (j6) {smi}: ' + json.dumps(summary), flush=True)
     return by_path, (img, grad), summary
+
+
+# ---------------------------------------------------------------------------
+# path (k): opt_camera at its defaults
+# ---------------------------------------------------------------------------
+
+def camera_experiment(chain, extra=(), device='cuda'):
+    """The camera experiment of opt_camera's command line with --chain
+    chain and the further arguments extra (none: its defaults, 200 poses
+    at 64x64), and the starting poses of CAMERA_RANGE."""
+    from gendr_tpu_torch.experiments import opt_camera as OC
+    args = OC.parse_args(['--device', device, '--chain', str(chain), *extra])
+    exp = OC.CameraExperiment(args, args.device, args.backend)
+    return exp, OC.initial_poses(args.batch_size, *CAMERA_RANGE)
+
+
+def camera_chained_vs_eager(experiment, label, n=None):
+    """Camera runs from the same poses with --chain CHAIN_CAMERA and with
+    --chain 1 (experiment(chain) gives (the experiment, its starting
+    poses)): the chained experiment's first run is 1 step, whose replay's
+    kernels (j4) checks against their plain versions; then each runs n
+    steps (None: its -ni) through chained_run, the kernels' counts set to
+    0 just before.  Returns ({chain: dict(rec, launches, fetches, steps,
+    exp)}, the replay's (image error, gradient error))."""
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    runs = {}
+    for chain in (1, CHAIN_CAMERA):
+        exp, init = experiment(chain)
+        if chain > 1:
+            calls, restore = record_captured_kernels()
+            try:
+                exp.run(init, num_iterations=1)
+            finally:
+                restore()
+            errs = replay_vs_plain(f'{label} (the first replay)', calls)
+            del calls
+        else:
+            exp.run(init, num_iterations=1)
+        steps = exp.chain('iou')
+        for k in CB.LAUNCHES:
+            CB.LAUNCHES[k] = 0
+        rec, launches, fetches = chained_run(
+            steps, lambda: exp.run(init, num_iterations=n))
+        runs[chain] = dict(rec=rec, launches=launches, fetches=fetches,
+                           steps=steps, exp=exp)
+    return runs, errs
+
+
+def camera_inputs(exp, poses, tau):
+    """(cfg, params, face vertices, textures) that the camera experiment's
+    soft render of ``poses`` gives the kernels at dist_scale tau."""
+    import torch
+    from gendr_tpu_torch.experiments import opt_camera as OC
+    from gendr_tpu_torch.raster.render import render_config
+    cfg, params = render_config(**{**exp.diff_renderer.render_kwargs(),
+                                   'dist_scale': tau})
+    with torch.no_grad():
+        mesh = exp.lighting(exp.base_mesh)
+        verts = OC.transform_cameras(
+            mesh.vertices, torch.as_tensor(poses, device=exp.device),
+            exp.poses_gt)
+        mesh = mesh.with_vertices(verts)
+    fv = mesh.face_vertices
+    return (cfg, params, fv.reshape(fv.shape[0], fv.shape[1], 9).contiguous(),
+            mesh.face_textures.contiguous())
+
+
+def camera_default_kernels(smi, exp, init, reps=50):
+    """(k1): both kernels against their plain versions (check_kernels'
+    gates) on the soft render of the experiment's first step, B=200, at
+    each tau of CAMERA_DEFAULT_TAUS (the anneal's first and last), with
+    the compacted lists' shape and K2's slices printed; then each timed
+    (time_kernels).  Returns (image error, gradient error, timings by
+    shape)."""
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    img = grad = 0.0
+    kt = {}
+    for tau in CAMERA_DEFAULT_TAUS:
+        cfg, params, fv, tex = camera_inputs(exp, init, tau)
+        aux = CB.prepass(fv, tex, cfg, params)
+        B, FC = fv.shape[0], cfg.face_chunk
+        Fs, Fp = CB.sorted_face_count(aux), aux['packed'].shape[2]
+        _, NO = CB._bwd_layout(cfg)
+        T = aux['chunk_ids'].shape[2]
+        S = CB.bwd_slice_count(B, NO, Fs, T, compacted=Fs < Fp)
+        ws_mib = (S > 1) * S * B * NO * Fs * 4 / 2**20
+        print(f'[camera defaults] (k1) tau {tau:g}: B={B}, {T} tiles, '
+              f'compaction {"on" if "oct_ids" in aux else "off"}: {Fs} '
+              f'sorted face columns and {Fp - Fs} slot columns, '
+              f'{(Fp - Fs) // FC * B} slab blocks in K2\'s launch of the '
+              f'appended chunks; K2 S={S} over the sorted chunks, workspace '
+              f'{ws_mib:.2f} MiB', flush=True)
+        if 'oct_ids' not in aux:
+            raise AssertionError('(k1) compaction did not fire at B=200')
+        i, g = check_kernels(f'camera {tau:g}', cfg, params, fv, tex, aux)
+        img, grad = max(img, i), max(grad, g)
+        shape = f'opt_camera B={B} tau {tau:g}'
+        kt[shape] = time_kernels(smi, shape, cfg, params, fv, tex, reps)
+    return img, grad, kt
+
+
+def camera_default_path(smi):
+    """Path (k): opt_camera at its defaults.  (k1) camera_default_kernels
+    on the first step's inputs; (k2) CAMERA_DEFAULT_STEPS annealed
+    steps from the same poses with --chain CHAIN_CAMERA and with --chain 1
+    (blocks of 20 against 100 eager steps), the losses and the poses
+    bitwise equal with no deterministic algorithms asked for, and the
+    first replay's kernels against their plain versions on the graph's
+    buffers (as (j4)); each run's launches counted from 0, one of each
+    kernel a step; (k3) each step timed (time_chain).  Returns (launches
+    by path, (image error, gradient error), timings by shape, the step
+    timings)."""
+    import torch
+    t0 = time.perf_counter()
+    n = CAMERA_DEFAULT_STEPS
+    img, grad, kt = camera_default_kernels(smi, *camera_experiment(
+        CHAIN_CAMERA))
+    runs, (i, g) = camera_chained_vs_eager(
+        camera_experiment, 'opt_camera defaults, B=200', n)
+    img, grad = max(img, i), max(grad, g)
+    c, e = runs[CHAIN_CAMERA], runs[1]
+    same = sum(a == b for a, b in zip(c['rec']['losses'],
+                                      e['rec']['losses']))
+    poses_equal = np.array_equal(c['rec']['poses'], e['rec']['poses'])
+    blocks = -(-n // CHAIN_CAMERA)
+    print(f'[camera defaults] (k2) opt_camera at its defaults (200 poses at '
+          f'64x64, range {CAMERA_RANGE}), {n} steps annealed '
+          f'1e-1 .. 1e-7, --chain {CHAIN_CAMERA} against --chain 1: bitwise '
+          f'equal losses {same} of {n}, final poses bitwise equal '
+          f'{poses_equal}; loss {e["rec"]["losses"][0]:.4f} -> '
+          f'{e["rec"]["losses"][-1]:.4f}; host fetches {c["fetches"]} for '
+          f'{blocks} blocks (eager {e["fetches"]}); launches chained '
+          f'{c["launches"]}, eager {e["launches"]}', flush=True)
+    if not (c['rec']['iterations'] == e['rec']['iterations'] == n
+            and same == n and poses_equal):
+        raise AssertionError(f'(k2) chained vs eager not bitwise: {same} of '
+                             f'{n} losses, poses equal {poses_equal}')
+    if c['fetches'] != blocks or e['fetches'] != n:
+        raise AssertionError(f'(k2) fetches {c["fetches"]}, {e["fetches"]}')
+    for r in (c, e):
+        if r['launches'] != {'rasterize_fwd': n, 'rasterize_bwd': n}:
+            raise AssertionError(f'(k2) launches {r["launches"]}')
+    timing = {str(chain): time_chain(
+        smi, f'opt_camera defaults (200 poses) --chain {chain}',
+        r['exp'].chain('iou'), chain) for chain, r in runs.items()}
+    del runs
+    torch.cuda.empty_cache()
+    print(f'[camera defaults] path (k) took {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    summary = {k: dict(step_ms=r['step_ms'], busy=r['busy'],
+                       kernels=r['kernels'], kernel_ms=r['kernel_ms'],
+                       kernel_share=r['kernel_share'],
+                       replay_ms=r['replay_ms'], launches=r['launches'])
+               for k, r in timing.items()}
+    print(f'[camera defaults] (k3) {smi}: ' + json.dumps(summary), flush=True)
+    return (dict(camera_default=c['launches'],
+                 camera_default_eager=e['launches']),
+            (img, grad), kt, summary)
 
 
 def face_halves(cfg, fv, tex):
@@ -3052,6 +3254,11 @@ def main():
         _build.build(*_build.SIGNATURES)
         compaction_phase(smi)
         return 0
+    if sys.argv[1:] == ['--camera-only']:
+        # a quick look at path (k) alone
+        _build.build(*_build.SIGNATURES)
+        camera_default_path(smi)
+        return 0
 
     t0 = time.perf_counter()
     names = tuple(_build.SIGNATURES)
@@ -3100,9 +3307,15 @@ def main():
             compaction_phase(smi)
         img_err = max(img_err, c_img)
         grad_err = max(grad_err, c_grad)
+        camera_paths, (k_img, k_grad), camera_kt, camera_times = \
+            camera_default_path(smi)
+        by_path.update(camera_paths)
+        img_err = max(img_err, k_img)
+        grad_err = max(grad_err, k_grad)
         probe_launches, probe_err = probe_phase()
         kt = timings(smi, cuda_steps, yager_steps, obj_file)
         kt.update(compact_kt)
+        kt.update(camera_kt)
     print(f'[timing] {smi}: host clock: save_obj(texture_res='
           f'{OBJ_TEXTURE_RES}) of 1280 faces x 256 texels {save_ms:.1f} ms; '
           f'load_obj(load_texture=True, texture_res={OBJ_TEXTURE_RES}, '
@@ -3151,7 +3364,8 @@ def main():
                      if name in r}} for name in sources],
         'sharded_step_ms': shard_times['step_ms'],
         'sharded_collective_ms': shard_times['collective_ms'],
-        'reconstruction_step_ms': recon_ms, 'chain': chain_times}))
+        'reconstruction_step_ms': recon_ms, 'chain': chain_times,
+        'camera_default': camera_times}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

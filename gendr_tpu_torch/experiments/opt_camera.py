@@ -241,7 +241,8 @@ class CameraExperiment:
 
     def execute_setting(self, a_min, a_max, loss_name, gif_path=None):
         """The share of poses whose elevation and azimuth end within
-        THRESHOLD degrees of the goal (opt_camera.py:163-248)."""
+        THRESHOLD degrees of the goal (opt_camera.py:163-248); the printed
+        line also gives the median of that angle over the poses."""
         writer = GifWriter(gif_path) if gif_path else None
         rec = self.run(initial_poses(self.batch_size, a_min, a_max),
                        loss_name, writer=writer, verbose=True)
@@ -249,8 +250,10 @@ class CameraExperiment:
             writer.close()
         p = rec['poses']
         success = (p[:, 1] ** 2 + p[:, 2] ** 2) < THRESHOLD ** 2
+        angle = np.sqrt(p[:, 1] ** 2 + p[:, 2] ** 2)
         setting = f'a{a_min}-{a_max}-l{loss_name}'
         print({f'{setting}_success_{int(THRESHOLD)}': float(success.mean()),
+               'median_angle_error': round(float(np.median(angle)), 4),
                'iters_per_sec': round(rec['iterations'] / rec['seconds'], 2),
                'device': str(self.device)})
         return float(success.mean())

@@ -21,12 +21,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (BAND_CASES, BANDS, BIG_TEXTURE_CASES, CASES,
-                        GRAD_AGREE, GRAD_ATOL, T_CONORM_CASES, TEXTURE_CASES,
-                        agreement, band_parts, check_kernels, face_halves,
-                        flagship_cfg, flagship_scene, gendr_inputs,
-                        grads_through, panda_inputs, t_conorm_inputs,
-                        training_inputs)
+from chip_smoke import (BAND_CASES, BANDS, BIG_TEXTURE_CASES,
+                        CAMERA_DEFAULT_TAUS, CASES, GRAD_AGREE, GRAD_ATOL,
+                        T_CONORM_CASES, TEXTURE_CASES, agreement, band_parts,
+                        camera_experiment, camera_inputs,
+                        check_kernels, face_halves, flagship_cfg,
+                        flagship_scene, gendr_inputs, grads_through,
+                        panda_inputs, t_conorm_inputs, training_inputs)
 from gendr_tpu_torch import config as C, render
 from gendr_tpu_torch.raster import cuda_backend as CB
 
@@ -397,6 +398,21 @@ def test_opt_camera_steps_launch_the_kernels(cuda):
         assert steps.replays == (10 if chain > 1 else 0)
         assert np.isfinite(rec['losses']).all()
         assert np.isfinite(rec['poses']).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tau', CAMERA_DEFAULT_TAUS)
+def test_kernels_match_plain_on_opt_camera_defaults(cuda, tau):
+    """chip_smoke.py path (k1): the soft render of opt_camera's first step
+    at its defaults, 200 poses at 64x64 on the cube, compacted (one slab a
+    tile: 3200 slab blocks in K2's launch of the appended chunks), at the
+    anneal's first and last tau: both kernels against their plain
+    versions (check_kernels)."""
+    exp, init = camera_experiment(20, device=cuda)
+    cfg, params, fv, tex = camera_inputs(exp, init, tau)
+    aux = CB.prepass(fv, tex, cfg, params)
+    assert fv.shape[0] == 200 and 'oct_ids' in aux
+    check_kernels(f'camera {tau:g}', cfg, params, fv, tex, aux)
 
 
 @pytest.mark.cuda
