@@ -146,18 +146,23 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    flagship, its band of rows 128-255, the default GenDR's inputs and a
    scene whose corner tile overflows its slabs, the gate fires and both
    kernels hold against their plain versions with phase 1's gates, the
-   forward bitwise compact='off'; then 'auto' against 'off' in turns:
-   both kernels per call and back to back, the prepass's device kernels
-   and host time, the eager flagship render and forward + backward, the
-   default GenDR's forward + backward, visited pairs and the chained
-   opt_camera --quick step;
+   forward bitwise compact='off'; rasterize_bwd_slab (K2's launch over
+   the appended chunks, a thread per pixel of a chunk's tile, for alpha
+   and hard RGB over vertex colours or one texel) alone against its plain
+   version wherever it runs, with its blocks and lanes with work; then
+   'auto' against 'off' in turns: both kernels per call and back to back,
+   the prepass's device kernels and host time, the eager flagship render
+   and forward + backward, the default GenDR's forward + backward, visited
+   pairs, path (k)'s render at both of its taus (both kernels, K2 back to
+   back) and the chained opt_camera --quick step;
 13. drives path (k), ``experiments.opt_camera`` at its command line's
    defaults (200 poses at 64x64, logistic x probabilistic, --chain 20, the
    cube stand-in, starting angles 15-35 degrees): (k1) both kernels
    against their plain versions with phase 1's gates on the soft render of
    the first step at B=200, at tau 1e-1 and 1e-7 (the anneal's ends;
-   compaction fires: one slab a tile, 3200 slab blocks in K2), each timed
-   beside its bound; (k2) 100 annealed steps with --chain 20 against
+   compaction fires: one slab a tile, 3200 blocks of rasterize_bwd_slab,
+   held alone against its plain version), each timed beside its bound;
+   (k2) 100 annealed steps with --chain 20 against
    --chain 1 from the same poses, bitwise, the first replay's kernels
    against their plain versions, one launch of each kernel a step; (k3)
    each step eager and chained, timed as (j6).  ``--camera-only`` runs it
@@ -166,7 +171,8 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
 Every failure raises, and the script then exits non-zero.  It exits
 non-zero with no result where there is no CUDA device.  The last line of
 its output is one JSON object naming the device; the one before it the
-card's name and power limit; the one before that the kernels.
+card's name and power limit; the one before that the kernels (five:
+rasterize_fwd, rasterize_bwd, rasterize_bwd_slab and the two probes).
 """
 
 from __future__ import annotations
@@ -320,6 +326,20 @@ FOLD_FLOPS = {4: 13, 5: 13, 6: 9, 7: 20, 8: 19, 9: 12}
 FOLD_BWD_FLOPS = {4: 18, 5: 13, 6: 6, 7: 18, 8: 17, 9: 16}
 
 
+def render_launches(fwd, bwd, slab=0):
+    """The render kernels' counts (cuda_backend.LAUNCHES) a run should
+    leave: the forward, the backward, and of the backward's calls those
+    that launched rasterize_bwd_slab over compaction's appended chunks
+    (alpha or hard RGB over vertex colours or one texel, compacted)."""
+    return {'rasterize_fwd': fwd, 'rasterize_bwd': bwd,
+            'rasterize_bwd_slab': slab}
+
+
+# the kernels every backward render launches (rasterize_bwd_slab runs only
+# where compaction fires)
+RENDER_KERNELS = ('rasterize_fwd', 'rasterize_bwd')
+
+
 def flops_per_pair(cfg, mode):
     """(forward, backward) float operations per gated pair of cfg."""
     tid = cfg.aggr_alpha_func
@@ -334,18 +354,33 @@ def smi_line():
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def _template_name(mangled):
+    """The name of a templated kernel in its mangled entry name: the
+    identifier whose length prefix is followed by its template arguments
+    (the anonymous namespace's hash may end in digits, so every suffix of
+    a run of digits is tried)."""
+    import re
+    for m in re.finditer(r'(?=(\d+))', mangled):
+        n, start = int(m.group(1)), m.start() + len(m.group(1))
+        name = mangled[start:start + n]
+        if mangled.startswith('ILi', start + n) and name.isidentifier():
+            return name
+    return ''
+
+
 def ptxas_summary(report):
     """Per kernel instantiation of a ptxas -v report, one line: the
-    kernel's template arguments (for the render kernels ALPHA, MODE of
-    csrc/pairmath.cuh) or, for a kernel that has none, its entry name, its
-    registers and its spills."""
+    kernel's name and template arguments (for the render kernels ALPHA,
+    MODE of csrc/pairmath.cuh) or, for a kernel that has none, its entry
+    name, its registers and its spills."""
     import re
     lines, entry = [], ''
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             args = re.findall(r'Li(\d+)E', m.group(1))
-            entry = '<' + ', '.join(args) + '>' if args else m.group(1)
+            entry = (_template_name(m.group(1)) + '<' + ', '.join(args) + '>'
+                     if args else m.group(1))
         elif 'spill' in line:
             lines.append(f'{entry} {line.split(":", 1)[-1].strip()}')
         elif 'registers' in line:
@@ -449,7 +484,6 @@ def grads_through(cfg, params, fv, tex, kernel, aux=None):
     sum(rgb) (tools/tpu_selfcheck.py:380-382) through the forward and the
     backward kernels (kernel=True) or through their plain versions; each
     side's backward reads its own forward's image."""
-    import torch
     from gendr_tpu_torch.raster import cuda_backend as CB
     aux = aux or CB.prepass(fv, tex, cfg, params)
     TS = tex.shape[2]
@@ -458,15 +492,25 @@ def grads_through(cfg, params, fv, tex, kernel, aux=None):
     bwd = CB.rasterize_bwd if kernel else CB.rasterize_bwd_plain
     out = fwd(aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
               aux['perm'], cfg, TS, *band)
+    rows = bwd(*backward_args(aux, cfg, params, TS, out))
+    return CB.unpermute_grads(rows, aux['perm'], tex, cfg,
+                              aux.get('oct_ids'))
+
+
+def backward_args(aux, cfg, params, TS, out):
+    """The backward kernel's arguments on the prepass aux, its band and
+    its sorted chunks, with the pixel columns of the gradient of 0.5
+    sum(alpha^2) + 0.1 sum(rgb) (tools/tpu_selfcheck.py:380-382) at the
+    forward kernel's output out."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
     soft, aggrs = CB._finalize_soa(out, cfg, params)
     # d loss / d soft_colors
     g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]], dim=1)
     pix = CB.pixel_columns(soft, aggrs, g, cfg)
-    rows = bwd(aux['chunk_counts'], aux['chunk_ids'], aux['par'],
-               aux['packed'], aux['perm'], pix, cfg, TS, *band,
-               CB.sorted_face_count(aux) // cfg.face_chunk)
-    return CB.unpermute_grads(rows, aux['perm'], tex, cfg,
-                              aux.get('oct_ids'))
+    return (aux['chunk_counts'], aux['chunk_ids'], aux['par'], aux['packed'],
+            aux['perm'], pix, cfg, TS, aux['row0'], aux['height'],
+            CB.sorted_face_count(aux) // cfg.face_chunk)
 
 
 def agreement(got, want):
@@ -548,7 +592,48 @@ def check_kernels(name, cfg, params, fv, tex, aux=None):
     # so that agreement is not won by the tolerance alone
     if cfg.dist_func != C.HEAVISIDE and not grad_scale > 100 * GRAD_ATOL:
         raise AssertionError(f'{name}: geometry gradient {grad_scale}')
+    if slab_route(aux, cfg, tex.shape[2]):
+        check_slab(name, cfg, params, aux, tex.shape[2], got_k)
     return img_err, grad_err
+
+
+# rasterize_bwd_slab against its plain version: one entry per input that
+# check_kernels held it on (the kernels line's max_abs_err)
+SLAB_CHECKS = []
+
+
+def check_slab(name, cfg, params, aux, TS, out):
+    """rasterize_bwd_slab alone against its plain version on one compacted
+    input: the appended chunks' columns of K2's rows, from the same pixel
+    columns (those of the forward kernel's output out), with phase 1's
+    gates on the xy and the texture rows.  Prints the launch's blocks and
+    its lanes with work (slab_lanes)."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    Fs = CB.sorted_face_count(aux)
+    bargs = backward_args(aux, cfg, params, TS, out)
+    n0 = CB.LAUNCHES['rasterize_bwd_slab']
+    got = CB.rasterize_bwd(*bargs)[..., Fs:]
+    if CB.LAUNCHES['rasterize_bwd_slab'] != n0 + 1:
+        raise AssertionError(f'{name}: rasterize_bwd_slab was not launched')
+    want = CB.rasterize_bwd_plain(*bargs)[..., Fs:]
+    torch.cuda.synchronize()
+    xy = agreement(got[:, :6], want[:, :6])
+    tx = agreement(got[:, 6:], want[:, 6:]) if got.shape[1] > 6 else 1.0
+    err = float((got - want).abs().max())
+    lanes = slab_lanes(aux, cfg)
+    nb = lanes['blocks']
+    SLAB_CHECKS.append(dict(name=name, err=err, xy=xy, tex=tx, **lanes))
+    print(f'[slab] {name}: {nb} blocks; lanes with work, a thread per slot '
+          f'{lanes["slot_lanes"] / (nb * cfg.face_chunk):.4f}, a thread per '
+          f'pixel (rasterize_bwd_slab) {lanes["before_cull"] / (nb * 256):.4f}'
+          f' before the cull, {lanes["after_cull"] / (nb * 256):.4f} after; '
+          f'{lanes["pairs"]:.6g} gated pairs; the slab columns against the '
+          f'plain version: grad_agree={xy:.6f} texgrad_agree={tx:.6f} '
+          f'err={err:.3g} scale={float(want.abs().max()):.3g} nonzero '
+          f'{int((got != 0).sum())}/{int((want != 0).sum())}', flush=True)
+    if not (xy > GRAD_AGREE and tx > GRAD_AGREE):
+        raise AssertionError(f'{name}: slab columns agree {xy}, {tx}')
 
 
 def t_conorm_inputs(kw, p, ts, device='cuda'):
@@ -790,8 +875,8 @@ def render_path():
         raise AssertionError(f'alpha coverage {coverage}')
     if not bool((centre > 0.25).all()):
         raise AssertionError(f'centre pixel not lit: {centre}')
-    for k, n in launches.items():
-        if n < 1:
+    for k in RENDER_KERNELS:
+        if launches[k] < 1:
             raise AssertionError(f'the render path never launched {k}')
     return launches
 
@@ -939,7 +1024,7 @@ def compaction_phase(smi):
     fwd_bwd('auto')
     torch.cuda.synchronize()
     launches = dict(CB.LAUNCHES)
-    if launches != {'rasterize_fwd': 1, 'rasterize_bwd': 1}:
+    if launches != render_launches(1, 1, 1):
         raise AssertionError(f'compacted render launches {launches}')
 
     kt, t = {}, {}
@@ -958,14 +1043,8 @@ def compaction_phase(smi):
             aux = CB.prepass(fv, tex, c, params)
             fargs = (aux['tile_counts'], aux['tile_ids'], aux['par'],
                      aux['packed'], aux['perm'], c, 1)
-            out = CB.rasterize_fwd(*fargs)
-            soft, aggrs = CB._finalize_soa(out, c, params)
-            g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]],
-                          1)
-            pix = CB.pixel_columns(soft, aggrs, g, c)
-            bargs = (aux['chunk_counts'], aux['chunk_ids'], aux['par'],
-                     aux['packed'], aux['perm'], pix, c, 1, 0, 256,
-                     CB.sorted_face_count(aux) // c.face_chunk)
+            bargs = backward_args(aux, c, params, 1,
+                                  CB.rasterize_fwd(*fargs))
             row = dict(
                 fwd_b2b=_back_to_back(lambda: CB.rasterize_fwd(*fargs)),
                 bwd_b2b=_back_to_back(lambda: CB.rasterize_bwd(*bargs)),
@@ -978,6 +1057,27 @@ def compaction_phase(smi):
                 visited=r['rasterize_fwd']['visited_pairs'])
             for k, v in row.items():
                 t.setdefault(k, {}).setdefault(mode, []).append(v)
+    # path (k)'s render (opt_camera at its defaults, B=200) both ways, K2
+    # back to back beside time_kernels' medians
+    exp, init = camera_experiment(CHAIN_CAMERA)
+    for tau in CAMERA_DEFAULT_TAUS:
+        ccfg, cparams, cfv, ctex = camera_inputs(exp, init, tau)
+        for mode in ('off', 'auto', 'auto', 'off'):
+            with compaction(mode):
+                c = dataclasses.replace(ccfg, compact=mode)
+                shape = f'opt_camera B=200 tau {tau:g} compact={mode}'
+                kt.setdefault(shape, time_kernels(smi, shape, c, cparams,
+                                                  cfv, ctex, 50,
+                                                  plain=(1, 0)))
+                aux = CB.prepass(cfv, ctex, c, cparams)
+                TS = ctex.shape[2]
+                bargs = backward_args(aux, c, cparams, TS, CB.rasterize_fwd(
+                    aux['tile_counts'], aux['tile_ids'], aux['par'],
+                    aux['packed'], aux['perm'], c, TS))
+                t.setdefault(f'camera_bwd_b2b tau {tau:g}', {}).setdefault(
+                    mode, []).append(_back_to_back(
+                        lambda: CB.rasterize_bwd(*bargs)))
+    del exp
     cam = {}
     for mode in ('off', 'auto'):
         with compaction(mode):
@@ -1000,7 +1100,10 @@ def compaction_phase(smi):
           f'of 50, CUDA events); default GenDR forward + backward '
           f'{t["gendr_fwd_bwd"]} ms (medians of 10); visited pairs at the '
           f'flagship {t["visited"]}; chained opt_camera --quick step {cam} '
-          f'ms; the main path\'s launches {launches}', flush=True)
+          f'ms; opt_camera at its defaults (B=200), K2 back to back '
+          + ', '.join(f'{k[15:]} {v} ms' for k, v in t.items()
+                      if k.startswith('camera_bwd_b2b'))
+          + f'; the main path\'s launches {launches}', flush=True)
     return launches, img, grad, kt
 
 
@@ -1039,8 +1142,8 @@ def training_path(extra=()):
         raise AssertionError(f'hard IoU loss did not fall: {h}')
     if not rec['grads_finite']:
         raise AssertionError('a non-finite gradient in training')
-    for k, n in launches.items():
-        if n < 1:
+    for k in RENDER_KERNELS:
+        if launches[k] < 1:
             raise AssertionError(f'the training path never launched {k}')
     return launches, rec['step_s']
 
@@ -1080,7 +1183,7 @@ def panda_path(args=PANDA_ARGS, what='1280 faces, TS=25'):
     if not ok:
         raise AssertionError(f'a frame is not finite or alpha leaves '
                              f'[0, 1]: {stats}')
-    if launches != {'rasterize_fwd': PANDA_FRAMES, 'rasterize_bwd': 0}:
+    if launches != render_launches(PANDA_FRAMES, 0):
         raise AssertionError(f'panda path launches {launches}')
     return launches, ms
 
@@ -1163,7 +1266,7 @@ def tcn_path():
     if not ok:
         raise AssertionError(f'a frame is not finite or alpha leaves '
                              f'[0, 1]: {sweeps}')
-    if launches != {'rasterize_fwd': sum(TCN_FRAMES), 'rasterize_bwd': 0}:
+    if launches != render_launches(sum(TCN_FRAMES), 0):
         raise AssertionError(f'tcn path launches {launches}')
     return launches
 
@@ -1317,8 +1420,7 @@ def gendr_default_path():
               flush=True)
         del ref, rfv, rv, rt
         torch.cuda.empty_cache()
-        if launches[texture_type] != {'rasterize_fwd': 1,
-                                      'rasterize_bwd': 1}:
+        if launches[texture_type] != render_launches(1, 1):
             raise AssertionError(f'gendr path launches {launches}')
         if not finite or not (0.0 <= float(alpha.min())
                               and float(alpha.max()) <= 1.0):
@@ -1398,7 +1500,7 @@ def obj_path(obj_file):
           f'10, CUDA events)', flush=True)
     del ref, rfv, rv, rt
     torch.cuda.empty_cache()
-    if launches != {'rasterize_fwd': 1, 'rasterize_bwd': 1}:
+    if launches != render_launches(1, 1):
         raise AssertionError(f'obj path launches {launches}')
     if not finite or not (0.0 <= float(alpha.min())
                           and float(alpha.max()) <= 1.0):
@@ -1496,7 +1598,7 @@ def camera_path():
     if not finite:
         raise AssertionError('camera path: non-finite pose or loss')
     n = rec['iterations']
-    if launches != {'rasterize_fwd': n, 'rasterize_bwd': n}:
+    if launches != render_launches(n, n, n):
         raise AssertionError(f'camera path launches {launches}')
     return launches, rec['seconds']
 
@@ -1559,9 +1661,8 @@ def reconstruction_path(device='cuda'):
     if not np.isfinite(res['mean_iou']):
         raise AssertionError(f'reconstruction IoU {res["mean_iou"]}')
     objects = RECON_OBJECTS * len(RECON_CLASSES)
-    if device != 'cpu' and launches != {
-            'rasterize_fwd': RECON_STEPS + objects,
-            'rasterize_bwd': RECON_STEPS}:
+    if device != 'cpu' and launches != render_launches(
+            RECON_STEPS + objects, RECON_STEPS):
         raise AssertionError(f'reconstruction path launches {launches}')
     return launches, res
 
@@ -1873,8 +1974,8 @@ def _reconstruction_dp_step(device, seed, first=True):
                              f'{seed}: {worst} {errs[worst]}, parameters '
                              f'{errs["parameters"]} (floor {floor_params}), '
                              f'gradient {grad_rel}, biases {bias_ok}')
-    if device != 'cpu' and not all(n >= 1 for r in two['launches']
-                                   for n in r.values()):
+    if device != 'cpu' and not all(r[k] >= 1 for r in two['launches']
+                                   for k in RENDER_KERNELS):
         raise AssertionError(f'a dp rank launched no kernel: '
                              f'{two["launches"]}')
     return errs, floor_params, launches, by_tensor
@@ -2129,7 +2230,7 @@ def chain_shape_path(smi):
         raise AssertionError(f'(j1) fetches {c["fetches"]}, '
                              f'{e["fetches"]}')
     for r in (e, c):
-        if min(r['launches'].values()) < TRAIN_STEPS:
+        if min(r['launches'][k] for k in RENDER_KERNELS) < TRAIN_STEPS:
             raise AssertionError(f'(j1) launches {r["launches"]}')
     timing = {chain: time_chain(
         smi, f'opt_shape --chain {chain} (train step + hard eval)',
@@ -2237,7 +2338,7 @@ def chain_camera_path(smi):
     if c['fetches'] != blocks or e['fetches'] != n:
         raise AssertionError(f'(j2) fetches {c["fetches"]}, {e["fetches"]}')
     for r in (e, c):
-        if r['launches'] != {'rasterize_fwd': n, 'rasterize_bwd': n}:
+        if r['launches'] != render_launches(n, n, n):
             raise AssertionError(f'(j2) launches {r["launches"]}')
     adam_vs_optax_rule()
     timing = {chain: time_chain(smi, f'opt_camera --quick --chain {chain}',
@@ -2501,7 +2602,7 @@ def camera_default_path(smi):
     if c['fetches'] != blocks or e['fetches'] != n:
         raise AssertionError(f'(k2) fetches {c["fetches"]}, {e["fetches"]}')
     for r in (c, e):
-        if r['launches'] != {'rasterize_fwd': n, 'rasterize_bwd': n}:
+        if r['launches'] != render_launches(n, n, n):
             raise AssertionError(f'(k2) launches {r["launches"]}')
     timing = {str(chain): time_chain(
         smi, f'opt_camera defaults (200 poses) --chain {chain}',
@@ -2850,7 +2951,8 @@ def sharded_phase(opt_shape_steps, scenes=None, device='cuda'):
             if not (r['finite'] and r['img_err'] < IMG_TOL
                     and r['grad_agree'] > GRAD_AGREE
                     and r['texgrad_agree'] > GRAD_AGREE
-                    and all(n >= 1 for n in r['launches'].values())):
+                    and all(r['launches'][k] >= 1
+                            for k in RENDER_KERNELS)):
                 failed.append(scene)
     train = [r['train'] for r in ranks]
     for r in train:
@@ -2881,13 +2983,40 @@ def sharded_phase(opt_shape_steps, scenes=None, device='cuda'):
     if not all(r['grad_agree'] > GRAD_AGREE
                and r['grad_rel'] < SHARD_GRAD_REL for r in train):
         failed.append('first gradient')
-    if not all(n >= 1 for r in train for n in r['launches'].values()):
+    if not all(r['launches'][k] >= 1 for r in train
+               for k in RENDER_KERNELS):
         failed.append('a training rank launched no kernel')
     if failed:
         raise AssertionError(f'sharded paths: {failed}')
     return launches, dict(step_ms=shard_med, collective_ms=coll_med,
                           render_ms={s[0]: ranks[0]['render'][s[0]]['ms']
                                      for s in scenes})
+
+
+def _profiled_ms(fn, kernels, reps):
+    """{kernel: ms a launch} of the device kernels whose names hold each of
+    ``kernels``, over reps calls of fn after a warm-up (torch.profiler's
+    device time: each kernel alone, where fn launches several); None where
+    the profiler shows one no time."""
+    import torch
+    from torch import profiler
+    fn()
+    torch.cuda.synchronize()
+    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
+                                      profiler.ProfilerActivity.CUDA]) as pr:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in pr.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    res = {}
+    for kernel in kernels:
+        ev = [e for e in dev if kernel in e.key]
+        us = sum(getattr(e, 'self_device_time_total', None)
+                 or getattr(e, 'self_cuda_time_total', 0) for e in ev)
+        n = sum(e.count for e in ev)
+        res[kernel] = us * 1e-3 / n if n and us else None
+    return res
 
 
 def _median_ms(fn, reps, warmup=3):
@@ -2955,6 +3084,62 @@ def visited_pairs(aux, cfg):
             float((survivors.double() * pixels).sum()))
 
 
+def slab_route(aux, cfg, TS):
+    """Whether K2 runs compaction's appended chunks through
+    rasterize_bwd_slab on this prepass (the C entry's rule: alpha, or hard
+    RGB whose texture sums live in registers: vertex colours or one
+    texel)."""
+    from gendr_tpu_torch import config as C
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    mode = CB.render_mode(cfg)
+    return ('oct_ids' in aux and mode != CB.MODE_SOFTMAX
+            and (mode == CB.MODE_ALPHA or TS == 1
+                 or cfg.texture_type == C.TEXTURE_VERTEX))
+
+
+def slab_lanes(aux, cfg):
+    """What the launch over compaction's appended chunks (slabs) gives its
+    lanes, from the prepass alone: 'blocks' (a block per slab and batch
+    element); 'slot_lanes', the lanes with work of a thread per slot (a
+    live slot of a slab that lists a tile), of blocks x FC; of a thread per
+    pixel of the slab's tile (rasterize_bwd_slab), of blocks x 256:
+    'before_cull', the pixels inside the image and the band of blocks with
+    a live slot, and 'after_cull', those inside the gate of at least one
+    slot (a survivor's); and 'pairs', the slabs' gated (pixel, slot)
+    pairs."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    from gendr_tpu_torch.raster import pack, pairmath as PM
+    FC, is_, height = cfg.face_chunk, cfg.image_size, aux['height']
+    Fs, Fp = CB.sorted_face_count(aux), aux['packed'].shape[2]
+    B, nslab = aux['packed'].shape[0], (Fp - Fs) // FC
+    pk = aux['packed'][:, :, Fs:].reshape(B, -1, nslab, FC)
+    listed = aux['chunk_counts'][:, Fs // FC:] > 0           # [B, nslab]
+    tile = aux['chunk_ids'][:, Fs // FC:, 0].long()
+    valid = (pk[:, pack.R_FVALID] > 0) & listed[..., None]   # [B, nslab, FC]
+    tx = -(-is_ // CB.TILE)
+    i = torch.arange(CB.TILE, device=tile.device)
+    cols = (tile % tx * CB.TILE)[..., None] + i              # [B, nslab, 16]
+    rows = (tile // tx * CB.TILE)[..., None] + i             # band-local
+    xp = (2.0 * cols.float() + 1.0 - is_) / is_
+    yp = (2.0 * (is_ - 1 - (aux['row0'] + rows)).float() + 1.0 - is_) / is_
+    m = aux['par'][PM.P_MARGIN]
+
+    def bb(r):
+        return pk[:, pack.R_BBOX + r, ..., None]             # [B, nslab, FC, 1]
+    gx = ((xp[:, :, None] >= bb(0) - m) & (xp[:, :, None] <= bb(1) + m)
+          & (cols < is_)[:, :, None])
+    gy = ((yp[:, :, None] >= bb(2) - m) & (yp[:, :, None] <= bb(3) + m)
+          & (rows < height)[:, :, None])
+    gate = gy[..., :, None] & gx[..., None, :] & valid[..., None, None]
+    inside = (rows < height)[..., :, None] & (cols < is_)[..., None, :]
+    return dict(blocks=B * nslab, slot_lanes=int(valid.sum()),
+                before_cull=int((inside & valid.any(2)[..., None, None])
+                                .sum()),
+                after_cull=int(gate.any(2).sum()),
+                pairs=float(gate.sum()))
+
+
 def bound(nbytes, flops):
     """(ms, 'bytes' or 'operations'): the least time the card could take,
     the larger of the bytes over HBM bandwidth and the operations over
@@ -3014,11 +3199,8 @@ def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
                     + _nbytes(out), pairs * fwd_flops),
         longest_list=longest, walked_pairs=walked, visited_pairs=visited)}
     if bwd:
-        soft, aggrs = CB._finalize_soa(out, cfg, params)
-        g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]], 1)
-        pix = CB.pixel_columns(soft, aggrs, g, cfg)
-        bargs = (aux['chunk_counts'], aux['chunk_ids'], aux['par'],
-                 aux['packed'], aux['perm'], pix, cfg, TS, *band, k_sliced)
+        bargs = backward_args(aux, cfg, params, TS, out)
+        pix = bargs[5]
         rows = CB.rasterize_bwd(*bargs)
         # the kernel's slices: a block walks at most `longest` tiles of the
         # longest list of a sliced chunk; the workspace holds S slots of
@@ -3040,8 +3222,40 @@ def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
             slices=nslices, longest_list=n_max, workspace_mib=ws_mib,
             longest_slice=max(e - s for s, e in CB.bwd_slices(n_max,
                                                               nslices)))
+        if slab_route(aux, cfg, TS):
+            # rasterize_bwd_slab alone: its device time within K2's calls
+            # (the profiler), its plain version on the appended chunks
+            # alone (the sorted chunks' counts zeroed), its bound from the
+            # slabs' own work: their lists, the pixel columns, the fvalid
+            # and bbox rows of every slot and every row of a live one (a
+            # dead slot's other rows are never needed), the result's
+            # columns, and the gated pairs
+            lanes = slab_lanes(aux, cfg)
+            counts = aux['chunk_counts'].clone()
+            counts[:, :k_sliced] = 0
+            sl = (slice(None), slice(k_sliced, None))
+            slab_rows = aux['packed'][:, :, Fs:]
+            # K2's launches one by one: the sorted chunks' slices, their
+            # reduce, the slabs
+            parts = _profiled_ms(lambda: CB.rasterize_bwd(*bargs),
+                                 ('rasterize_bwd_kernel',
+                                  'rasterize_bwd_reduce',
+                                  'rasterize_bwd_slab'), reps)
+            res['rasterize_bwd']['launch_ms'] = parts
+            res['rasterize_bwd_slab'] = dict(
+                ms=parts['rasterize_bwd_slab'],
+                plain_ms=_median_ms(lambda: CB.rasterize_bwd_plain(
+                    counts, *bargs[1:]), *plain),
+                bound=bound(_nbytes(aux['chunk_counts'][sl],
+                                    aux['chunk_ids'][sl], aux['par'], pix,
+                                    rows[..., Fs:])
+                            + 5 * 4 * slab_rows[:, 0].numel()
+                            + lanes['slot_lanes'] * (slab_rows.shape[1] + 1)
+                            * 4, lanes['pairs'] * bwd_flops),
+                blocks=lanes['blocks'])
     torch.cuda.empty_cache()
-    parts = [f'{k} {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, '
+    parts = [f'{k} {r["ms"] if r["ms"] is None else round(r["ms"], 4)} ms,'
+             f' plain {r["plain_ms"]:.4f} ms, '
              f'bound {r["bound"][0]:.4f} ms ({r["bound"][1]})'
              + (f', longest tile list {r["longest_list"]} chunks, '
                 f'{r["visited_pairs"]:.6g} visited pairs (every face of '
@@ -3050,6 +3264,8 @@ def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
              + (f', S={r["slices"]}, longest slice {r["longest_slice"]} '
                 f'of a {r["longest_list"]}-tile list, workspace '
                 f'{r["workspace_mib"]:.1f} MiB' if 'slices' in r else '')
+             + (', its launches (profiler, ms a launch) '
+                + json.dumps(r['launch_ms']) if 'launch_ms' in r else '')
              for k, r in res.items()]
     B = fv.shape[0]
     rows = '' if row_band is None else f' rows {band[0]}+{band[1]}'
@@ -3323,25 +3539,37 @@ def main():
           f'card ' + ', '.join(f'{vs}^3 {ms:.2f} ms'
                                for vs, ms in voxel_ms.items()), flush=True)
 
+    if not SLAB_CHECKS:
+        raise AssertionError('rasterize_bwd_slab was held against its plain '
+                             'version on no input')
     errs = dict(rasterize_fwd=img_err, rasterize_bwd=grad_err,
+                rasterize_bwd_slab=max(c['err'] for c in SLAB_CHECKS),
                 ulp_elementwise=probe_err, ulp_param_vector=probe_err)
     sources = dict(rasterize_fwd='rasterize_fwd', rasterize_bwd='rasterize_bwd',
+                   rasterize_bwd_slab='rasterize_bwd',
                    ulp_elementwise='ulp_probe', ulp_param_vector='ulp_probe')
     replaces = dict(rasterize_fwd='gendr_tpu/raster/pallas_backend.py:254',
                     rasterize_bwd='gendr_tpu/raster/pallas_backend.py:1171',
+                    rasterize_bwd_slab='gendr_tpu/raster/pallas_backend.py:'
+                    '1171',
                     ulp_elementwise='tools/ulp_check.py:47 and '
                     'tools/ulp_bisect.py:36',
                     ulp_param_vector='tools/ulp_smem.py:37')
     envelopes = dict(rasterize_fwd='K1a+K1b+K1c+K1d+K1e',
                      rasterize_bwd='K2a+K2b+K2c+K2d+K2e',
+                     rasterize_bwd_slab='K2 of compaction\'s appended chunks:'
+                     ' alpha, hard RGB over vertex colours or one texel',
                      ulp_elementwise='probe', ulp_param_vector='probe')
     # each kernel's numbers at the shape of the sharded slice's main path:
     # for both render kernels, the flagship's rank of path (h2) that the
     # kernel takes longest on (a 128-row band of a 640-face shard; the
     # step waits for the slowest rank), the yager fold for the probes; the
     # other shapes are in by_shape
+    # rasterize_bwd_slab, which no sharded render launches: path (k)'s
+    # render at tau 1e-1, where the slab launch takes K2 longest
     ranks = [k for k in kt if k.startswith('flagship shard ')]
     main_shape = dict(ulp_elementwise='probes', ulp_param_vector='probes',
+                      rasterize_bwd_slab='opt_camera B=200 tau 0.1',
                       **{name: max(ranks, key=lambda k: kt[k][name]['ms'])
                          for name in ('rasterize_fwd', 'rasterize_bwd')})
     by_path['probes'] = probe_launches

@@ -38,6 +38,11 @@ rows in a fixed order in a second pass (:func:`bwd_slice_count`,
 :func:`bwd_slices`); it keeps a surface texture's 3 TS gradient sums per
 face in shared memory while a chunk's fit there (``_bwd_smem``) and in its
 own columns of its slice's workspace rows in global memory above that.
+Compaction's appended chunks, one tile each, go to a third kernel for
+alpha and hard RGB over vertex colours or one texel,
+``rasterize_bwd_slab``: a thread per pixel of the tile, the chunk's faces
+culled against it by :func:`tile_face_survivors`' rule, each face's sums
+reduced over the pixels in a fixed order.
 
 :func:`rasterize_fwd_plain` and :func:`rasterize_bwd_plain` are the
 kernels' functions in plain PyTorch: same inputs, same outputs.  The
@@ -55,6 +60,7 @@ per face; a texel count that is not a square) raise ``ValueError``;
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict
 
 import torch
@@ -80,7 +86,8 @@ SMEM_LIMIT = 232448
 MODE_ALPHA, MODE_HARD, MODE_SOFTMAX = 0, 1, 2
 
 # launches of each kernel, counted where the wrapper launches it
-LAUNCHES = {'rasterize_fwd': 0, 'rasterize_bwd': 0}
+# (rasterize_bwd_slab: where rasterize_bwd's C entry reports it launched)
+LAUNCHES = {'rasterize_fwd': 0, 'rasterize_bwd': 0, 'rasterize_bwd_slab': 0}
 # the backward kernel's block is one thread per face of a chunk
 MAX_BWD_CHUNK = 256
 # the backward cuts each chunk's hit-tile list into at most BWD_SLICE_CAP
@@ -868,6 +875,10 @@ def _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
                          f'and {tuple(chunk_ids.shape)}')
     if not 1 <= n_sliced <= K:
         raise ValueError(f'n_sliced={n_sliced} is not in 1..{K}')
+    if n_sliced < K and cfg.aggr_alpha_func not in COMPACT_ALPHA:
+        raise ValueError(f'appended chunks (n_sliced={n_sliced} < {K}) need '
+                         f'an alpha mode that compaction admits, not '
+                         f'{cfg.aggr_alpha_func}')
     if tuple(perm.shape) != (B, Fp) or tuple(par.shape) != (PM.NPAR,):
         raise ValueError(f'perm must be [{B}, {Fp}] and par [{PM.NPAR}]')
     _check_rows(NI, cfg, TS)
@@ -898,8 +909,12 @@ def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
     follow them), then the slices summed in
     a fixed order; where S = 1, that pass straight into the result; and
     one block per (appended chunk, batch element) straight into the
-    result.  ``LAUNCHES['rasterize_bwd']`` counts one per call, for all
-    its passes.  CPU tensors run :func:`rasterize_bwd_plain`.
+    result: ``rasterize_bwd_slab``, a thread per pixel of the chunk's
+    tile, for alpha and hard RGB over vertex colours or one texel, else
+    the first kernel, a thread per face.  ``LAUNCHES['rasterize_bwd']``
+    counts one per call, for all its passes, and
+    ``LAUNCHES['rasterize_bwd_slab']`` one per call that launched
+    ``rasterize_bwd_slab``.  CPU tensors run :func:`rasterize_bwd_plain`.
     """
     height = cfg.image_size if height is None else height
     check_envelope(cfg, TS)
@@ -924,6 +939,7 @@ def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
     out = torch.empty((B, NO, Fp), dtype=torch.float32, device=packed.device)
     ws = _bwd_workspace(out, S, Fs)
     stream = torch.cuda.current_stream(packed.device)
+    slab = ctypes.c_int(0)
     err = lib.gendr_rasterize_bwd(
         chunk_counts.data_ptr(), chunk_ids.data_ptr(), T,
         par.data_ptr(), packed.data_ptr(), perm.data_ptr(), pix.data_ptr(),
@@ -933,11 +949,12 @@ def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
         cfg.aggr_alpha_func,
         render_mode(cfg), int(cfg.double_side), cfg.texture_type,
         texture_res(TS), packed.device.index or 0,
-        stream.cuda_stream)
+        stream.cuda_stream, ctypes.addressof(slab))
     if err != 0:
         raise RuntimeError('rasterize_bwd launch failed: '
                            + lib.gendr_error_string(err).decode())
     LAUNCHES['rasterize_bwd'] += 1
+    LAUNCHES['rasterize_bwd_slab'] += slab.value
     return out
 
 
@@ -954,7 +971,8 @@ def rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed, perm, pix,
     texture chain for softmax RGB, the PDF chain and the closest-point
     weights, summed over the pixels: all the band's pixels for the first
     n_sliced chunks (None: all), those of the listed tiles alone for the
-    chunks after them (compaction's slabs, a tile each).
+    chunks after them (compaction's slabs, a tile each).  Its columns of
+    those chunks are the function of ``rasterize_bwd_slab`` too.
     """
     B, NI, Fp = packed.shape
     FC = cfg.face_chunk

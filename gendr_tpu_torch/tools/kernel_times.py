@@ -16,7 +16,9 @@ band, its first face half and the four ranks of the sharded path's fp=2 x
 sp=2 split; the default GenDR on 4 views at 512x512 (25 texels, vertex
 colours); the shape optimizer's soft renderer (24 views at 64x64, yager
 p=2 and probabilistic); the reconstruction experiment's render (256
-silhouettes at 64x64, alpha only: reconstruction_shape); a mesh loaded
+silhouettes at 64x64, alpha only: reconstruction_shape); the camera
+experiment at its defaults (path (k): 200 poses of the cube at 64x64,
+logistic, alpha only, compacted) at tau 1e-1 and 1e-7; a mesh loaded
 from an OBJ file under the default GenDR at 25, 144, 256 and 1024 texels
 per face, softmax and hard RGB; and,
 forward only, 1536x1536 sweep frames: panda_dist at uniform tau 1e-2 and
@@ -26,12 +28,13 @@ texels per face, softmax and hard RGB.  For each
 shape it also prints a SHA-1 of the forward kernel's output bytes, so two
 checkouts' outputs compare bitwise (the inputs are made with
 ``torch.use_deterministic_algorithms``, so every run gets the same ones),
-and the forward's time a launch over many launches back to back, which
+and each kernel's time a launch over many launches back to back, which
 leaves out the host's latency per call that the per-call medians hold.
 Then prints the card's name and power limit and one JSON object {"ms":
-{shape: {kernel: ms, "rasterize_fwd_back_to_back": ms}}, "sha1": {shape:
-hex}}, after the ptxas report of both kernels' instantiations (registers
-and spills).  Needs the card; exits 1 without one.
+{shape: {kernel: ms, "rasterize_fwd_back_to_back": ms,
+"rasterize_bwd_back_to_back": ms}}, "sha1": {shape: hex}}, after the
+ptxas report of both kernels' instantiations (registers and spills).
+Needs the card; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -82,6 +85,11 @@ def shapes(cs, obj_file):
             extra=extra)))
         yield name, cfg, params, ofv, otex, None, None, True
     yield ('recon', *reconstruction_shape(), None, None, True)
+    exp, init = cs.camera_experiment(20)
+    for tau in cs.CAMERA_DEFAULT_TAUS:
+        yield (f'opt_camera B=200 tau {tau:g}',
+               *cs.camera_inputs(exp, init, tau), None, None, True)
+    del exp
     for res in (5, 12, 16, 32):
         for rgb in ('softmax', 'hard'):
             yield (f'obj gendr {rgb} TS={res * res}',
@@ -145,21 +153,14 @@ def reconstruction_shape(seed=0):
             mesh.face_textures.contiguous())
 
 
-def forward_back_to_back(cfg, params, fv, tex, fvalid, row_band, ms):
-    """(SHA-1 of the forward kernel's output bytes, its time in ms) on one
-    shape.  The time is the median of 5 runs of n launches back to back,
+def back_to_back(fn, ms):
+    """ms a call of fn: the median of 5 runs of n calls back to back,
     each run between two CUDA events over n, n about 100 ms over the
     per-call median ms: the card's queue stays full, so the host's latency
     per call, which time_kernels' per-call medians include, does not
     count."""
     import numpy as np
     import torch
-    from gendr_tpu_torch.raster import cuda_backend as CB
-    aux = CB.prepass(fv, tex, cfg, params, fvalid, row_band)
-    args = (aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
-            aux['perm'], cfg, tex.shape[2], aux['row0'], aux['height'])
-    out = CB.rasterize_fwd(*args)
-    sha = hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()
     n = min(500, max(5, round(100.0 / ms)))
     runs = []
     for _ in range(5):
@@ -168,11 +169,39 @@ def forward_back_to_back(cfg, params, fv, tex, fvalid, row_band, ms):
         torch.cuda.synchronize()
         start.record()
         for _ in range(n):
-            CB.rasterize_fwd(*args)
+            fn()
         end.record()
         end.synchronize()
         runs.append(start.elapsed_time(end) / n)
-    return sha, float(np.median(runs))
+    return float(np.median(runs))
+
+
+def kernels_back_to_back(cfg, params, fv, tex, fvalid, row_band, ms, bwd):
+    """(SHA-1 of the forward kernel's output bytes, {kernel: ms a launch
+    back to back}) on one shape, ms the per-call medians; the backward
+    (where bwd) on the pixel columns of 0.5 sum(alpha^2) + 0.1 sum(rgb)
+    from the forward's image."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    aux = CB.prepass(fv, tex, cfg, params, fvalid, row_band)
+    TS = tex.shape[2]
+    band = (aux['row0'], aux['height'])
+    args = (aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
+            aux['perm'], cfg, TS, *band)
+    out = CB.rasterize_fwd(*args)
+    sha = hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()
+    b2b = {'rasterize_fwd_back_to_back': back_to_back(
+        lambda: CB.rasterize_fwd(*args), ms['rasterize_fwd'])}
+    if bwd:
+        soft, aggrs = CB._finalize_soa(out, cfg, params)
+        g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]], 1)
+        pix = CB.pixel_columns(soft, aggrs, g, cfg)
+        bargs = (aux['chunk_counts'], aux['chunk_ids'], aux['par'],
+                 aux['packed'], aux['perm'], pix, cfg, TS, *band,
+                 CB.sorted_face_count(aux) // cfg.face_chunk)
+        b2b['rasterize_bwd_back_to_back'] = back_to_back(
+            lambda: CB.rasterize_bwd(*bargs), ms['rasterize_bwd'])
+    return sha, b2b
 
 
 def main(argv=None):
@@ -217,12 +246,13 @@ def main(argv=None):
                                   bwd=bwd, plain=(1, 0), fvalid=fvalid,
                                   row_band=band)
             times[name] = {k: r['ms'] for k, r in res.items()}
-            hashes[name], b2b = forward_back_to_back(
-                cfg, params, fv, tex, fvalid, band,
-                res['rasterize_fwd']['ms'])
-            times[name]['rasterize_fwd_back_to_back'] = b2b
-            print(f'[sha1] {name}: rasterize_fwd output {hashes[name]}, '
-                  f'{b2b:.4f} ms a launch back to back', flush=True)
+            hashes[name], b2b = kernels_back_to_back(
+                cfg, params, fv, tex, fvalid, band, times[name], bwd)
+            times[name].update(b2b)
+            print(f'[sha1] {name}: rasterize_fwd output {hashes[name]}; a '
+                  f'launch back to back: ' + ', '.join(
+                      f'{k[:-13]} {v:.4f} ms' for k, v in b2b.items()),
+                  flush=True)
             torch.cuda.empty_cache()
     print(smi)
     print(json.dumps({'root': os.path.abspath(args.root), 'ms': times,

@@ -23,11 +23,13 @@ import torch
 
 from chip_smoke import (BAND_CASES, BANDS, BIG_TEXTURE_CASES,
                         CAMERA_DEFAULT_TAUS, CASES, GRAD_AGREE, GRAD_ATOL,
-                        T_CONORM_CASES, TEXTURE_CASES, agreement, band_parts,
-                        camera_experiment, camera_inputs,
-                        check_kernels, face_halves, flagship_cfg,
-                        flagship_scene, gendr_inputs, grads_through,
-                        panda_inputs, t_conorm_inputs, training_inputs)
+                        T_CONORM_CASES, TEXTURE_CASES, agreement,
+                        backward_args, band_parts, camera_experiment,
+                        camera_inputs,
+                        check_kernels, check_slab, face_halves,
+                        flagship_cfg, flagship_scene, gendr_inputs,
+                        grads_through, panda_inputs, render_launches,
+                        t_conorm_inputs, training_inputs)
 from gendr_tpu_torch import config as C, render
 from gendr_tpu_torch.raster import cuda_backend as CB
 
@@ -292,7 +294,9 @@ def test_default_renderer_launches_each_kernel_once(cuda, texture_type):
         grads[backend] = (img.detach(),
                           *torch.autograd.grad(loss, (verts, t)))
         ran = int(backend is None)
-        assert CB.LAUNCHES == {k: n + ran for k, n in launches.items()}
+        # softmax RGB: the appended chunks keep the chunk kernel
+        assert {k: CB.LAUNCHES[k] - n for k, n in launches.items()} \
+            == render_launches(ran, ran)
     assert float((grads[None][0] - grads['torch'][0]).abs().max()) \
         <= IMG_ATOL
     assert agreement(grads[None][2], grads['torch'][2]) > GRAD_AGREE
@@ -358,7 +362,8 @@ def test_render_of_a_loaded_obj_launches_each_kernel_once(cuda, tmp_path):
     img = G.GenDR(image_size=64, anti_aliasing=True)(
         look(G.Lighting().to(cuda)(mesh.with_textures(textures))))
     (0.5 * (img[:, 3] ** 2).sum() + 0.1 * img[:, :3].sum()).backward()
-    assert CB.LAUNCHES == {k: n + 1 for k, n in launches.items()}
+    assert {k: CB.LAUNCHES[k] - n for k, n in launches.items()} \
+        == render_launches(1, 1)
     assert bool(torch.isfinite(textures.grad).all())
     assert float(textures.grad.abs().max()) > 0
 
@@ -567,3 +572,35 @@ def test_training_is_reproducible_without_deterministic_algorithms(cuda):
         (l1, p1), (l2, p2) = run(), run()
         assert list(l1) == list(l2), run.__name__
         assert torch.equal(p1, p2), run.__name__
+
+
+# rasterize_bwd_slab's inputs: path (k)'s render at both ends of its anneal
+# and the compacted flagship, hard RGB over one texel and vertex colours
+SLAB_CASES = ['camera 0.1', 'camera 1e-07', 'flagship', 'flagship vertex']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', SLAB_CASES)
+def test_slab_kernel_matches_plain(cuda, name):
+    """rasterize_bwd_slab (compaction's appended chunks, a thread per pixel
+    of the chunk's tile) against rasterize_bwd_plain on the same pixel
+    columns, with phase 1's gates (chip_smoke.check_slab), and two runs of
+    K2 bitwise equal."""
+    if name.startswith('camera'):
+        exp, init = camera_experiment(20, device=cuda)
+        cfg, params, fv, tex = camera_inputs(exp, init, float(name[7:]))
+        assert fv.shape[0] == 200
+    else:
+        vertex = name.endswith('vertex')
+        cfg = flagship_cfg(texture_type='vertex' if vertex else 'surface')
+        params = C.RenderParams(dist_scale=1e-2).as_dict()
+        fv, tex = flagship_scene(cuda, texture_type='vertex' if vertex
+                                 else 'surface')
+    aux = CB.prepass(fv, tex, cfg, params)
+    assert 'oct_ids' in aux
+    TS = tex.shape[2]
+    out = CB.rasterize_fwd(aux['tile_counts'], aux['tile_ids'], aux['par'],
+                           aux['packed'], aux['perm'], cfg, TS)
+    check_slab(name, cfg, params, aux, TS, out)
+    bargs = backward_args(aux, cfg, params, TS, out)
+    assert torch.equal(CB.rasterize_bwd(*bargs), CB.rasterize_bwd(*bargs))
