@@ -76,9 +76,11 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    64x64): the loss falls, the poses stay finite, one launch of each
    kernel per step;
 7. runs both probe kernels of ``csrc/ulp_probe.cu`` over every case of the
-   three ULP tools against torch on the card and on the CPU, prints the
-   table, and fails where a kernel and torch on the card differ by more
-   than ULP_BUDGET;
+   three ULP tools, the whole phase in one launch of each, against torch
+   on the card and on the CPU, prints the table, and fails where a kernel
+   and torch on the card differ by more than ULP_BUDGET, where the two
+   kernels differ, or where a case's output in the batch differs from its
+   own one-case launch;
 8. drives the sharded paths, path (h): (h1) the forward and backward
    kernels on row bands (K1e/K2e: two halves of the image and a ragged
    band of rows 37-136) and on the two face halves a 2-way face split
@@ -116,7 +118,8 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    frame and at the default GenDR's shapes (surface and vertex textures),
    a yager panda_tcn frame at tau 1e-2 and tau 1 and path (d)'s render
    beside the probabilistic fold at the same shapes, path (i)'s two
-   renders, the probe kernels,
+   renders, the probe kernels (a whole probe phase in one launch against
+   one case a launch),
    path (e)'s mesh at 25, 256 and 1024 texels per face under softmax and
    hard RGB (forward and backward at 4 views of 512x512, forward at a
    1536x1536 frame; each forward line also gives the longest tile list
@@ -1306,76 +1309,157 @@ def within_ulp_budget(result):
 
 
 def probe_phase():
-    """Phase 6: every case of the three ULP tools through both probe
-    kernels, against torch on the card and on the CPU.  Prints the table;
-    raises where a kernel leaves its budget against torch on the card or
-    the two kernels differ from each other.  Returns the launches, the
-    largest absolute difference from torch on the card over the cdf and
-    fold cases, and the per-case results."""
+    """Phase 7: every case of the three ULP tools through both probe
+    kernels, the whole phase in one launch of each (one a table piece),
+    against torch on the card and on the CPU.  Prints the table; raises
+    where a kernel leaves its budget against torch on the card, where the
+    two kernels differ from each other, or where a case's output in the
+    batch differs from its own one-case launch (all bitwise).  Returns the
+    batch's launches and the largest absolute difference from torch on the
+    card over the cdf and fold cases."""
     import torch
     from gendr_tpu_torch.tools import _ulp
     cases = _ulp.check_cases() + _ulp.bisect_cases() + _ulp.smem_cases()
     for k in _ulp.LAUNCHES:
         _ulp.LAUNCHES[k] = 0
-    results = [(_ulp.run_case(c, 'ulp_elementwise'),
-                _ulp.run_case(c, 'ulp_param_vector')) for c in cases]
+    outs = {k: _ulp.run_cases(cases, k) for k in _ulp.LAUNCHES}
     torch.cuda.synchronize()
     launches = dict(_ulp.LAUNCHES)
+    results = {k: _ulp.compare(cases, k, o) for k, o in outs.items()}
+    alone = {k: [_ulp.run_cases([c], k)[0] for c in cases] for k in outs}
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    split = [c.name for c, a, b in zip(cases, *outs.values())
+             if not same(a, b)]
+    apart = [f'{k}: {c.name}' for k in outs
+             for c, a, b in zip(cases, outs[k], alone[k]) if not same(a, b)]
     print(f'[probes] {len(cases)} cases x (ulp_elementwise, '
-          f'ulp_param_vector): kernel vs torch on the card | on the CPU')
-    over, split = [], []
-    for by_value, by_vector in results:
+          f'ulp_param_vector), one launch each: kernel vs torch on the card '
+          f'| on the CPU')
+    over = []
+    for by_value, by_vector in zip(*results.values()):
         _ulp.report(by_value)
-        if by_vector.cpu != by_value.cpu:
-            split.append(by_value.case.name)
+        if by_value.case.name in split:
             print(f'      ulp_param_vector differs from ulp_elementwise: '
                   f'vs the CPU {by_vector.cpu}')
         over += [r.case.name for r in (by_value, by_vector)
                  if not within_ulp_budget(r)]
-    bitwise = sum(r.card.n_differ == 0 for r, _ in results)
-    bitwise_cpu = sum(r.cpu.n_differ == 0 for r, _ in results)
-    worst = max(r.card.max_abs for pair in results for r in pair
+    by_value = results['ulp_elementwise']
+    bitwise = sum(r.card.n_differ == 0 for r in by_value)
+    bitwise_cpu = sum(r.cpu.n_differ == 0 for r in by_value)
+    worst = max(r.card.max_abs for rs in results.values() for r in rs
                 if _ulp.OPS[r.case.op].kind in ('cdf', 'fold'))
     print(f'[probes] {bitwise} of {len(cases)} cases bitwise with torch on '
           f'the card, {bitwise_cpu} with torch on the CPU; the two kernels '
-          f'agree bitwise on {len(cases) - len(split)}; over budget: '
-          f'{over or "none"}; launches={launches}', flush=True)
-    if over or split:
+          f'agree bitwise on {len(cases) - len(split)}; the batch bitwise its '
+          f'one-case launches on {2 * len(cases) - len(apart)} of '
+          f'{2 * len(cases)}; over budget: {over or "none"}; '
+          f'launches={launches}', flush=True)
+    if over or split or apart:
         raise AssertionError(f'probe kernels: over budget {over}, the two '
-                             f'kernels differ on {split}')
-    if launches != {k: len(cases) for k in launches}:
+                             f'kernels differ on {split}, the batch differs '
+                             f'from one case a launch on {apart}')
+    if launches != {k: _ulp.launches(len(cases), k) for k in launches}:
         raise AssertionError(f'probe launches {launches}')
     return launches, worst
 
 
 def time_probes(smi, reps):
-    """Both probe kernels on the yager fold over the tools' 8 x 2048
-    saturation inputs: medians of reps launches (CUDA events), the torch
-    expression on the card, and the byte bound (two inputs read, one
-    output written).  Returns {kernel: dict}."""
+    """Both probe kernels over the whole probe phase (the 111 cases of the
+    three tools), the inputs packed on the card beforehand: one launch of
+    the phase back to back (CUDA events, median of reps) and its device
+    time (the profiler); the same cases as one-case launches, one after
+    another (CUDA events around all of them) and their device time a
+    launch (the profiler's mean); the torch expressions of every case on
+    the card (the plain version); the batch's bound from its bytes: each x
+    and second y read once, each output written once (operations counted
+    as one an element, a floor: the bytes bound it).  Then where the
+    batch's time goes, on the device: the phase with every op made
+    MUL_ADD (the same bytes, no work), the cases of the Kummer series (31
+    IEEE divisions an element) alone and the others alone.  Returns
+    {kernel: dict}."""
     import torch
     from gendr_tpu_torch import config as C
     from gendr_tpu_torch.tools import _ulp
-    a, b = (torch.as_tensor(v).cuda() for v in _ulp.saturation_inputs())
-    q = _ulp._pad_params((C.YAGER_TCN, 2.0))
-    qd = torch.tensor(q, device='cuda')
-    runs = dict(
-        ulp_elementwise=(lambda: _ulp.ulp_elementwise('FOLD_STEP', a, b, q),
-                         lambda: _ulp.OPS['FOLD_STEP'].torch(a, b, q)),
-        ulp_param_vector=(lambda: _ulp.ulp_param_vector('FOLD_STEP', a, b,
-                                                        qd),
-                          lambda: _ulp.OPS['FOLD_STEP'].torch(a, b, qd)))
-    res = {name: dict(ms=_median_ms(kernel, reps),
-                      plain_ms=_median_ms(plain, reps),
-                      bound=bound(3 * _nbytes(a), 9 * a.numel()))
-           for name, (kernel, plain) in runs.items()}
-    parts = [f'{k} {r["ms"]:.4f} ms, torch {r["plain_ms"]:.4f} ms, bound '
-             f'{r["bound"][0]:.6f} ms ({r["bound"][1]})'
-             for k, r in res.items()]
-    print(f'[timing] {smi}: probe kernels, yager fold_step p=2 on '
-          f'{a.numel()} elements, medians of {reps}: ' + '; '.join(parts),
-          flush=True)
+    cases = _ulp.check_cases() + _ulp.bisect_cases() + _ulp.smem_cases()
+    elements = sum(c.x.size for c in cases)
+    nbytes = 4 * (2 * elements + sum(c.y.size for c in cases
+                                     if _ulp._has_y(c)))
+    kummer = [c.op in ('KUMMER_DIV', 'GAMMA_FULL_DIV') or (
+        c.op == 'CDF' and int(c.q[0]) in (C.GAMMA, C.GAMMA_REV))
+        for c in cases]
+    parts = dict(
+        no_work=[c._replace(op='MUL_ADD', y=c.x if c.y is None else c.y)
+                 for c in cases],
+        kummer=[c for c, k in zip(cases, kummer) if k],
+        others=[c for c, k in zip(cases, kummer) if not k])
+    args = [(c.op, torch.as_tensor(c.x).cuda(),
+             torch.as_tensor(c.x if c.y is None else c.y).cuda(),
+             _ulp._pad_params(c.q)) for c in cases]
+    vector = [(op, x, y, torch.tensor(q, device='cuda'))
+              for op, x, y, q in args]
+    res = {}
+    for kernel in _ulp.LAUNCHES:
+        name = f'{kernel}_kernel'
+        batch = _probe_launch(cases, kernel)
+        singles = [_probe_launch([c], kernel) for c in cases]
+
+        def one_by_one():
+            for single in singles:
+                single()
+
+        def plain():
+            for op, x, y, q in (args if kernel == 'ulp_elementwise'
+                                else vector):
+                _ulp.OPS[op].torch(x, y, q)
+        events_ms = _median_ms(batch, reps)
+        device_ms = _profiled_ms(batch, [name], reps)[name]
+        res[kernel] = dict(
+            ms=device_ms if device_ms is not None else events_ms,
+            events_ms=events_ms, device_ms=device_ms,
+            cases_ms=_median_ms(one_by_one, 5),
+            case_device_ms=_profiled_ms(one_by_one, [name], 3)[name],
+            plain_ms=_median_ms(plain, 3),
+            bound=bound(nbytes, elements),
+            parts={k: _profiled_ms(_probe_launch(v, kernel), [name],
+                                   reps)[name] for k, v in parts.items()})
+    for kernel, r in res.items():
+        case_ms = r['case_device_ms']
+        print(f'[timing] {smi}: probe phase, {len(cases)} cases, {elements} '
+              f'elements, {nbytes} bytes, through {kernel}: one launch '
+              f'({_ulp.launches(len(cases), kernel)} a phase) '
+              f'{r["events_ms"]:.4f} ms back to back (CUDA events, median '
+              f'of {reps}), {_fmt_ms(r["device_ms"])} on the device '
+              f'(profiler); {len(cases)} one-case launches '
+              f'{r["cases_ms"]:.4f} ms one after another (CUDA events, '
+              f'median of 5), {_fmt_ms(case_ms)} a launch on the device '
+              f'(profiler), '
+              f'{_fmt_ms(case_ms and case_ms * len(cases))} summed; torch '
+              f'on the card {r["plain_ms"]:.4f} ms; bound '
+              f'{r["bound"][0]:.6f} ms ({r["bound"][1]}); on the device, '
+              f'every op as MUL_ADD (the same bytes) '
+              f'{_fmt_ms(r["parts"]["no_work"])}, the '
+              f'{sum(kummer)} Kummer-series cases alone '
+              f'{_fmt_ms(r["parts"]["kummer"])}, the other '
+              f'{len(cases) - sum(kummer)} alone '
+              f'{_fmt_ms(r["parts"]["others"])}', flush=True)
     return res
+
+
+def _probe_launch(cases, kernel):
+    """A function that launches kernel over cases, packed on the card once
+    beforehand."""
+    import torch
+    from gendr_tpu_torch.tools import _ulp
+    packed = _ulp.pack(cases)
+    inputs = _ulp._inputs(cases, packed, 'cuda')
+    out = torch.empty(packed.n_out, device='cuda')
+    return lambda: _ulp.launch(kernel, packed, inputs, out)
+
+
+def _fmt_ms(ms):
+    return 'not measured' if ms is None else f'{ms:.6f} ms'
 
 
 def gendr_default_path():
@@ -3563,8 +3647,9 @@ def main():
     # each kernel's numbers at the shape of the sharded slice's main path:
     # for both render kernels, the flagship's rank of path (h2) that the
     # kernel takes longest on (a 128-row band of a 640-face shard; the
-    # step waits for the slowest rank), the yager fold for the probes; the
-    # other shapes are in by_shape
+    # step waits for the slowest rank), for the probes the whole probe
+    # phase in one launch (ms its device time); the other shapes are in
+    # by_shape
     # rasterize_bwd_slab, which no sharded render launches: path (k)'s
     # render at tau 1e-1, where the slab launch takes K2 longest
     ranks = [k for k in kt if k.startswith('flagship shard ')]

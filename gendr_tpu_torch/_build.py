@@ -52,7 +52,6 @@ GXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 # argtypes of each library's C functions, by library name
 SIGNATURES = {
     'rasterize_fwd': {
@@ -73,11 +72,11 @@ SIGNATURES = {
         'gendr_error_string': ((_I,), ctypes.c_char_p),
     },
     'ulp_probe': {
-        # op x y out n, then the parameters (five floats by value, or a
-        # device vector), device, stream
-        'gendr_ulp_elementwise': ((_I, _P, _P, _P, _I) + (_F,) * 5
-                                  + (_I, _P), _I),
-        'gendr_ulp_param_vector': ((_I, _P, _P, _P, _I, _P, _I, _P), _I),
+        # the case table on the host (and, for the parameter vector, on
+        # the card), its cases, in n_in out n_out, device, stream
+        'gendr_ulp_elementwise': ((_P, _I, _P, _I, _P, _I, _I, _P), _I),
+        'gendr_ulp_param_vector': ((_P, _P, _I, _P, _I, _P, _I, _I, _P),
+                                   _I),
         'gendr_error_string': ((_I,), ctypes.c_char_p),
     },
 }

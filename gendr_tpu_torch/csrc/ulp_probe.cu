@@ -15,14 +15,31 @@
 // expression of up to two inputs and up to NQ parameters.  Each op is
 // written once here and once in torch (gendr_tpu_torch/tools/_ulp.py, the
 // plain version; a test holds the two tables' ids together).
-// ulp_elementwise takes the parameters by value, as kernel arguments;
-// ulp_param_vector reads them from a device vector inside the kernel, the
-// way the render kernels read `par`.
 //
-// What bounds them on the card: bytes, nominally (two inputs read, one
-// output written, a few dozen operations per element), but at the probes'
-// 16384 elements a launch moves 196 KB and costs its launch latency.  The
-// design does nothing about it: a probe is run once per op.
+// A launch runs a whole table of cases (a probe phase: the 111 cases of the
+// three tools, 1.67 M elements).  A case is an op, its element count, the
+// offset of its x (and of its output) and of its y in one packed input
+// buffer, and its parameters.  ulp_elementwise takes the table by value, as
+// a kernel argument (__grid_constant__, so indexing it reads the parameter
+// space and copies nothing to local memory), at most TABLE_CASES cases a
+// launch; ulp_param_vector reads it from device memory inside the kernel,
+// the way the render kernels read `par`.
+//
+// What bounds them on the card: bytes, nominally (x and y read, the
+// output written; a phase moves 17.9 MB, 0.0053 ms at 3.35 TB/s), but a
+// few ops take thousands of instructions an element (the Kummer series'
+// 31 IEEE divisions without contraction), and the phase's instructions
+// take longer than its bytes.  One case a launch, as the kernels first ran,
+// moved 64-196 KB and cost a launch's latency each; the table puts the
+// phase in one launch.  A block takes BLOCK_ELEMS consecutive elements of
+// one case, so the op's switch is uniform in a block, one element a thread
+// (a thread's elements would run one after another, and a block of the
+// heavy ops would then make the launch's tail).  The cases' x follow each
+// other in block units, each rounded up to BLOCK_ELEMS alone (a case of
+// 8192 elements takes 32 blocks beside one of 16384 taking 64, no block
+// idle): a block finds its case in the table by a search.
+
+#include <cstring>
 
 #include "pairmath.cuh"
 
@@ -239,59 +256,168 @@ __device__ __forceinline__ float probe_op(int op, float x, float y,
   return 0.0f;
 }
 
-struct Params {
-  float v[NQ];
+// one case of a table (tools/_ulp.py CASE_DTYPE)
+struct ProbeCase {
+  int op;  // OP_<NAME>
+  int n;   // elements
+  int x;   // offset of x in the inputs and of the output in out: a multiple
+           // of BLOCK_ELEMS, the cases' x in order, each rounded up to
+           // BLOCK_ELEMS (table_blocks checks it)
+  int y;   // offset of y in the inputs (x's where the op reads one input)
+  float q[NQ];
 };
+static_assert(sizeof(ProbeCase) == 36, "tools/_ulp.py CASE_DTYPE");
 
-// out[i] = op(x[i], y[i]); the op's parameters arrive by value
-__global__ void __launch_bounds__(PROBE_THREADS) ulp_elementwise_kernel(
-    int op, const float* __restrict__ x, const float* __restrict__ y,
-    float* __restrict__ out, int n, Params q) {
-  const int i = blockIdx.x * PROBE_THREADS + threadIdx.x;
-  if (i >= n) return;
-  out[i] = probe_op(op, x[i], y[i], [&](int k) { return q.v[k]; });
+constexpr int BLOCK_ELEMS = PROBE_THREADS;  // tools/_ulp.py
+// cases of a table passed by value: with the inputs and the output it fills
+// the 4 KB of a kernel's parameters (tools/_ulp.py TABLE_CASES)
+constexpr int TABLE_CASES = 112;
+
+struct CaseTable {
+  int count;   // cases in c
+  int block0;  // c[0].x / BLOCK_ELEMS: the launch's first block
+  ProbeCase c[TABLE_CASES];
+};
+static_assert(2 * sizeof(void*) + sizeof(CaseTable) <= 4096,
+              "ulp_elementwise's parameters over the 4 KB limit");
+
+// The case of the block whose first element is start: the last whose x is
+// at most start (the x's ascend).  In the by-value table, a binary search
+// every thread makes alike: each read is one address for the whole warp, a
+// broadcast from the parameter space, where a read a thread would serialize.
+__device__ __forceinline__ int search_case(
+    const ProbeCase (&cases)[TABLE_CASES], int count, int start) {
+  int c = 0, hi = count;  // cases[c].x <= start < cases[hi].x
+  while (hi - c > 1) {
+    const int mid = (c + hi) >> 1;
+    if (cases[mid].x <= start)
+      c = mid;
+    else
+      hi = mid;
+  }
+  return c;
 }
 
-// out[i] = op(x[i], y[i]); the op's parameters are read from the device
-// vector q [NQ] inside the kernel, as the render kernels read par
+// In device memory, a thread reads one case's x (one round trip for the
+// block, where a binary search would wait on seven) and the block counts
+// those at most start.
+__device__ __forceinline__ int count_case(const ProbeCase* cases, int count,
+                                          int start) {
+  int c = -1;
+  for (int i0 = 0; i0 < count; i0 += PROBE_THREADS) {
+    const int i = i0 + (int)threadIdx.x;
+    c += __syncthreads_count(i < count && cases[i].x <= start);
+  }
+  return c;
+}
+
+// The block's first element: its index in the launch's table block0 on.
+__device__ __forceinline__ int block_start(int block0) {
+  return (block0 + (int)blockIdx.x) * BLOCK_ELEMS;
+}
+
+// A block's share of a table: BLOCK_ELEMS consecutive elements of its
+// case c from start, one a thread (a case's op may take thousands of
+// instructions an element, the Kummer series' 31 divisions, and a thread's
+// elements would run one after another).  cases is the by-value table or a
+// device pointer.
+template <class Cases>
+__device__ __forceinline__ void probe_block(const Cases& cases, int c,
+                                            int start,
+                                            const float* __restrict__ in,
+                                            float* __restrict__ out) {
+  const int i = start - cases[c].x + (int)threadIdx.x;
+  if (i >= cases[c].n) return;
+  out[cases[c].x + i] = probe_op(
+      cases[c].op, in[cases[c].x + i], in[cases[c].y + i],
+      [&](int j) { return cases[c].q[j]; });
+}
+
+// out[x + i] = op(in[x + i], in[y + i]) for every case of the table; the
+// cases and their parameters arrive by value
+__global__ void __launch_bounds__(PROBE_THREADS) ulp_elementwise_kernel(
+    const float* __restrict__ in, float* __restrict__ out,
+    const __grid_constant__ CaseTable table) {
+  const int start = block_start(table.block0);
+  probe_block(table.c, search_case(table.c, table.count, start), start, in,
+              out);
+}
+
+// the same, the table read from the device array cases [count] inside the
+// kernel, as the render kernels read par
 __global__ void __launch_bounds__(PROBE_THREADS) ulp_param_vector_kernel(
-    int op, const float* __restrict__ x, const float* __restrict__ y,
-    float* __restrict__ out, int n, const float* __restrict__ q) {
-  const int i = blockIdx.x * PROBE_THREADS + threadIdx.x;
-  if (i >= n) return;
-  out[i] = probe_op(op, x[i], y[i], [&](int k) { return q[k]; });
+    const ProbeCase* __restrict__ cases, int count, int block0,
+    const float* __restrict__ in, float* __restrict__ out) {
+  const int start = block_start(block0);
+  probe_block(cases, count_case(cases, count, start), start, in, out);
+}
+
+// The blocks cases [0, count) take, or -1 where the table is not one the
+// kernels read: every op known, n >= 1, the x's in order from a multiple of
+// BLOCK_ELEMS, each rounded up to BLOCK_ELEMS, and every case inside the
+// n_in inputs and the n_out outputs.
+int table_blocks(const ProbeCase* cases, int count, int n_in, int n_out) {
+  if (count < 1 || cases[0].x < 0 || cases[0].x % BLOCK_ELEMS) return -1;
+  long long next = cases[0].x;
+  for (int i = 0; i < count; ++i) {
+    const ProbeCase& c = cases[i];
+    if (c.op < 0 || c.op >= NUM_OPS || c.n < 1 || c.x != next || c.y < 0 ||
+        (long long)c.x + c.n > n_out || (long long)c.x + c.n > n_in ||
+        (long long)c.y + c.n > n_in)
+      return -1;
+    next += ((long long)c.n + BLOCK_ELEMS - 1) / BLOCK_ELEMS * BLOCK_ELEMS;
+  }
+  return (int)((next - cases[0].x) / BLOCK_ELEMS);
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes (gendr_tpu_torch/_build.py).  Each
 // launches on `stream` and returns the launch's error (0 on success);
-// neither synchronizes nor allocates.  x, y and out hold n floats.
-extern "C" int gendr_ulp_elementwise(int op, const float* x, const float* y,
-                                     float* out, int n, float q0, float q1,
-                                     float q2, float q3, float q4, int device,
-                                     void* stream) {
+// neither synchronizes nor allocates.  table [count] is the case table
+// (ProbeCase rows) on the host; in holds n_in floats, out n_out, both on
+// the card.  The table is a void pointer: a type of the anonymous
+// namespace in the signature would give the function internal linkage.
+
+// ulp_elementwise over the table in launches of TABLE_CASES cases at most
+extern "C" int gendr_ulp_elementwise(const void* table_rows, int count,
+                                     const float* in, int n_in, float* out,
+                                     int n_out, int device, void* stream) {
+  const ProbeCase* cases = static_cast<const ProbeCase*>(table_rows);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (op < 0 || op >= NUM_OPS || n < 1) return (int)cudaErrorInvalidValue;
-  const Params q{{q0, q1, q2, q3, q4}};
-  ulp_elementwise_kernel<<<(n + PROBE_THREADS - 1) / PROBE_THREADS,
-                           PROBE_THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(op, x, y, out,
-                                                                n, q);
-  return (int)cudaGetLastError();
+  if (table_blocks(cases, count, n_in, n_out) < 0)
+    return (int)cudaErrorInvalidValue;
+  for (int first = 0; first < count; first += TABLE_CASES) {
+    CaseTable table;
+    table.count = count - first < TABLE_CASES ? count - first : TABLE_CASES;
+    table.block0 = cases[first].x / BLOCK_ELEMS;
+    memcpy(table.c, cases + first, table.count * sizeof(ProbeCase));
+    ulp_elementwise_kernel<<<table_blocks(table.c, table.count, n_in, n_out),
+                             PROBE_THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(in, out,
+                                                                  table);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
-extern "C" int gendr_ulp_param_vector(int op, const float* x, const float* y,
-                                      float* out, int n, const float* q,
-                                      int device, void* stream) {
+// ulp_param_vector over the table in one launch: device_table is the same
+// table on the card, which the kernel reads
+extern "C" int gendr_ulp_param_vector(const void* table_rows,
+                                      const void* device_table, int count,
+                                      const float* in, int n_in, float* out,
+                                      int n_out, int device, void* stream) {
+  const ProbeCase* cases = static_cast<const ProbeCase*>(table_rows);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (op < 0 || op >= NUM_OPS || n < 1) return (int)cudaErrorInvalidValue;
-  ulp_param_vector_kernel<<<(n + PROBE_THREADS - 1) / PROBE_THREADS,
-                            PROBE_THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(op, x, y, out,
-                                                                 n, q);
+  const int blocks = table_blocks(cases, count, n_in, n_out);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  ulp_param_vector_kernel<<<blocks, PROBE_THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const ProbeCase*>(device_table), count,
+      cases[0].x / BLOCK_ELEMS, in, out);
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,9 @@ so they rest on how nvcc's build of the device functions of
 ``csrc/pairmath.cuh`` rounds against PyTorch's ops.  The probes measure
 that, one function at a time: ``csrc/ulp_probe.cu`` evaluates an op
 elementwise on the card, and the same op written in torch (``OPS`` below,
-the kernels' plain versions) is evaluated on the card and on the CPU.
+the kernels' plain versions) is evaluated on the card and on the CPU.  A
+list of cases runs in one launch (``run_cases``: the cases' inputs packed
+behind a case table, ``pack``).
 
 Port of the shared parts of ``tools/ulp_check.py``, ``tools/ulp_bisect.py``
 and ``tools/ulp_smem.py``: their inputs (numpy ``RandomState``, the same
@@ -217,57 +219,168 @@ def _check_inputs(x, y):
                          f'{tuple(x.shape)} on {x.device}')
 
 
-def _launch(kernel, fn, op, x, y, *rest):
-    from gendr_tpu_torch import _build
-    lib = _build.load('ulp_probe')
-    out = torch.empty_like(x)
-    err = getattr(lib, fn)(
-        OPS[op].id, x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
-        *rest, x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'{kernel} launch failed: '
-                           + lib.gendr_error_string(err).decode())
-    LAUNCHES[kernel] += 1
-    return out
-
-
 def ulp_elementwise(op: str, x, y=None, q: Sequence[float] = ()):
     """OPS[op] elementwise on x (and y, of x's shape), float32, with the
-    parameters q passed to the kernel by value.
+    parameters q passed to the kernel by value: a table of one case.
 
     CUDA tensors launch ``csrc/ulp_probe.cu``'s ulp_elementwise kernel on
     the current stream; CPU tensors evaluate the op's torch expression.
     """
-    y = x if y is None else y
-    _check_inputs(x, y)
-    q = _pad_params(q)
-    if x.device.type == 'cpu':
-        return OPS[op].torch(x, y, q)
-    if x.device.type != 'cuda':
-        raise ValueError(f'no probe kernel for device {x.device}')
-    return _launch('ulp_elementwise', 'gendr_ulp_elementwise', op, x, y, *q)
+    _check_inputs(x, x if y is None else y)
+    return run_cases([Case(op, op, x, y, q)], 'ulp_elementwise',
+                     x.device)[0]
 
 
 def ulp_param_vector(op: str, x, y=None, q=None):
-    """OPS[op] elementwise on x (and y), with the parameters read inside
-    the kernel from the float32 vector q [NQ] on x's device, the way the
-    render kernels read their parameter vector.
+    """OPS[op] elementwise on x (and y), with the parameters of the
+    float32 vector q [NQ] on x's device (read to the host) in a table of
+    one case, which the kernel reads from device memory inside, the way
+    the render kernels read their parameter vector.
 
     CUDA tensors launch ``csrc/ulp_probe.cu``'s ulp_param_vector kernel;
     CPU tensors evaluate the op's torch expression on q's elements.
     """
-    y = x if y is None else y
-    _check_inputs(x, y)
+    _check_inputs(x, x if y is None else y)
     if q.dtype != torch.float32 or tuple(q.shape) != (NQ,) \
             or q.device != x.device or not q.is_contiguous():
         raise ValueError(f'q must be float32 [{NQ}] on {x.device}')
-    if x.device.type == 'cpu':
-        return OPS[op].torch(x, y, q)
-    if x.device.type != 'cuda':
-        raise ValueError(f'no probe kernel for device {x.device}')
-    return _launch('ulp_param_vector', 'gendr_ulp_param_vector', op, x, y,
-                   q.data_ptr())
+    return run_cases([Case(op, op, x, y, tuple(q.tolist()))],
+                     'ulp_param_vector', x.device)[0]
+
+
+# -- a table of cases, one launch ----------------------------------------
+
+# one row of the kernels' case table (csrc/ulp_probe.cu ProbeCase): the
+# op's id, its elements, the offsets of its x (and output) and y in the
+# packed inputs, its parameters
+CASE_DTYPE = np.dtype([('op', '<i4'), ('n', '<i4'), ('x', '<i4'),
+                       ('y', '<i4'), ('q', '<f4', (NQ,))])
+BLOCK_ELEMS = 256    # elements a block takes (csrc/ulp_probe.cu)
+TABLE_CASES = 112    # cases of one ulp_elementwise launch (csrc/ulp_probe.cu)
+TABLE_ALIGN = 32     # floats: the inputs start on a 128-byte boundary
+
+
+class Packed(NamedTuple):
+    table: np.ndarray   # [cases] CASE_DTYPE
+    words: int          # floats the table takes at the buffer's start
+    n_in: int           # floats of the inputs after it: every x, each
+    #                     rounded up to BLOCK_ELEMS, then every second y
+    n_out: int          # floats of the packed output: the x region
+
+
+def pack(cases) -> Packed:
+    """The case table of cases: each x (and its output) at a multiple of
+    BLOCK_ELEMS in the order given, then the y of each case that has a
+    second input; a case with one input reads its x as y.  The parameters
+    are padded to NQ."""
+    table = np.zeros(len(cases), CASE_DTYPE)
+    x = 0
+    for row, c in zip(table, cases):
+        row['op'], row['n'], row['x'] = OPS[c.op].id, _numel(c.x), x
+        row['q'] = _pad_params(c.q)
+        x += -(-int(row['n']) // BLOCK_ELEMS) * BLOCK_ELEMS
+    y = x
+    for row, c in zip(table, cases):
+        if _has_y(c):
+            row['y'], y = y, y + int(row['n'])
+        else:
+            row['y'] = row['x']
+    words = -(-table.nbytes // 4 // TABLE_ALIGN) * TABLE_ALIGN
+    return Packed(table, words, y, x)
+
+
+def _numel(a):
+    return int(np.prod(a.shape))
+
+
+def _has_y(case):
+    return case.y is not None and case.y is not case.x
+
+
+def _inputs(cases, packed, device):
+    """The table, then every x padded to its block, then every second y,
+    as one float32 tensor on device: one copy from the host where the
+    inputs are numpy arrays, one concatenation on the card where they are
+    tensors there."""
+    head = np.zeros(packed.words, np.float32)
+    head[:packed.table.nbytes // 4] = packed.table.view(np.float32)
+    parts = [head]
+    for row, c in zip(packed.table, cases):
+        pad = -int(row['n']) % BLOCK_ELEMS
+        parts += [c.x, np.zeros(pad, np.float32)] if pad else [c.x]
+    parts += [c.y for c in cases if _has_y(c)]
+    if all(isinstance(p, np.ndarray) for p in parts):
+        return torch.from_numpy(np.concatenate(
+            [np.ravel(p).astype(np.float32, copy=False) for p in parts])) \
+            .to(device)
+    return torch.cat([torch.as_tensor(p, device=device).reshape(-1)
+                      for p in parts])
+
+
+def launches(cases: int, kernel: str) -> int:
+    """Launches of kernel for a table of that many cases: ulp_elementwise's
+    table is a kernel argument of at most TABLE_CASES cases."""
+    return -(-cases // TABLE_CASES) if kernel == 'ulp_elementwise' else 1
+
+
+def launch(kernel, packed: Packed, inputs, out):
+    """Runs kernel over the packed table: inputs is _inputs' tensor on the
+    card, out the packed output [n_out].  Counts the launches."""
+    from gendr_tpu_torch import _build
+    lib = _build.load('ulp_probe')
+    table = np.ascontiguousarray(packed.table)
+    count = len(table)
+    dev_in = inputs.data_ptr() + 4 * packed.words
+    tail = (packed.n_in, out.data_ptr(), packed.n_out,
+            out.device.index or 0,
+            torch.cuda.current_stream(out.device).cuda_stream)
+    if kernel == 'ulp_elementwise':
+        err = lib.gendr_ulp_elementwise(table.ctypes.data, count, dev_in,
+                                        *tail)
+    elif kernel == 'ulp_param_vector':
+        err = lib.gendr_ulp_param_vector(table.ctypes.data,
+                                         inputs.data_ptr(), count, dev_in,
+                                         *tail)
+    else:
+        raise ValueError(f'no probe kernel {kernel!r}')
+    if err != 0:
+        raise RuntimeError(f'{kernel} launch failed: '
+                           + lib.gendr_error_string(err).decode())
+    LAUNCHES[kernel] += launches(count, kernel)
+    return out
+
+
+def run_cases(cases, kernel: str, device='cuda'):
+    """Every case through one probe kernel ('ulp_elementwise' or
+    'ulp_param_vector'): the outputs, one a case, shaped as its x.
+
+    On the card the cases' inputs are packed (``pack``) into one tensor,
+    copied to the card once, and the kernel runs the whole table in one
+    launch (ulp_elementwise: one a TABLE_CASES cases); the outputs are
+    views of one packed tensor.  On the CPU each case evaluates its op's
+    torch expression, the parameters as floats for ulp_elementwise and as
+    a float32 vector for ulp_param_vector, as each kernel takes them.
+    """
+    if kernel not in LAUNCHES:
+        raise ValueError(f'no probe kernel {kernel!r}')
+    device = torch.device(device)
+    if device.type == 'cpu':
+        outs = []
+        for c in cases:
+            x = torch.as_tensor(c.x)
+            y = torch.as_tensor(c.y) if _has_y(c) else x
+            q = _pad_params(c.q)
+            if kernel == 'ulp_param_vector':
+                q = torch.tensor(q, dtype=torch.float32)
+            outs.append(OPS[c.op].torch(x, y, q))
+        return outs
+    if device.type != 'cuda':
+        raise ValueError(f'no probe kernel for device {device}')
+    packed = pack(cases)
+    out = torch.empty(packed.n_out, dtype=torch.float32, device=device)
+    launch(kernel, packed, _inputs(cases, packed, device), out)
+    return [out[int(r['x']):int(r['x'] + r['n'])].view(tuple(c.x.shape))
+            for r, c in zip(packed.table, cases)]
 
 
 # -- inputs, as the JAX tools make them ------------------------------------
@@ -536,25 +649,32 @@ class Result(NamedTuple):
     cpu: Diff         # kernel vs the torch expression on the CPU
 
 
-def run_case(case: Case, kernel: str, device='cuda') -> Result:
-    """case through one probe kernel ('ulp_elementwise' or
-    'ulp_param_vector') on the card, against its torch expression on the
-    card and on the CPU."""
-    x = torch.as_tensor(case.x).contiguous()
-    y = x if case.y is None else torch.as_tensor(case.y).contiguous()
-    q = _pad_params(case.q)
-    xd, yd = x.to(device), y.to(device)
-    if kernel == 'ulp_elementwise':
-        got = ulp_elementwise(case.op, xd, yd, q)
-        want_card = OPS[case.op].torch(xd, yd, q)
-    else:
-        qd = torch.tensor(q, dtype=torch.float32, device=device)
-        got = ulp_param_vector(case.op, xd, yd, qd)
-        want_card = OPS[case.op].torch(xd, yd, qd)
-    got = got.cpu().numpy()
-    want_cpu = OPS[case.op].torch(x, y, q)
-    return Result(case, kernel, diff(got, want_card.cpu().numpy()),
-                  diff(got, want_cpu.numpy()))
+def compare(cases, kernel: str, outs) -> list:
+    """A Result for each case's kernel output in outs (tensors on the
+    card): against its torch expression on the card, the parameters as
+    the kernel takes them, and on the CPU.  The kernel's outputs and the
+    card's torch outputs are fetched to the host once each."""
+    device = outs[0].device
+    want_card = []
+    for c in cases:
+        x = torch.as_tensor(c.x, device=device)
+        y = torch.as_tensor(c.y, device=device) if _has_y(c) else x
+        q = _pad_params(c.q)
+        if kernel == 'ulp_param_vector':
+            q = torch.tensor(q, dtype=torch.float32, device=device)
+        want_card.append(OPS[c.op].torch(x, y, q))
+    got, want_card = (_split(torch.cat([t.reshape(-1) for t in ts]).cpu()
+                             .numpy(), cases) for ts in (outs, want_card))
+    want_cpu = run_cases(cases, 'ulp_elementwise', 'cpu')
+    return [Result(c, kernel, diff(g, w), diff(g, cpu.numpy()))
+            for c, g, w, cpu in zip(cases, got, want_card, want_cpu)]
+
+
+def _split(flat, cases):
+    """flat, the cases' outputs end to end, cut into one array a case."""
+    ends = np.cumsum([_numel(c.x) for c in cases])
+    return [flat[e - _numel(c.x):e].reshape(c.x.shape)
+            for c, e in zip(cases, ends)]
 
 
 def report(result: Result, file=None):
@@ -571,8 +691,10 @@ def report(result: Result, file=None):
 
 
 def main(title, cases, kernel):
-    """A probe command line: every case through one kernel on the card.
-    Returns the exit code: 1 without a card, else 0."""
+    """A probe command line: every case through one kernel on the card,
+    in one launch (``run_cases``), against its torch expression on the
+    card and on the CPU.  Returns the exit code: 1 without a card, else
+    0."""
     if not torch.cuda.is_available():
         print(f'{title}: torch.cuda.is_available() is False; the probes '
               f'compare a CUDA kernel with torch and need an NVIDIA GPU',
@@ -580,7 +702,7 @@ def main(title, cases, kernel):
         return 1
     print(f'== {title}: {kernel} vs torch on '
           f'{torch.cuda.get_device_name(0)} and on the CPU ==')
-    results = [run_case(c, kernel) for c in cases]
+    results = compare(cases, kernel, run_cases(cases, kernel))
     for r in results:
         report(r)
     n_card = sum(r.card.n_differ > 0 for r in results)

@@ -4,8 +4,8 @@ and under torch.
 Port of ``tools/ulp_bisect.py``: divisions, ``exp``, ``tanh``, ``rsqrt``,
 ``log``, ``pow``, multiply-add shapes, division chains, the wigner, gamma
 (Kummer series) and frank chains, with their parameters as constants and
-as a second input, each through the probe kernel ``ulp_elementwise`` and
-through torch on the card and on the CPU.
+as a second input, each through the probe kernel ``ulp_elementwise`` (every
+case in one launch) and through torch on the card and on the CPU.
 
     python -m gendr_tpu_torch.tools.ulp_bisect
 

@@ -7,8 +7,9 @@ only as far as each distribution's ``cdf`` and ``pdf`` and each t-conorm's
 finds its winner by exact float equality, and frank's 1e-6 saturation guard
 turns one ulp of coverage into O(1) gradient error.  This tool evaluates
 each function on the same inputs through the probe kernel
-``ulp_elementwise`` and through torch, on the card and on the CPU, counts
-the elements whose bits differ and prints the worst inputs.
+``ulp_elementwise`` (every case in one launch) and through torch, on the
+card and on the CPU, counts the elements whose bits differ and prints the
+worst inputs.
 
     python -m gendr_tpu_torch.tools.ulp_check [distribution ...]
 

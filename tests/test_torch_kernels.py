@@ -315,20 +315,26 @@ def test_parametric_fold_kernels_match_plain(cuda, name, kw, p, ts):
 
 @pytest.mark.cuda
 def test_probe_kernels_match_torch(cuda):
-    # both probe kernels over every case of the three tools: they agree
-    # with each other bitwise, and with torch on the card within the
-    # budget of the op's kind
+    # both probe kernels over every case of the three tools, the whole
+    # phase in one launch of each: they agree with each other bitwise, each
+    # case's output bitwise its own one-case launch, and with torch on the
+    # card within the budget of the op's kind
     from chip_smoke import within_ulp_budget
     from gendr_tpu_torch.tools import _ulp
     cases = _ulp.check_cases() + _ulp.bisect_cases() + _ulp.smem_cases()
     launches = dict(_ulp.LAUNCHES)
-    for case in cases:
-        by_value = _ulp.run_case(case, 'ulp_elementwise')
-        by_vector = _ulp.run_case(case, 'ulp_param_vector')
-        assert by_value.cpu == by_vector.cpu, case.name
-        assert within_ulp_budget(by_value), (case.name, by_value.card)
-        assert within_ulp_budget(by_vector), (case.name, by_vector.card)
-    assert _ulp.LAUNCHES == {k: n + len(cases) for k, n in launches.items()}
+    outs = {k: _ulp.run_cases(cases, k, cuda) for k in launches}
+    assert _ulp.LAUNCHES == {k: n + 1 for k, n in launches.items()}
+    bits = {k: [o.view(torch.int32) for o in v] for k, v in outs.items()}
+    for i, case in enumerate(cases):
+        by_value, by_vector = (bits[k][i] for k in launches)
+        assert torch.equal(by_value, by_vector), case.name
+        for k in launches:
+            alone = _ulp.run_cases([case], k, cuda)[0].view(torch.int32)
+            assert torch.equal(alone, bits[k][i]), (k, case.name)
+    for k, o in outs.items():
+        for r in _ulp.compare(cases, k, o):
+            assert within_ulp_budget(r), (k, r.case.name, r.card)
 
 
 @pytest.mark.cuda

@@ -9,6 +9,11 @@ them against torch there).  Here:
   ``T.fold_step``, ``T.aggregate_backward`` and the chains of
   tools/ulp_bisect.py and tools/ulp_smem.py) on the tools' own inputs;
 * on CPU tensors both wrappers evaluate that expression and launch nothing;
+* the case table that runs a whole probe phase in one launch: its rows
+  against ``OPS`` and the cases, the packed inputs under the kernels'
+  block-to-case rule, ``run_cases`` on the CPU against the one-case
+  wrappers, and the table's layout and the C entries' signatures against
+  ``csrc/ulp_probe.cu``;
 * the three command lines exit 1 without a card.
 
 Tolerances, per kind of op, as |got - want| <= tol * max(|want|, 1): a few
@@ -283,3 +288,140 @@ def test_probe_command_lines_exit_1_without_a_card(tool, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     assert tool.main([]) == 1
     assert 'NVIDIA GPU' in capsys.readouterr().err
+
+
+def _c_type(decl):
+    """The ctypes type _build binds a C parameter or return type to."""
+    import ctypes
+    decl = decl.strip()
+    if decl.startswith('const char*'):
+        return ctypes.c_char_p
+    return ctypes.c_void_p if '*' in decl else ctypes.c_int
+
+
+C_ENTRIES = sorted(_build.SIGNATURES['ulp_probe'])
+
+
+@pytest.mark.parametrize('fn', C_ENTRIES)
+def test_c_signatures_match_the_cuda_source(fn):
+    # each extern "C" function of csrc/ulp_probe.cu, parameter for
+    # parameter, against the ctypes types _build.SIGNATURES binds it with
+    src = (_build.CSRC / 'ulp_probe.cu').read_text()
+    m = re.search(r'extern "C" ([\w\s\*]+?)\s*\b' + fn
+                  + r'\(([^)]*)\)', src)
+    assert m, fn
+    params = [p for p in m.group(2).split(',') if p.strip()]
+    argtypes, restype = _build.SIGNATURES['ulp_probe'][fn]
+    assert tuple(_c_type(p) for p in params) == argtypes
+    assert _c_type(m.group(1)) == restype
+
+
+def test_case_table_layout_matches_the_cuda_source():
+    src = (_build.CSRC / 'ulp_probe.cu').read_text()
+    body = re.search(r'struct ProbeCase \{(.*?)\};', src, re.S).group(1)
+    fields = re.findall(r'^\s*(int|float) (\w+)(\[NQ\])?;', body, re.M)
+    assert [(t, n) for t, n, _ in fields] == [
+        ('int', 'op'), ('int', 'n'), ('int', 'x'), ('int', 'y'),
+        ('float', 'q')]
+    assert _ulp.CASE_DTYPE.names == ('op', 'n', 'x', 'y', 'q')
+    assert _ulp.CASE_DTYPE['q'].shape == (_ulp.NQ,)
+    assert f'sizeof(ProbeCase) == {_ulp.CASE_DTYPE.itemsize}' in src
+    threads = re.search(r'constexpr int PROBE_THREADS = (\d+);', src)
+    assert int(threads.group(1)) == _ulp.BLOCK_ELEMS
+    assert 'constexpr int BLOCK_ELEMS = PROBE_THREADS;' in src
+    assert f'constexpr int TABLE_CASES = {_ulp.TABLE_CASES};' in src
+    # the by-value table: two pointers, count, block0 and the cases within
+    # the 4 KB of a launch's parameters
+    assert 2 * 8 + 8 + _ulp.TABLE_CASES * _ulp.CASE_DTYPE.itemsize <= 4096
+    cases = _ulp.check_cases() + _ulp.bisect_cases() + _ulp.smem_cases()
+    assert _ulp.launches(len(cases), 'ulp_elementwise') == 1
+    assert _ulp.launches(len(cases), 'ulp_param_vector') == 1
+    assert _ulp.launches(_ulp.TABLE_CASES + 1, 'ulp_elementwise') == 2
+    assert _ulp.launches(_ulp.TABLE_CASES + 1, 'ulp_param_vector') == 1
+
+
+def _ragged_cases():
+    """Cases whose element counts are no multiple of a block, one input
+    and two, and a case whose y is its x."""
+    rng = np.random.RandomState(3)
+    a, b, c = (rng.rand(n).astype(np.float32) for n in (1000, 3000, 1))
+    return [_ulp.Case('ragged exp', 'EXP', a),
+            _ulp.Case('ragged fold', 'FOLD_STEP', b, rng.rand(3000)
+                      .astype(np.float32), (6, 2.0)),
+            _ulp.Case('one element', 'DIV_TRACED', c, c),
+            _ulp.Case('cdf', 'CDF', a, a[::-1].copy(), (1, 0.05, 0, 0, 1))]
+
+
+PACK_SETS = dict(phase=CASES, ragged=_ragged_cases())
+
+
+@pytest.mark.parametrize('name', sorted(PACK_SETS))
+def test_case_table_packs_every_case(name):
+    cases = PACK_SETS[name]
+    packed = _ulp.pack(cases)
+    t = packed.table
+    ids = {n: op.id for n, op in _ulp.OPS.items()}
+    assert t['op'].tolist() == [ids[c.op] for c in cases]
+    assert t['n'].tolist() == [c.x.size for c in cases]
+    # the x's (and outputs) follow each other, each rounded up to a block
+    blocks = -(-t['n'] // _ulp.BLOCK_ELEMS)
+    assert t['x'].tolist() == ((np.cumsum(blocks) - blocks)
+                               * _ulp.BLOCK_ELEMS).tolist()
+    assert packed.n_out == int(blocks.sum()) * _ulp.BLOCK_ELEMS
+    # the second inputs after them, in order; one input reads its x as y
+    two = [c.y is not None and c.y is not c.x for c in cases]
+    ys = t['y'][two]
+    assert ys.tolist() == (packed.n_out + np.cumsum(t['n'][two])
+                           - t['n'][two]).tolist()
+    assert (t['y'][~np.array(two)] == t['x'][~np.array(two)]).all()
+    assert packed.n_in == packed.n_out + int(t['n'][two].sum())
+    # parameters padded to NQ
+    for row, c in zip(t, cases):
+        assert row['q'].dtype == np.float32
+        np.testing.assert_array_equal(
+            row['q'], np.float32(_ulp._pad_params(c.q)))
+    assert packed.words % _ulp.TABLE_ALIGN == 0
+    assert packed.words * 4 >= t.nbytes
+    # the packed buffer: the table's bytes, then the inputs where the table
+    # says; the kernels' rule (a block takes BLOCK_ELEMS elements of the last
+    # case whose x is at most its first element) reads every element of
+    # every case once
+    buf = _ulp._inputs(cases, packed, 'cpu').numpy()
+    assert buf.size == packed.words + packed.n_in
+    assert buf[:t.nbytes // 4].tobytes() == t.tobytes()
+    inputs = buf[packed.words:]
+    seen = [np.zeros(c.x.size, int) for c in cases]
+    for b in range(packed.n_out // _ulp.BLOCK_ELEMS):
+        start = b * _ulp.BLOCK_ELEMS
+        k = int((t['x'] <= start).sum()) - 1
+        i = np.arange(start - t['x'][k],
+                      start - t['x'][k] + _ulp.BLOCK_ELEMS)
+        i = i[i < t['n'][k]]
+        c = cases[k]
+        np.testing.assert_array_equal(inputs[t['x'][k] + i],
+                                      c.x.ravel()[i])
+        y = c.x if c.y is None else c.y
+        np.testing.assert_array_equal(inputs[t['y'][k] + i], y.ravel()[i])
+        seen[k][i] += 1
+    assert all((s == 1).all() for s in seen)
+
+
+@pytest.mark.parametrize('kernel', ['ulp_elementwise', 'ulp_param_vector'])
+def test_run_cases_on_cpu_equals_the_one_case_wrappers(kernel):
+    launches = dict(_ulp.LAUNCHES)
+    cases = CASES + _ragged_cases()
+    outs = _ulp.run_cases(cases, kernel, 'cpu')
+    assert len(outs) == len(cases)
+    for c, got in zip(cases, outs):
+        x = torch.from_numpy(c.x)
+        y = None if c.y is None else torch.from_numpy(c.y)
+        if kernel == 'ulp_elementwise':
+            want = _ulp.ulp_elementwise(c.op, x, y, c.q)
+        else:
+            want = _ulp.ulp_param_vector(
+                c.op, x, y, torch.tensor(_ulp._pad_params(c.q)))
+        assert got.shape == x.shape and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want.numpy(), c.name)
+    assert _ulp.LAUNCHES == launches
+    with pytest.raises(ValueError, match='no probe kernel'):
+        _ulp.run_cases(cases[:1], 'ulp_smem', 'cpu')
