@@ -38,6 +38,7 @@ from gendr_tpu_torch.animations import (panda_tcn_p, t_conorms,
                                         triangles_tcn_p)
 from gendr_tpu_torch.experiments import opt_shape as OS
 from gendr_tpu_torch.raster import cuda_backend as CB
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG_TOL = 2e-3
 

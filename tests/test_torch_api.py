@@ -16,6 +16,7 @@ import gendr_tpu_torch as G
 from gendr_tpu_torch import functional as F
 from gendr_tpu_torch import utils
 from tests.test_render import random_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 PORT = pathlib.Path(G.__file__).resolve().parent
 FUNCTIONAL_NAMES = [

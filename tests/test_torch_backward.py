@@ -44,6 +44,7 @@ from gendr_tpu_torch.raster import torch_backend as TB
 from tests.test_pallas import _assert_mostly_close
 from tests.test_render import params_dict, random_scene
 from tests.test_torch_raster import _inputs, sphere_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 J_XF = jax.jit(X.forward, static_argnums=3)
 J_XB = jax.jit(X.backward, static_argnums=6)

@@ -43,6 +43,7 @@ from gendr_tpu_torch.raster import torch_backend as TB
 from tests.test_render import params_dict, random_scene
 from tests.test_torch_backward import _assert_grads_match
 from tests.test_torch_raster import IMG_ATOL, WINNER_AGREE, _assert_match
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = 16
 J_XFC = jax.jit(X.forward_carry, static_argnums=5,

@@ -31,6 +31,7 @@ from gendr_tpu_torch.raster import cuda_backend as CB
 from gendr_tpu_torch.raster import pack
 from gendr_tpu_torch.raster import torch_backend as TB
 from tests.test_render import params_dict, random_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG_TOL = dict(atol=1e-4, rtol=1e-3)
 GEOM_TOL = dict(atol=2e-4, rtol=2e-3)

@@ -2,6 +2,7 @@
 headers it may include, and the flags.  No nvcc is needed."""
 
 from gendr_tpu_torch import _build
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_library_path_follows_included_headers(tmp_path, monkeypatch):

@@ -44,6 +44,7 @@ from gendr_tpu_torch.geometry import core, transforms as T
 from gendr_tpu_torch.raster import cuda_backend as CB
 from gendr_tpu_torch.raster import pairmath as PM
 from gendr_tpu_torch.raster.render import render
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG_TOL = 2e-3
 GRAD_ATOL, GRAD_RTOL = 5e-4, 5e-3

@@ -27,6 +27,7 @@ from gendr_tpu_torch.geometry import core, transforms as T
 from gendr_tpu_torch.raster import cuda_backend as CB
 from tests.test_torch_backward import _assert_grads_match
 from tests.test_torch_raster import sphere_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 SPLIT_REL = 1e-5
 

@@ -17,6 +17,7 @@ from experiments import opt_camera as JOC
 from gendr_tpu_torch import data, interop
 from gendr_tpu_torch.experiments import opt_camera as OC
 from gendr_tpu_torch.raster import pairmath as PM
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=2e-6, rtol=1e-5)
 

@@ -33,6 +33,7 @@ from gendr_tpu_torch.raster import pack
 from gendr_tpu_torch.raster import pairmath as PM
 from gendr_tpu_torch.raster import render as R
 from gendr_tpu_torch.raster import torch_backend as TB
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 4
@@ -40,17 +41,15 @@ CHAIN = 3
 
 
 @pytest.fixture
-def one_thread():
-    """One intra-op thread and deterministic algorithms: two runs of the
-    same steps then agree bitwise (test_torch_reconstruction.py)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+def deterministic():
+    """Deterministic algorithms, beside the module's one intra-op thread
+    (tests/torch_threads.py): two runs of the same steps then agree
+    bitwise (test_torch_reconstruction_cli.py)."""
     torch.use_deterministic_algorithms(True)
     try:
         yield
     finally:
         torch.use_deterministic_algorithms(False)
-        torch.set_num_threads(threads)
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +74,7 @@ def _shape_run(chain, criterion_threshold=None):
     return rec, params, first, exp
 
 
-def test_opt_shape_chain_equals_step_by_step(one_thread):
+def test_opt_shape_chain_equals_step_by_step(deterministic):
     one, p_one, _, e_one = _shape_run(1)
     # a threshold crossed after the first step: the bookkeeping over a
     # block's vector of hard losses gives the step-by-step index
@@ -109,7 +108,7 @@ def _camera_run(chain):
     return rec, exp
 
 
-def test_opt_camera_chain_equals_step_by_step(one_thread):
+def test_opt_camera_chain_equals_step_by_step(deterministic):
     one, e_one = _camera_run(1)
     chained, e_chained = _camera_run(CHAIN)
     assert one['iterations'] == chained['iterations'] == STEPS
@@ -179,7 +178,7 @@ def _assert_states_equal(a, b):
 
 
 def test_train_reconstruction_chain_equals_step_by_step(tmp_path,
-                                                        one_thread):
+                                                        deterministic):
     """--decay-at 3 stops the first block of 3 after 2 steps: blocks of 2
     and 2, against 4 of 1; the losses, the model, BatchNorm's statistics,
     Adam's state and the batch stream after step 4 bitwise equal."""

@@ -9,6 +9,7 @@ import pytest
 
 from gendr_tpu import config as JC
 from gendr_tpu_torch import config as C
+from torch_threads import one_torch_thread  # noqa: F401
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / 'gendr_tpu_torch'
 # jax and its libraries, the JAX package, and the JAX scripts' top-level

@@ -56,6 +56,7 @@ from experiments import opt_camera as JOC
 from experiments.common import iou_loss as jax_iou_loss
 from gendr_tpu import data as jdata
 from gendr_tpu_torch.experiments import opt_camera as OC
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAMERA_ARGS = ['-bs', '8', '-is', '16', '-ni', '200']

@@ -19,6 +19,7 @@ from gendr_tpu_torch.geometry import core
 from gendr_tpu_torch.geometry.losses import FlattenLoss, LaplacianLoss
 from gendr_tpu_torch.geometry.mesh import Mesh
 from gendr_tpu_torch.ops import segments as SG
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _mesh(nv=162, B=2, seed=1):

@@ -35,6 +35,7 @@ from gendr_tpu_torch.raster import cuda_backend as CB
 from gendr_tpu_torch.raster import pack
 from gendr_tpu_torch.raster import pairmath as PM
 from gendr_tpu_torch.raster import torch_backend as TB
+from torch_threads import one_torch_thread  # noqa: F401
 
 F = 48
 

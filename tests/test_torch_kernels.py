@@ -32,6 +32,7 @@ from chip_smoke import (BAND_CASES, BANDS, BIG_TEXTURE_CASES,
                         t_conorm_inputs, training_inputs)
 from gendr_tpu_torch import config as C, render
 from gendr_tpu_torch.raster import cuda_backend as CB
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG_ATOL = 1e-4
 WINNER_AGREE = 0.999

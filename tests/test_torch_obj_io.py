@@ -25,6 +25,7 @@ from gendr_tpu_torch.geometry import obj_io
 from gendr_tpu_torch.geometry.mesh import Mesh
 from gendr_tpu_torch.native import objparse
 from gendr_tpu_torch.utils import png
+from torch_threads import one_torch_thread  # noqa: F401
 
 PARSERS = ['python', 'native']
 # load_textures on an atlas of random noise: the two libraries' float32

@@ -12,6 +12,7 @@ from gendr_tpu.ops import tconorms as JT
 from gendr_tpu_torch import config as C
 from gendr_tpu_torch.ops import distributions as D
 from gendr_tpu_torch.ops import tconorms as T
+from torch_threads import one_torch_thread  # noqa: F401
 
 XS = np.linspace(-4.0, 4.0, 161).astype(np.float32)
 

@@ -12,6 +12,7 @@ from gendr_tpu.raster import pairmath as JPM
 from gendr_tpu_torch import config as C, interop
 from gendr_tpu_torch.raster import pack, pairmath as PM
 from tests.test_render import random_scene, params_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def sliver_scene(seed=0, B=2, F=24):

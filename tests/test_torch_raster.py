@@ -37,6 +37,7 @@ from gendr_tpu_torch import config as C, interop, render
 from gendr_tpu_torch.raster import cuda_backend as CB
 from gendr_tpu_torch.raster import torch_backend as TB
 from tests.test_render import random_scene, params_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG_ATOL = 1e-4
 WINNER_AGREE = 0.999

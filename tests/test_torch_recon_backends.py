@@ -44,6 +44,7 @@ import gendr_tpu  # noqa: E402
 from experiments import train_reconstruction as JTR  # noqa: E402
 from experiments.common import iou_loss  # noqa: E402
 from gendr_tpu import data  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 IMAGE_SIZE = 64
 TAU = 10 ** -1.5

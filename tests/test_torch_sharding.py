@@ -39,6 +39,7 @@ from tests.test_pallas import _assert_mostly_close
 from tests.test_render import params_dict, random_scene
 from tests.test_torch_backward import GRAD_TOL as JAX_GRAD_TOL
 from tests.test_torch_raster import IMG_ATOL
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG_TOL = dict(atol=2e-5, rtol=1e-4)
 GRAD_TOL = dict(atol=2e-5, rtol=1e-3)

@@ -25,6 +25,7 @@ from gendr_tpu.geometry import core as JG, transforms as JT
 from gendr_tpu_torch import interop
 from gendr_tpu_torch.geometry import core as G, transforms as T
 from gendr_tpu_torch.raster import cuda_backend as CB
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG_ATOL = 1e-4
 FLIP_BUDGET = 0.01

@@ -36,6 +36,7 @@ from gendr_tpu_torch.raster import cuda_backend as CB
 from tests.test_render import params_dict, random_scene
 from tests.test_torch_backward import _image_grad, _port_grads, _xla_grads
 from tests.test_torch_raster import J_XF, _inputs
+from torch_threads import one_torch_thread  # noqa: F401
 
 IMG_TOL = 2e-3
 WINNER_AGREE = 0.999

@@ -29,6 +29,7 @@ from gendr_tpu_torch.geometry.losses import FlattenLoss, LaplacianLoss
 from experiments import opt_shape as JOS
 from experiments.common import iou_loss as jiou_loss
 from tests.test_pallas import _assert_mostly_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 NV = 162
 SIZE = 24

@@ -17,6 +17,7 @@ from gendr_tpu.geometry import transforms as JT
 from gendr_tpu.geometry.mesh import Mesh as JMesh
 from gendr_tpu_torch import Look, Mesh, Projection, functional
 from gendr_tpu_torch.geometry import transforms as T
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-6
 

@@ -46,6 +46,7 @@ from gendr_tpu.ops import distributions as JD
 from gendr_tpu.ops import tconorms as JT
 from gendr_tpu_torch import _build
 from gendr_tpu_torch.tools import _ulp, ulp_bisect, ulp_check, ulp_smem
+from torch_threads import one_torch_thread  # noqa: F401
 
 SCALE, PI, LN2 = _ulp.SCALE, _ulp.PI, _ulp.LN2
 TOL = dict(cdf=2e-6, fold=2e-6, pdf=1e-5, fold_backward=1e-5,

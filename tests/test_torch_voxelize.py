@@ -10,6 +10,7 @@ from gendr_tpu import data
 from gendr_tpu.geometry import core as JG, voxelize as JV
 from gendr_tpu_torch.geometry import core, voxelize
 from gendr_tpu_torch.geometry.mesh import Mesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_sphere_is_solid():
