@@ -50,7 +50,12 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    tau 1e-2) against backend='torch'; (b) the default GenDR
    (anti-aliased 256x256, softmax RGB) on 4 views with surface and then
    vertex textures, forward and loss.backward() to vertices and textures,
-   one launch of each kernel per run, against backend='torch';
+   one launch of each kernel per run, against backend='torch'; (c) path
+   (l): the default GenDR through backend='torch' on 4 views of the
+   stand-in at 33 x 33 texels a face, above the kernels' softmax cap,
+   forward and backward twice, the image and the face, vertex and texel
+   gradients bitwise equal (no atomics), under 16 GiB of device memory,
+   both runs timed (``--torch-texel-only`` runs it alone);
 5. drives the t-conorm sweeps, path (c): ``gendr_tpu_torch.animations.
    panda_tcn`` at its defaults (1536x1536 renders, 25 texels, softmax RGB,
    uniform CDF) over the full canonical list of 11 t-conorm configurations
@@ -107,9 +112,11 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    the first 5, every loss and gradient finite, the voxel IoU finite;
    (i3) one step with ``--data-parallel 2`` (two gloo ranks of the one
    card, BatchNorm with the whole batch's moments) against the
-   one-process step; (i2) both kernels against their plain versions on
-   the experiment's own inputs (the first step's B=256 render and the
-   dataset's 24-view hard render) with phase 1's gates; (i4) the
+   one-process step at seeds 0-2, each parameter tensor's gradient within
+   1.5 times the change that reordering the batch makes to it; (i2) both
+   kernels against their plain versions on the experiment's own inputs
+   (the first step's B=256 render and the dataset's 24-view hard render)
+   with phase 1's gates; (i4) the
    synthetic dataset's silhouettes and voxels on the card against the
    CPU's; (i5) the step's time beside opt_shape's;
 10. times the kernels against their plain versions beside their bounds, at
@@ -201,6 +208,11 @@ TRAIN_LR, TRAIN_SIGMA = 10 ** -1.5, 1e-2
 PANDA_ARGS = ['--quick', '--device', 'cuda']
 PANDA_FRAMES = 14  # --quick: 2 distributions x 7 taus
 GENDR_VIEWS = 4
+# path (l): backend='torch' over a surface texture above the kernels'
+# softmax cap (cuda_backend.SOFTMAX_TS_CAP = 1024 texels a face), where it
+# is the only backend on the card: 33 x 33 texels a face, the smallest
+# size above the cap
+TORCH_TEXEL_RES = 33
 # path (c): the t-conorm sweeps as their users run them on the card, and the
 # frames they make: 11 configurations x 7 taus, 3 families x 8 values of p,
 # and --quick's 2 configurations x 7 taus of the triangle
@@ -278,6 +290,15 @@ RECON_DP_SEEDS = (0, 1, 2)
 # 1.9 and 0.9 times the reversed batch's alone, on an NVIDIA H100 80GB
 # HBM3 at 700 W)
 RECON_DP_REORDERS, RECON_DP_FLOOR_K = 4, 2.0
+# and tensor by tensor: the gradient (Adam's first moment) of each
+# parameter tensor within RECON_DP_GRAD_TENSOR_K times that tensor's floor,
+# at every seed (measured: within 1.20 times over 4 reorders, 1.01 over 16,
+# on an NVIDIA H100 80GB HBM3 at 700 W).  The parameters after Adam's first
+# step are printed tensor by tensor but gated only as the whole vector:
+# that step, -lr g / (|g| + 1e-8), moves an entry whose |g| is near 1e-8
+# by anything up to lr, so one ulp of such a gradient can set a tensor's
+# ratio (4.70 times over 4 reorders, one ulp over a floor of 0 over 16)
+RECON_DP_GRAD_TENSOR_K = 1.5
 # the gradient's bound: in one process, reordering the batch of 64
 # (BatchNorm's sums in another order) moved the whole gradient by 1.9e-3
 # norm-relative on an NVIDIA H100 80GB HBM3 at 700 W (the uniform CDF's PDF
@@ -721,16 +742,19 @@ def obj_scene(obj_path, texture_res=OBJ_TEXTURE_RES):
     return v, f, tex, texture_res
 
 
-def gendr_path(texture_type, backend=None, scene=None, **renderer_kw):
+def gendr_path(texture_type, backend=None, scene=None, times=None,
+               **renderer_kw):
     """Mesh -> Lighting -> LookAt -> GenDR(anti_aliasing=True) with the
     renderer's defaults (256x256 rendered at 512x512, softmax RGB, uniform
     tau 1e-2, probabilistic, single-sided) on the textured stand-in
     (texture_res 5, TS=25; or random vertex colours), or on scene =
     (vertices, faces, textures, texture_res), from GENDR_VIEWS
     views, and loss.backward() of 0.5 sum(alpha^2) + 0.1 sum(rgb) to the
-    vertices and textures.  Returns (image, face vertices [B, F, 9] and
-    textures as the renderer took them, the gradients of the face
-    vertices, vertices and textures)."""
+    vertices and textures.  Where times is a dict, it gets 'forward_ms'
+    (the mesh to the loss) and 'backward_ms', host clock, each ended by a
+    synchronise.  Returns (image, face vertices [B, F, 9] and textures as
+    the renderer took them, the gradients of the face vertices, vertices
+    and textures)."""
     import torch
     import gendr_tpu_torch as G
     from gendr_tpu_torch import data
@@ -740,6 +764,9 @@ def gendr_path(texture_type, backend=None, scene=None, **renderer_kw):
     verts = torch.as_tensor(v, device='cuda').clone().requires_grad_(True)
     tex = torch.as_tensor(tex, dtype=torch.float32, device='cuda').clone() \
         .requires_grad_(True)
+    if times is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
     mesh = G.Mesh.create(verts, f, tex, res if texture_type == 'surface'
                          else 1, texture_type).repeat(GENDR_VIEWS)
     look = G.LookAt().to('cuda')
@@ -753,7 +780,14 @@ def gendr_path(texture_type, backend=None, scene=None, **renderer_kw):
     img = G.GenDR(anti_aliasing=True, texture_type=texture_type,
                   backend=backend, **renderer_kw).forward_tensors(fv, ftex)
     loss = 0.5 * (img[:, 3] ** 2).sum() + 0.1 * img[:, :3].sum()
+    if times is not None:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
     loss.backward()
+    if times is not None:
+        torch.cuda.synchronize()
+        times['forward_ms'] = 1e3 * (t1 - t0)
+        times['backward_ms'] = 1e3 * (time.perf_counter() - t1)
     B = fv.shape[0]
     return (img.detach(), fv.detach().reshape(B, -1, 9).contiguous(),
             ftex.detach().contiguous(), fv.grad.reshape(B, -1, 9),
@@ -1520,6 +1554,67 @@ def gendr_default_path():
     return launches
 
 
+def torch_texel_phase():
+    """Path (l): the default GenDR (softmax RGB) through backend='torch' on
+    GENDR_VIEWS views of the textured stand-in at TORCH_TEXEL_RES^2 texels
+    a face, above the kernels' softmax cap, forward and backward twice on
+    the same inputs: the image and the face, vertex and texel gradients
+    bitwise equal across the runs (the texel gradient is a fixed-order
+    segment sum, torch_backend.texel_sums: no atomics), finite, the texel
+    gradient not zero, the peak device memory under TORCH_PEAK_GIB.
+    Prints both runs' forward and backward times.  Returns nothing: no
+    kernel runs here."""
+    import torch
+    from gendr_tpu_torch import data
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    res = TORCH_TEXEL_RES
+    if not res * res > CB.SOFTMAX_TS_CAP:
+        raise AssertionError(f'{res * res} texels a face is inside the '
+                             f'kernels\' cap')
+    scene = (*data.textured_scene(res), res)
+    launches = dict(CB.LAUNCHES)
+    runs = []
+    for _ in range(2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = {}
+        img, _, _, gfv, gv, gt = gendr_path('surface', 'torch', scene, times)
+        runs.append(((img, gfv, gv, gt), times,
+                     torch.cuda.max_memory_allocated() / 2 ** 30))
+    names = ('image', 'face gradient', 'vertex gradient', 'texel gradient')
+    (first, _, _), (second, _, _) = runs
+    equal = {n: torch.equal(a.view(torch.int32), b.view(torch.int32))
+             for n, a, b in zip(names, first, second)}
+    gt = first[3]
+    finite = all(bool(torch.isfinite(x).all()) for x in first)
+    nonzero = int((gt != 0).sum())
+    peak = max(p for _, _, p in runs)
+    print(f'[torch texels] {smi_line()}: default GenDR (softmax RGB, '
+          f'anti-aliased 256x256) through backend=torch on {GENDR_VIEWS} '
+          f'views of the stand-in at {res * res} texels a face (kernels\' '
+          f'cap {CB.SOFTMAX_TS_CAP}), texture gradient '
+          f'{tuple(gt.shape)}: two runs bitwise equal '
+          + ', '.join(f'{n} {e}' for n, e in equal.items())
+          + f'; finite {finite}; texel gradient entries not zero '
+          f'{nonzero} of {gt.numel()}, largest '
+          f'{float(gt.abs().max()):.3g}; forward / backward ms (host clock, '
+          f'synchronised) ' + ', '.join(
+              f'{t["forward_ms"]:.1f} / {t["backward_ms"]:.1f}'
+              for _, t, _ in runs)
+          + f'; peak device memory (max_memory_allocated) {peak:.2f} GiB '
+          f'(gate {TORCH_PEAK_GIB} GiB)', flush=True)
+    del runs, first, second, gt
+    torch.cuda.empty_cache()
+    if CB.LAUNCHES != launches:
+        raise AssertionError('backend=torch launched a kernel')
+    if not all(equal.values()):
+        raise AssertionError(f'backend=torch: two runs differ: {equal}')
+    if not finite or not nonzero:
+        raise AssertionError('backend=torch: a non-finite or zero gradient')
+    if not peak < TORCH_PEAK_GIB:
+        raise AssertionError(f'backend=torch peaked at {peak} GiB')
+
+
 def obj_path(obj_file):
     """Phase 6, path (e): load_obj of the written OBJ onto the card, the
     default GenDR on 4 views of it forward and backward, and the sweep
@@ -1887,9 +1982,10 @@ def reconstruction_dp_phase(device='cuda'):
     """Path (i3) over RECON_DP_SEEDS (the runs' --seed: the weights, the
     batch): for each, _reconstruction_dp_step, whose parameters are held
     to RECON_DP_REL at the first seed (the one path (i3) has always run)
-    and to their own floor at every seed; then the spread of the
-    parameters' differences over the seeds.  Returns each kernel's
-    launches summed over the ranks of every seed's step."""
+    and to their own floor at every seed, and each gradient tensor to its
+    own floor; then the spread of the differences over the seeds.
+    Returns each kernel's launches summed over the ranks of every seed's
+    step."""
     launches, params, floors = {}, [], []
     ratios = {'parameters': [], 'gradient': []}
     for seed in RECON_DP_SEEDS:
@@ -1910,12 +2006,14 @@ def reconstruction_dp_phase(device='cuda'):
           f'orders {[float(f"{e:.3g}") for e in floors]} (gate: '
           f'{RECON_DP_FLOOR_K:g} times, at every seed)', flush=True)
     for kind, rs in ratios.items():
+        k = RECON_DP_GRAD_TENSOR_K if kind == 'gradient' else RECON_DP_FLOOR_K
         print(f'[reconstruction dp] the {kind} by tensor, the largest dp / '
               f'floor ratios: ' + ', '.join(
                   f'{n} {r:.2f} (seed {sd})'
                   for r, n, sd in sorted(rs, reverse=True)[:5])
-              + f'; above {RECON_DP_FLOOR_K:g} times their floor: '
-              f'{sum(r > RECON_DP_FLOOR_K for r, _, _ in rs)} of {len(rs)}',
+              + f'; above {k:g} times their floor: '
+              f'{sum(r > k for r, _, _ in rs)} of {len(rs)}'
+              + (' (the gate)' if kind == 'gradient' else ' (printed)'),
               flush=True)
     return launches
 
@@ -1941,11 +2039,12 @@ def _reconstruction_dp_step(device, seed, first=True):
     gradient is 0 under the BatchNorm that follows, is held to no more
     than lr on both sides.  The parameters are held to RECON_DP_REL where
     ``first`` and to RECON_DP_FLOOR_K times their floor at every seed;
-    the other differences to their bounds at every seed.  Prints the
-    parameters' and the gradient's numbers tensor by tensor too.  Returns
-    (the differences by name, the parameters' floor, each kernel's
-    launches summed over the ranks, {'parameters' or 'gradient':
-    {parameter name: (its dp difference, its floor)}})."""
+    the gradient of each parameter tensor to RECON_DP_GRAD_TENSOR_K times
+    that tensor's floor; the other differences to their bounds at every
+    seed.  Prints the parameters' and the gradient's numbers tensor by
+    tensor.  Returns (the differences by name, the parameters' floor,
+    each kernel's launches summed over the ranks, {'parameters' or
+    'gradient': {parameter name: (its dp difference, its floor)}})."""
     import tempfile
     import torch
     from gendr_tpu_torch.experiments import train_reconstruction as TR
@@ -2025,6 +2124,8 @@ def _reconstruction_dp_step(device, seed, first=True):
     by_tensor = {kind: {n: (d, f) for n, d, f in
                         zip(names, dp_by[kind], floor_by[kind])}
                  for kind in dp_by}
+    grad_over = {n: _ratio(d, f) for n, (d, f) in by_tensor['gradient']
+                 .items() if not d <= RECON_DP_GRAD_TENSOR_K * f}
     for kind, rows in by_tensor.items():
         print(f'[reconstruction dp] seed {seed}, the {kind} by tensor, '
               f'norm-relative: dp against one process / the largest of '
@@ -2046,18 +2147,24 @@ def _reconstruction_dp_step(device, seed, first=True):
           f'{max(v for k, v in errs.items() if "running" in k):.3g}, '
           f'gradient {grad_rel:.3g} (one process, batch reordered, '
           f'largest: '
-          f'{floor_grad:.3g}); convolution biases within lr {bias_ok}; '
+          f'{floor_grad:.3g}); the gradient tensor by tensor within '
+          f'{RECON_DP_GRAD_TENSOR_K:g} times its floor: '
+          f'{len(names) - len(grad_over)} of {len(names)} (largest ratio '
+          f'{max(_ratio(d, f) for d, f in by_tensor["gradient"].values()):.3f}'
+          f'); convolution biases within lr {bias_ok}; '
           f'seconds in collectives per rank {two["collective_seconds"]}; '
           f'launches per rank {two["launches"]}; {seconds:.1f} s with the '
           f'ranks\' start', flush=True)
     if not (errs[worst] < RECON_DP_REL and bias_ok
-            and grad_rel < RECON_DP_GRAD_REL
+            and grad_rel < RECON_DP_GRAD_REL and not grad_over
             and errs['parameters'] <= RECON_DP_FLOOR_K * floor_params
             and (errs['parameters'] < RECON_DP_REL or not first)):
         raise AssertionError(f'data-parallel step vs one process at seed '
                              f'{seed}: {worst} {errs[worst]}, parameters '
                              f'{errs["parameters"]} (floor {floor_params}), '
-                             f'gradient {grad_rel}, biases {bias_ok}')
+                             f'gradient {grad_rel}, gradient tensors over '
+                             f'{RECON_DP_GRAD_TENSOR_K:g} times their floor '
+                             f'{grad_over}, biases {bias_ok}')
     if device != 'cpu' and not all(r[k] >= 1 for r in two['launches']
                                    for k in RENDER_KERNELS):
         raise AssertionError(f'a dp rank launched no kernel: '
@@ -3554,6 +3661,10 @@ def main():
         _build.build(*_build.SIGNATURES)
         compaction_phase(smi)
         return 0
+    if sys.argv[1:] == ['--torch-texel-only']:
+        # a quick look at path (l) alone: it builds no kernel
+        torch_texel_phase()
+        return 0
     if sys.argv[1:] == ['--camera-only']:
         # a quick look at path (k) alone
         _build.build(*_build.SIGNATURES)
@@ -3587,6 +3698,7 @@ def main():
         panda_frame_vs_torch()
         for texture_type, launches in gendr_default_path().items():
             by_path[f'gendr_{texture_type}'] = launches
+        torch_texel_phase()
         by_path['tcn'] = tcn_path()
         tcn_frame_vs_torch()
         by_path['training_yager'], yager_steps = training_path(YAGER_ARGS)

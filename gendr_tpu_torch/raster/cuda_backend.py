@@ -1065,11 +1065,10 @@ def rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed, perm, pix,
                     out[:, t0 + ch, sl] = tex_coef[ch].sum(1)
             else:
                 ti = G.surface_texel_index(q['wcn'], texture_res(TS))
-                ti = ti.expand(frag.shape).long()
-                gt = torch.zeros((B, 3 * TS, FC), device=dev)
-                for ch in range(3):
-                    gt.scatter_add_(1, 3 * ti + ch, tex_coef[ch])
-                out[:, t0:t0 + 3 * TS, sl] = gt
+                gt = TB.texel_sums(torch.stack(tex_coef, -1),
+                                   ti.expand(frag.shape), TS)
+                out[:, t0:t0 + 3 * TS, sl] = gt.permute(0, 2, 3, 1) \
+                    .reshape(B, 3 * TS, FC)
 
         if cfg.dist_func == C.HEAVISIDE:
             continue  # its PDF is 0: no geometry gradient

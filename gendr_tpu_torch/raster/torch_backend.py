@@ -33,6 +33,7 @@ import torch
 from gendr_tpu_torch import config as C
 from gendr_tpu_torch.ops import distributions as D
 from gendr_tpu_torch.ops import tconorms as T
+from gendr_tpu_torch.ops.segments import segment_sum, segments
 from gendr_tpu_torch.raster import geometry as G
 from gendr_tpu_torch.raster import pack
 from gendr_tpu_torch.raster import pairmath as PM
@@ -508,15 +509,23 @@ def _backward_chunks(packed, tex_p, xp, yp, g, final, aggr, cf,
         elif TS == 1:
             gtex = gtex_coef.sum(1)[:, :, None, :]
         else:
-            # scatter each pair's coefficient to the texel it samples
             ti = G.surface_texel_index(w_clip, int(round(TS ** 0.5)))
-            idx = (torch.arange(cf, device=dev) * TS + ti.expand(frag.shape)) \
-                .reshape(B, -1, 1).expand(-1, -1, 3)
-            gtex = torch.zeros((B, cf * TS, 3), device=dev).scatter_add_(
-                1, idx, gtex_coef.reshape(B, -1, 3)).reshape(B, cf, TS, 3)
+            gtex = texel_sums(gtex_coef, ti.expand(frag.shape), TS)
         gtexs.append(gtex)
 
     return torch.cat(gfaces, dim=1), torch.cat(gtexs, dim=1)
+
+
+def texel_sums(coef, ti, TS):
+    """Each pair's texture-gradient coefficient coef [B, P, CF, 3] summed
+    into the texel ti [B, P, CF] (int) it samples: [B, CF, TS, 3].  A
+    fixed-order segment sum over face * TS + texel (``ops.segments``): each
+    texel's pairs are added from 0 in ascending pixel order, the order
+    ``scatter_add_`` takes on the CPU, and with no atomics on the card."""
+    B, _, cf = ti.shape
+    idx = (torch.arange(cf, device=ti.device) * TS + ti).reshape(B, -1)
+    out = segment_sum(coef.reshape(B, -1, 3), segments(idx, cf * TS))
+    return out.reshape(B, cf, TS, 3)
 
 
 def backward_from_aux(face_vertices, textures, aux, soft_colors, aggrs_info,

@@ -217,3 +217,55 @@ def test_backward_texel_sums_in_registers_need_no_block():
     big = C.RenderConfig.create(image_size=16, aggr_rgb_func='softmax',
                                 face_chunk=128, backend='cuda')
     assert CB._bwd_smem(big, 256) > CB.SMEM_LIMIT
+
+
+def _scatter_torch(coef, ti, TS):
+    """backend='torch''s texel sum as it was: one scatter_add_ over face *
+    TS + texel, which sums in atomic order on a CUDA tensor."""
+    B, _, cf = ti.shape
+    idx = (torch.arange(cf) * TS + ti).reshape(B, -1, 1).expand(-1, -1, 3)
+    return torch.zeros((B, cf * TS, 3)).scatter_add_(
+        1, idx, coef.reshape(B, -1, 3)).reshape(B, cf, TS, 3)
+
+
+def _scatter_plain(coef, ti, TS):
+    """rasterize_bwd_plain's texel rows as they were ([B, 3 TS, FC], row
+    3 texel + channel), put back into texel_sums' layout."""
+    B, _, fc = ti.shape
+    gt = torch.zeros((B, 3 * TS, fc))
+    for ch in range(3):
+        gt.scatter_add_(1, 3 * ti.long() + ch, coef[..., ch])
+    return gt.reshape(B, TS, 3, fc).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize('backend,rgb,ts', [
+    ('torch', 'softmax', 49), ('torch', 'softmax', 1089),
+    ('torch', 'hard', 49), ('cuda', 'softmax', 49), ('cuda', 'hard', 49)])
+def test_texel_sums_are_the_scatter_bitwise(backend, rgb, ts, monkeypatch):
+    """The texel gradient summed in a fixed order (TB.texel_sums, a
+    segment sum) is bitwise the scatter_add_ it replaces on the CPU, where
+    scatter_add_ adds each texel's pairs from 0 in ascending pixel order:
+    every call of the backward (backend='torch', and 'cuda''s plain
+    version, rasterize_bwd_plain) held against the old expression on its
+    own inputs; and the whole gradient against xla (TEX_TOL)."""
+    calls = []
+    texel_sums = TB.texel_sums
+
+    def spy(coef, ti, TS):
+        out = texel_sums(coef, ti, TS)
+        calls.append((coef, ti, TS, out))
+        return out
+    monkeypatch.setattr(TB, 'texel_sums', spy)
+    fv, tex, g, kw, jp, tp = _scene(rgb, ts)
+    got, got_g = _port(backend, fv, tex, g, kw, tp)
+    old = _scatter_torch if backend == 'torch' else _scatter_plain
+    assert calls and all(TS == ts for _, _, TS, _ in calls)
+    for coef, ti, TS, out in calls:
+        want = old(coef, ti, TS)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert any(bool((out != 0).any()) for *_, out in calls)
+    jcfg = JC.RenderConfig.create(**kw)
+    jfv, jtex = jnp.asarray(fv), jnp.asarray(tex)
+    want, want_ag = J_XF(jfv, jtex, None, jcfg, jp)
+    want_g = J_XB(jfv, jtex, None, want, want_ag, jnp.asarray(g), jcfg, jp)
+    _assert_close(got, got_g, want, want_g)

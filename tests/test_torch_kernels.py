@@ -611,3 +611,15 @@ def test_slab_kernel_matches_plain(cuda, name):
     check_slab(name, cfg, params, aux, TS, out)
     bargs = backward_args(aux, cfg, params, TS, out)
     assert torch.equal(CB.rasterize_bwd(*bargs), CB.rasterize_bwd(*bargs))
+
+
+@pytest.mark.cuda
+def test_torch_backend_texel_gradient_repeats_bitwise(cuda):
+    """backend='torch' above the kernels' softmax cap, where it is the only
+    backend on the card: the default GenDR at 33 x 33 texels a face on 4
+    views, forward and backward twice, the image and the face, vertex and
+    texel gradients bitwise equal (the texel gradient is a fixed-order
+    segment sum, no atomics), under TORCH_PEAK_GIB (path (l),
+    chip_smoke.torch_texel_phase)."""
+    from chip_smoke import torch_texel_phase
+    torch_texel_phase()
