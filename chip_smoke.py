@@ -2179,9 +2179,13 @@ def _reconstruction_dp_step(device, seed, first=True):
 def record_captured_kernels():
     """Wrap both kernel wrappers so that each call made while a CUDA graph
     is captured keeps its arguments and its output: buffers of the graph,
-    which every replay writes again.  Returns (calls, restore)."""
+    which every replay writes again.  The calls of a StepChain's marked
+    copy of its step (captured while a phase recorder is active) are left
+    out: that graph replays only under a profiler.  Returns (calls,
+    restore)."""
     import torch
     from gendr_tpu_torch.raster import cuda_backend as CB
+    from gendr_tpu_torch.utils import profiling
     calls = []
     originals = {n: getattr(CB, n) for n in ('rasterize_fwd',
                                              'rasterize_bwd')}
@@ -2189,7 +2193,8 @@ def record_captured_kernels():
     def wrap(name, fn):
         def recorded(*args, **kw):
             out = fn(*args, **kw)
-            if torch.cuda.is_current_stream_capturing():
+            if torch.cuda.is_current_stream_capturing() \
+                    and profiling.recorder() is None:
                 calls.append((name, args, kw, out))
             return out
         return recorded

@@ -20,6 +20,7 @@ import torch
 from gendr_tpu_torch import data
 from gendr_tpu_torch.device import as_float32, to_device
 from gendr_tpu_torch.geometry import obj_io
+from gendr_tpu_torch.utils import profiling
 
 
 def iou_loss(predict, target, reduce='mean'):
@@ -172,6 +173,16 @@ class StepChain:
     ``fetches`` counts the fetches, ``replays`` the replays; ``captured``
     holds the kernel launches (cuda_backend.LAUNCHES) the graph recorded,
     which each replay launches again.
+
+    The step's phase marks (``utils.profiling.mark``) are kept only for a
+    block's last step while a profiler records: the capture makes a second
+    graph of the step with its marks (event-record nodes), in a pool of its
+    own, which replays in place of the plain graph there and nowhere else,
+    so no other replay carries a mark; an eager block records that step's
+    marks.  After each fetch, while a profiler records, that step's phases
+    go into ``profiling.phase_table()``.  The block's copy, each step and
+    the fetch are the profiler's spans ``gendr.chain.inputs``, ``.step``
+    and ``.fetch``.
     """
 
     def __init__(self, step, inputs, capture=False, state=(),
@@ -185,18 +196,22 @@ class StepChain:
         self.device = next(iter(inputs.values())).device
         self.graph = None
         self.out = None
+        self.marked = None    # (graph, out, recorder) of the marked copy
         self.fetches = 0
         self.replays = 0
         self.captured = {}
+        self.recorder = None
 
     def run(self, xs):
         """Steps len(xs[name]) times, step j with row j of each xs[name] (on
         the host) in inputs[name]; returns their results [n, k] on the
         CPU."""
-        block = {k: to_device(torch.as_tensor(v), self.device)
-                 for k, v in xs.items()}
+        with profiling.span('chain.inputs'):
+            block = {k: to_device(torch.as_tensor(v), self.device)
+                     for k, v in xs.items()}
         n = len(next(iter(block.values())))
         outs = []
+        self.recorder = None
         if self.capture:
             if self.graph is None:
                 self._load(block, 0)
@@ -205,18 +220,40 @@ class StepChain:
             torch.cuda.set_sync_debug_mode('error')
             try:
                 for j in range(n):
-                    self._load(block, j)
-                    self.graph.replay()
-                    outs.append(self.out.clone())
+                    graph, out = self.graph, self.out
+                    if j == n - 1 and profiling.active():
+                        graph, out, self.recorder = self.marked
+                    with profiling.span('chain.step'):
+                        self._load(block, j)
+                        graph.replay()
+                    outs.append(out.clone())
             finally:
                 torch.cuda.set_sync_debug_mode(previous)
             self.replays += n
         else:
             for j in range(n):
-                self._load(block, j)
-                outs.append(self.step().detach())
+                with profiling.span('chain.step'):
+                    self._load(block, j)
+                    if j == n - 1 and profiling.active():
+                        self.recorder = profiling.Recorder(self.device)
+                        out = self._recorded_step(self.recorder)
+                    else:
+                        out = self.step()
+                outs.append(out.detach())
         self.fetches += 1
-        return torch.stack(outs).cpu()
+        with profiling.span('chain.fetch'):
+            res = torch.stack(outs).cpu()
+        if self.recorder is not None:
+            profiling.add_phases(self.recorder)
+        return res
+
+    def _recorded_step(self, recorder):
+        """step() with its phase marks kept by recorder, and a last mark
+        where it returns."""
+        with profiling.recording(recorder):
+            out = self.step()
+            profiling.mark('end')
+        return out
 
     def _load(self, block, j):
         for k, v in block.items():
@@ -229,6 +266,17 @@ class StepChain:
                         if isinstance(v, torch.Tensor)}
                 for p, s in self.optimizer.state.items()}
 
+    def _graph(self, step):
+        """(a CUDA graph of step(), its output)."""
+        if self.optimizer is not None:
+            # the captured backward allocates the gradients in the graph's
+            # pool, where each replay writes them
+            self.optimizer.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode='global'):
+            out = step()
+        return graph, out
+
     def _capture(self):
         from gendr_tpu_torch.raster import cuda_backend as CB
         saved = [t.detach().clone() for t in self.state]
@@ -240,16 +288,15 @@ class StepChain:
             for _ in range(self.warmup):
                 self.step()
         main.wait_stream(side)
-        if self.optimizer is not None:
-            # the captured backward allocates the gradients in the graph's
-            # pool, where each replay writes them
-            self.optimizer.zero_grad(set_to_none=True)
         before = dict(CB.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode='global'):
-            out = self.step()
+        recorder = profiling.Recorder(self.device)
+        self.marked = (*self._graph(lambda: self._recorded_step(recorder)),
+                       recorder)
+        # the marked copy launches what the plain graph does: counted once
+        CB.LAUNCHES.update(before)
+        # the plain graph last: the parameters' .grad are its buffers
+        self.graph, self.out = self._graph(self.step)
         self.captured = {k: CB.LAUNCHES[k] - before[k] for k in before}
-        self.graph, self.out = graph, out
         with torch.no_grad():
             for t, v in zip(self.state, saved):
                 t.copy_(v)

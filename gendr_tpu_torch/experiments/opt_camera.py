@@ -42,6 +42,7 @@ from gendr_tpu_torch.experiments.common import (GifWriter, StepChain,
                                                 require_gif_support,
                                                 reset_optimizer)
 from gendr_tpu_torch.geometry import transforms as T
+from gendr_tpu_torch.utils import profiling
 
 SEED = 0
 THRESHOLD = 5.0   # degrees: a pose whose angles end inside it has succeeded
@@ -153,6 +154,7 @@ class CameraExperiment:
                 dist_scale=sigma), self.device))
         pred = self.render(self.diff_renderer, poses, par=self.par,
                            additional_poses=self.poses_gt)
+        profiling.mark('loss')
         if loss_name == 'mse':
             # opt_camera.py:25-26: sum over batch, mean over pixels
             loss = ((pred[:, 3] - self.goal[:, 3]) ** 2).sum(0).mean()
@@ -167,9 +169,12 @@ class CameraExperiment:
     def train_step(self, opt, poses, sigma=None, loss_name='iou'):
         """One Adam step on poses (a leaf that requires grad); returns
         (loss, rendered batch)."""
+        profiling.mark('geometry')
         opt.zero_grad(set_to_none=True)
         loss, pred = self.loss_fn(poses, sigma, loss_name)
+        profiling.mark('loss.bwd')
         loss.backward()
+        profiling.mark('adam')
         opt.step()
         return loss.detach(), pred.detach()
 

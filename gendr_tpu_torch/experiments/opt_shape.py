@@ -47,6 +47,7 @@ from gendr_tpu_torch.experiments.common import (GifWriter, StepChain,
 from gendr_tpu_torch.geometry import core
 from gendr_tpu_torch.geometry.losses import FlattenLoss, LaplacianLoss
 from gendr_tpu_torch.geometry.transforms import get_points_from_angles
+from gendr_tpu_torch.utils import profiling
 
 ELEVATION_INDEX = {'-60': 0, '-30': 1, '0': 2, '30': 3, '60': 4}
 
@@ -188,6 +189,7 @@ class ShapeExperiment:
             self.set_dist_scale(dist_scale)
         mesh, lap, flat = self.model_mesh(eyes)
         images = self.diff_renderer(mesh, par=self.par)[:, 3]
+        profiling.mark('loss')
         sil = self.sil_loss_fn(images, targets)
         return sil + 0.03 * lap + 0.0003 * flat, images
 
@@ -197,18 +199,25 @@ class ShapeExperiment:
 
     def train_step(self, opt, eyes, targets, dist_scale=None):
         """One Adam step; returns (loss, images, every gradient finite)."""
+        profiling.mark('geometry')
         opt.zero_grad(set_to_none=True)
         loss, images = self.loss_fn(eyes, targets, dist_scale)
+        profiling.mark('loss.bwd')
         loss.backward()
+        profiling.mark('finite')
         finite = torch.stack([torch.isfinite(p.grad).all()
                               for p in self.model.parameters()]).all()
+        profiling.mark('adam')
         opt.step()
         return loss.detach(), images.detach(), finite
 
     @torch.no_grad()
     def hard_eval(self, eyes, targets):
-        mesh, _, _ = self.model_mesh(eyes)
-        return self.sil_loss_fn(self.hard_renderer(mesh)[:, 3], targets)
+        profiling.mark('eval')
+        # one phase: its render's own marks would file it under the step's
+        with profiling.recording(None):
+            mesh, _, _ = self.model_mesh(eyes)
+            return self.sil_loss_fn(self.hard_renderer(mesh)[:, 3], targets)
 
     def chained_step(self):
         """One train step + hard eval on the view set's buffers, with the

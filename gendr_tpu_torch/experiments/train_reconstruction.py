@@ -67,6 +67,7 @@ from gendr_tpu_torch.geometry import core, voxelize
 from gendr_tpu_torch.geometry.losses import FlattenLoss, LaplacianLoss
 from gendr_tpu_torch.geometry.transforms import get_points_from_angles
 from gendr_tpu_torch.parallel import sharding as S
+from gendr_tpu_torch.utils import profiling
 
 CLASS_IDS_MAP = {
     '02691156': 'Airplane', '02828884': 'Bench', '02933112': 'Cabinet',
@@ -314,6 +315,10 @@ class ShapeNet:
     def _draw(self, rng, batch_size):
         """Image ids and viewpoints of a batch: the JAX script's draws from
         rng, call for call, so a seed gives the same batches."""
+        with profiling.span('data.draw'):
+            return self._draw_ids(rng, batch_size)
+
+    def _draw_ids(self, rng, batch_size):
         data_ids_a = np.zeros(batch_size, 'int32')
         data_ids_b = np.zeros(batch_size, 'int32')
         vp_a = np.zeros(batch_size, np.float32)
@@ -589,7 +594,9 @@ class Reconstruction:
 
     def reconstruct(self, images, train):
         self.encoder.train(train)
-        return self.decoder(self.encoder(images))
+        features = profiling.grad_mark(self.encoder(images), 'encoder.bwd')
+        profiling.mark('decoder')
+        return profiling.grad_mark(self.decoder(features), 'decoder.bwd')
 
     def silhouette_mesh(self, vertices, eyes):
         """The lit mesh of vertices [B, nv, 3] seen from eyes [B, 3]."""
@@ -616,11 +623,13 @@ class Reconstruction:
         args = self.args
         images = torch.cat([images_a, images_b], 0)
         vertices = self.reconstruct(images, True)
+        profiling.mark('geometry')
         lap = self.laplacian(vertices).mean()
         flat = self.flatten(vertices).mean()
         eyes = torch.cat([eyes_a, eyes_a, eyes_b, eyes_b], 0)
         sils = self.renderer(self.silhouette_mesh(
             torch.cat([vertices, vertices], 0), eyes), par=self.par)[:, 3]
+        profiling.mark('loss')
         raa, rba, rab, rbb = sils.chunk(4)
         ta, tb = images_a[:, 3], images_b[:, 3]
         sil_loss = (iou_loss(raa, ta) + iou_loss(rba, ta)
@@ -640,14 +649,18 @@ class Reconstruction:
         """One Adam step at the optimizer's lr on this rank's share of the
         batch, the gradient averaged over dp; returns (the batch's loss,
         every gradient finite), both 0-d tensors on the device."""
+        profiling.mark('encoder')
         opt.zero_grad(set_to_none=True)
         loss = self.loss_fn(images_a, images_b, eyes_a, eyes_b, dist_scale)
+        profiling.mark('loss.bwd')
         loss.backward()
         params = self.parameters()
         if self.mesh is not None:
             loss = S.average_gradients(params, loss, self.mesh, 'dp')
+        profiling.mark('finite')
         finite = torch.stack([torch.isfinite(p.grad).all()
                               for p in params]).all()
+        profiling.mark('adam')
         opt.step()
         return loss.detach(), finite
 

@@ -73,6 +73,7 @@ from gendr_tpu_torch.raster import pack
 from gendr_tpu_torch.raster import pairmath as PM
 from gendr_tpu_torch.raster import torch_backend as TB
 from gendr_tpu_torch.raster.torch_backend import BIG_DEPTH, NEG_INF
+from gendr_tpu_torch.utils import profiling
 
 TILE = 16  # pixel tile edge: one CUDA block per 16x16 tile
 # shared memory of a forward block (static budget), and the most a backward
@@ -720,7 +721,9 @@ def forward_with_aux(face_vertices, textures, cfg: C.RenderConfig,
     winner ids in aggrs_info are input face ids."""
     TS = textures.shape[2]
     check_envelope(cfg, TS)
+    profiling.mark('prepass')
     aux = prepass(face_vertices, textures, cfg, params)
+    profiling.mark('raster')
     out = rasterize_fwd(aux['tile_counts'], aux['tile_ids'], aux['par'],
                         aux['packed'], aux['perm'], cfg, TS)
     soft_colors, aggrs_info = _finalize_soa(out, cfg,

@@ -27,6 +27,7 @@ import torch
 from gendr_tpu_torch import config as C
 from gendr_tpu_torch.device import to_device
 from gendr_tpu_torch.raster import cuda_backend, pairmath, torch_backend
+from gendr_tpu_torch.utils import profiling
 
 
 def _get_backend(cfg: C.RenderConfig, face_vertices):
@@ -155,7 +156,12 @@ def render(
                              f'tensor on {dev}, got {tuple(par.shape)} '
                              f'{par.dtype} on {par.device}')
         params = pairmath.vector_params(par)
-    return _Render.apply(face_vertices, textures, cfg, params)
+    # a recorded step's phases: the render's backward from its output's
+    # gradient to its input's, the geometry's backward after it
+    face_vertices = profiling.grad_mark(face_vertices, 'geometry.bwd')
+    profiling.mark('render')
+    return profiling.grad_mark(
+        _Render.apply(face_vertices, textures, cfg, params), 'render.bwd')
 
 
 def checked_config(*, image_size, dist_func, dist_scale, dist_squared,
