@@ -176,13 +176,25 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    --chain 1 from the same poses, bitwise, the first replay's kernels
    against their plain versions, one launch of each kernel a step; (k3)
    each step eager and chained, timed as (j6).  ``--camera-only`` runs it
-   alone.
+   alone;
+14. holds the prepass kernel (``csrc/prepass.cu``) against the plain
+   prepass on the card, every output bit for bit (PREPASS_CASES: the
+   benchmark cells' shapes, B=200 and B=256 at 64x64, a face count that
+   is no chunk multiple, tied Morton keys, degenerate faces, a face shard's
+   band, surface and vertex textures, the flagship at 256x256 with
+   compaction off, the kernel's whole sort of 16384 faces), a captured prepass replayed against the eager one, the
+   plain path where compaction fires or the faces pass the kernel's sort,
+   one kernel prepass a forward at the cells' shapes; then, at the cells'
+   shapes, the kernel and the plain prepass captured in graphs and
+   replayed, beside the byte bound.  ``--prepass-only`` runs it alone, with
+   ptxas's report of the kernel.
 
 Every failure raises, and the script then exits non-zero.  It exits
 non-zero with no result where there is no CUDA device.  The last line of
 its output is one JSON object naming the device; the one before it the
-card's name and power limit; the one before that the kernels (five:
-rasterize_fwd, rasterize_bwd, rasterize_bwd_slab and the two probes).
+card's name and power limit; the one before that the kernels (six:
+rasterize_fwd, rasterize_bwd, rasterize_bwd_slab, the two probes and the
+prepass).
 """
 
 from __future__ import annotations
@@ -357,6 +369,13 @@ def render_launches(fwd, bwd, slab=0):
     (alpha or hard RGB over vertex colours or one texel, compacted)."""
     return {'rasterize_fwd': fwd, 'rasterize_bwd': bwd,
             'rasterize_bwd_slab': slab}
+
+
+def render_counts(launches):
+    """The render kernels' counts of a cuda_backend.LAUNCHES snapshot, the
+    prepass kernel's left out (a path's shapes decide whether its prepass
+    takes the kernel; phase 14 checks that count)."""
+    return {k: launches[k] for k in render_launches(0, 0)}
 
 
 # the kernels every backward render launches (rasterize_bwd_slab runs only
@@ -972,26 +991,309 @@ def _back_to_back(fn, n=200):
     return float(np.median(runs))
 
 
-def _prepass_cost(fv, tex, cfg, params, reps=20):
+def _prepass_cost(fv, tex, cfg, params, reps=20, fn=None):
     """(host-clock ms of a prepass, synchronized, median of reps; its
-    device kernels from the profiler, None where it shows none)."""
+    device kernels from the profiler, None where it shows none).  fn: the
+    prepass to run, cuda_backend.prepass where None."""
     import torch
     from torch import profiler
     from gendr_tpu_torch.raster import cuda_backend as CB
+    fn = fn or CB.prepass
     times = []
     for _ in range(reps + 3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        CB.prepass(fv, tex, cfg, params)
+        fn(fv, tex, cfg, params)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
                                       profiler.ProfilerActivity.CUDA]) as pr:
-        CB.prepass(fv, tex, cfg, params)
+        fn(fv, tex, cfg, params)
         torch.cuda.synchronize()
     kernels = sum(e.count for e in pr.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
     return float(np.median(times[3:])), kernels or None
+
+
+# phase 14: the prepass kernel (csrc/prepass.cu) against the plain prepass,
+# bitwise (tests/test_torch_prepass.py runs the same cases): name, batch,
+# faces, image size, prepass_scene's kind, texels per face, RenderConfig
+# keywords (flagship_cfg's), RenderParams keywords.  The first three are
+# the benchmark's cells: opt_camera (logistic, dist_eps 100) at tau 0.1
+# and 1e-7, and the reconstruction's 256 silhouettes (uniform, dist_eps
+# 300, tau 10^-1.5)
+_CAMERA_CFG = dict(dist_func='logistic', channels='alpha')
+PREPASS_CASES = [
+    ('camera.blur', 200, 1280, 64, 'views', 1, _CAMERA_CFG,
+     dict(dist_scale=1e-1, dist_eps=100.0)),
+    ('camera.sharp', 200, 1280, 64, 'views', 1, _CAMERA_CFG,
+     dict(dist_scale=1e-7, dist_eps=100.0)),
+    ('recon.train', 256, 1280, 64, 'views', 1, dict(channels='alpha'),
+     dict(dist_scale=10 ** -1.5, dist_eps=300.0)),
+    ('ragged F=1000', 8, 1000, 64, 'views', 1, _CAMERA_CFG, {}),
+    ('key ties', 8, 1280, 64, 'ties', 1, _CAMERA_CFG, {}),
+    ('degenerate', 8, 1000, 48, 'degenerate', 1, _CAMERA_CFG, {}),
+    ('shard band', 8, 1280, 64, 'shard', 1, _CAMERA_CFG, {}),
+    ('surface 25', 4, 1000, 64, 'views', 25, dict(aggr_rgb_func='softmax'),
+     {}),
+    ('vertex', 4, 1280, 64, 'views', 1, dict(texture_type='vertex'), {}),
+    ('flagship off', 1, 1280, 256, 'views', 1, dict(compact='off'), {}),
+    ('sort full', 2, 16384, 64, 'views', 1, _CAMERA_CFG, {}),
+]
+# the prepass's outputs that the kernel writes
+PREPASS_OUTPUTS = ('packed', 'perm', 'tile_counts', 'tile_ids',
+                   'chunk_counts', 'chunk_ids')
+
+
+def prepass_scene(kind, B, F, device, seed=0, TS=1, texture_type='surface'):
+    """(face vertices [B, F, 9], textures, prepass keywords) of a phase 14
+    scene: 'views', the 1280-face icosphere's first F faces (repeated past
+    1280) seen from B seeded cameras (distance 2.5-4, elevation and
+    azimuth N(0, 60) degrees, perspective 30 degrees); 'ties', the same
+    with every odd face a copy of the one before and the first quarter
+    moved off the image's lower left corner, where their keys clamp to 0;
+    'degenerate', the same with point-degenerate faces, faces whose three
+    vertices are collinear or two of them equal, and vertices at depth 0;
+    'shard', the same with the face-sharded path's keywords (a seeded
+    fvalid, the band of rows 16-47, no compaction).  Textures: TS texels a
+    face, or three vertex colours."""
+    import torch
+    from gendr_tpu_torch import data
+    from gendr_tpu_torch.geometry import core, transforms as T
+    rng = np.random.RandomState(seed)
+    v, f = data.icosphere(3)
+    verts = torch.as_tensor(v, dtype=torch.float32)[None].expand(B, -1, -1)
+    eyes = T.get_points_from_angles(2.5 + 1.5 * rng.rand(B),
+                                    60.0 * rng.randn(B), 60.0 * rng.randn(B))
+    verts = T.perspective(T.look_at(0.9 * verts, eyes), 30.0)
+    faces = torch.as_tensor(np.resize(np.asarray(f), (F, 3)))
+    fv = core.face_vertices(verts, faces[None].expand(B, -1, -1)) \
+        .reshape(B, F, 9).numpy().astype(np.float32)
+    kw = {}
+    if kind == 'ties':
+        fv[:, 1::2] = fv[:, 0:F - F % 2:2]
+        fv[:, :F // 4, [0, 1, 3, 4, 6, 7]] -= 5.0
+    elif kind == 'degenerate':
+        fv[:, 0::7, 3:6] = fv[:, 0::7, 0:3]
+        fv[:, 0::7, 6:9] = fv[:, 0::7, 0:3]
+        fv[:, 1::7, 6:9] = 0.5 * (fv[:, 1::7, 0:3] + fv[:, 1::7, 3:6])
+        fv[:, 2::7, 3:6] = fv[:, 2::7, 0:3]
+        fv[:, 3::7, 2] = 0.0
+    elif kind == 'shard':
+        kw = dict(fvalid=torch.as_tensor(rng.rand(F) < 0.8, device=device),
+                  row_band=(16, 32), allow_compact=False)
+    ts = 3 if texture_type == 'vertex' else TS
+    tex = rng.rand(B, F, ts, 3).astype(np.float32)
+    return (torch.as_tensor(fv, device=device),
+            torch.as_tensor(tex, device=device), kw)
+
+
+def prepass_inputs(case, device):
+    """(name, cfg, params, face vertices, textures, prepass keywords) of
+    one of PREPASS_CASES."""
+    from gendr_tpu_torch import config as C
+    name, B, F, size, kind, TS, cfg_kw, params_kw = case
+    cfg = flagship_cfg(size, **cfg_kw)
+    fv, tex, kw = prepass_scene(kind, B, F, device, TS=TS,
+                                texture_type=cfg_kw.get('texture_type',
+                                                        'surface'))
+    return name, cfg, C.RenderParams(**params_kw).as_dict(), fv, tex, kw
+
+
+def prepass_mismatch(got, want):
+    """{output: what differs} between two prepasses' outputs, bit for bit
+    (a float's bits, so that the NaN of a padded face's depth rows compares
+    too, and the sign of a zero); empty where every output is bitwise
+    equal."""
+    import torch
+    bad = {}
+    for k in PREPASS_OUTPUTS:
+        a, b = got[k], want[k]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            bad[k] = (f'{tuple(a.shape)} {a.dtype} against '
+                      f'{tuple(b.shape)} {b.dtype}')
+            continue
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        diff = a != b
+        if bool(diff.any()):
+            where = diff.nonzero()[:4].tolist()
+            if k == 'packed':
+                where = (f'rows {diff.any(2).any(0).nonzero().flatten()}'
+                         f' first at {where}')
+            bad[k] = f'{int(diff.sum())} of {diff.numel()} differ: {where}'
+    return bad
+
+
+def check_prepass(name, cfg, params, fv, tex, kw):
+    """The prepass kernel against the plain prepass on one input:
+    prepass_path sends it to the kernel, the call launches it once, and
+    every output, the parameter vector and the band are bitwise the plain
+    prepass's.  Prints one line; raises on a difference."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    path = CB.prepass_path(cfg, fv.shape[1], tex.shape[2], fv.device,
+                           kw.get('fvalid'), kw.get('allow_compact', True))
+    if path != 'kernel':
+        raise AssertionError(f'[prepass] {name}: prepass_path {path}')
+    n = CB.LAUNCHES['prepass']
+    got = CB.prepass(fv, tex, cfg, params, **kw)
+    if CB.LAUNCHES['prepass'] != n + 1:
+        raise AssertionError(f'[prepass] {name}: {CB.LAUNCHES["prepass"] - n}'
+                             f' prepass launches for one call')
+    want = CB.prepass_plain(fv, tex, cfg, params, **kw)
+    torch.cuda.synchronize()
+    bad = prepass_mismatch(got, want)
+    if set(got) != set(want) or not torch.equal(got['par'], want['par']) \
+            or (got['row0'], got['height']) != (want['row0'], want['height']):
+        bad['aux'] = f'{sorted(got)} against {sorted(want)}'
+    B, NI, Fp = want['packed'].shape
+    print(f'[prepass] {name}: B={B} F={fv.shape[1]} Fp={Fp} NI={NI} '
+          f'{cfg.image_size}^2 rows {got["row0"]}+{got["height"]}: '
+          + ('every output bitwise the plain prepass\'s' if not bad else
+             f'DIFFERS {bad}'), flush=True)
+    if bad:
+        raise AssertionError(f'[prepass] {name}: {bad}')
+
+
+def _captured(fn):
+    """(a CUDA graph of fn, what the captured call returned), fn warmed up
+    on a side stream first, as experiments.common.StepChain captures."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def _graph_ms(fn, n=100):
+    """ms a replay of fn captured in a CUDA graph, over n replays back to
+    back between two CUDA events (median of 3 after a warm-up), as the
+    experiments' chained steps run it."""
+    return _back_to_back(_captured(fn)[0].replay, n)
+
+
+def check_prepass_replay(name, cfg, params, fv, tex):
+    """A kernel prepass captured in a CUDA graph (one launch counted at
+    the capture), its outputs overwritten, then replayed: bitwise the
+    eager prepass.  The parameter vector goes onto the card first, as a
+    chained step holds it.  Raises on a difference."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    from gendr_tpu_torch.raster import pairmath as PM
+    p = PM.vector_params(PM._params_vec(params, cfg, fv.device))
+    eager = CB.prepass(fv, tex, cfg, p)
+    n = CB.LAUNCHES['prepass']
+    graph, captured = _captured(lambda: CB.prepass(fv, tex, cfg, p))
+    if CB.LAUNCHES['prepass'] != n + 2:  # the warm-up and the capture
+        raise AssertionError(f'[prepass] {name}: {CB.LAUNCHES["prepass"] - n}'
+                             f' launches counted for a warm-up and a capture')
+    for k in PREPASS_OUTPUTS:
+        captured[k].fill_(-1)
+    graph.replay()
+    torch.cuda.synchronize()
+    bad = prepass_mismatch(captured, eager)
+    if bad:
+        raise AssertionError(f'[prepass] {name} replayed: {bad}')
+
+
+def check_plain_prepass(name, cfg, params, fv, tex):
+    """A CUDA prepass that prepass_path sends to the plain PyTorch path:
+    PREPASS_PLAIN counts it, the kernel stays unlaunched, and the aux is
+    bitwise prepass_plain's.  Raises otherwise."""
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    path = CB.prepass_path(cfg, fv.shape[1], tex.shape[2], fv.device)
+    n, m = CB.LAUNCHES['prepass'], CB.PREPASS_PLAIN['cuda']
+    aux = CB.prepass(fv, tex, cfg, params)
+    counts = (CB.LAUNCHES['prepass'] - n, CB.PREPASS_PLAIN['cuda'] - m)
+    bad = prepass_mismatch(aux, CB.prepass_plain(fv, tex, cfg, params))
+    if path != 'plain' or counts != (0, 1) or bad:
+        raise AssertionError(f'[prepass] {name}: path {path}, (kernel, '
+                             f'plain) calls {counts}, {bad}')
+    return aux
+
+
+def prepass_bytes(aux, fv, tex, cfg):
+    """Bytes a prepass must move at least: the face vertices (and the
+    texture rows it packs) read once, the packed rows, perm and both lists
+    written once."""
+    ntex = 0 if cfg.channels == 'alpha' else (
+        3 if cfg.texture_type == 'vertex' else tex.shape[2])
+    B, F = fv.shape[:2]
+    written = sum(aux[k].numel() * aux[k].element_size()
+                  for k in PREPASS_OUTPUTS)
+    return B * F * (9 + 3 * ntex) * 4 + written
+
+
+def prepass_phase(smi):
+    """Phase 14: the prepass kernel against the plain prepass, bitwise, on
+    PREPASS_CASES; a captured prepass replayed against the eager one; the
+    plain path where compaction fires or the faces pass the kernel's sort
+    (PREPASS_PLAIN counts the call, the kernel stays unlaunched); one
+    kernel prepass per forward at each cell's shape; then, at the cells'
+    shapes, the kernel and the plain prepass each captured in a graph and
+    replayed back to back (the way the cells run them) beside the byte
+    bound, their device kernels and host ms a call (_prepass_cost).
+    Returns ({shape: {'prepass': numbers}}, launches of the phase)."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    from gendr_tpu_torch.raster import pairmath as PM
+    for k in CB.LAUNCHES:
+        CB.LAUNCHES[k] = 0
+    inputs = [prepass_inputs(case, 'cuda') for case in PREPASS_CASES]
+    for name, cfg, params, fv, tex, kw in inputs:
+        check_prepass(name, cfg, params, fv, tex, kw)
+
+    name, cfg, params, fv, tex, kw = inputs[0]
+    check_prepass_replay(name, cfg, params, fv, tex)
+    # the plain path: a compacted shape, and faces past the kernel's sort
+    plain_cases = [
+        ('compacted flagship', flagship_cfg(), *flagship_scene('cuda')),
+        ('F > sort cap', flagship_cfg(64, compact='off'),
+         *prepass_scene('views', 1, CB.PREPASS_SORT_CAP + 1, 'cuda')[:2])]
+    for what, cfg_p, fv_p, tex_p in plain_cases:
+        check_plain_prepass(what, cfg_p, params, fv_p, tex_p)
+    # one kernel prepass per forward at each cell's shape
+    for name, cfg, params, fv, tex, kw in inputs[:3]:
+        before = dict(CB.LAUNCHES)
+        CB.forward_with_aux(fv, tex, cfg, params)
+        delta = {k: CB.LAUNCHES[k] - before[k] for k in CB.LAUNCHES}
+        if delta != dict(render_launches(1, 0), prepass=1):
+            raise AssertionError(f'[prepass] {name} forward: {delta}')
+    torch.cuda.synchronize()
+    launches = dict(CB.LAUNCHES)
+    print(f'[prepass] {len(inputs)} inputs bitwise, a replay bitwise the '
+          f'eager prepass, {len(plain_cases)} shapes on the plain path, one '
+          f'kernel prepass a forward at the cells\' shapes; launches '
+          f'{launches}', flush=True)
+
+    kt = {}
+    for name, cfg, params, fv, tex, kw in inputs[:3]:
+        p = PM.vector_params(PM._params_vec(params, cfg, 'cuda'))
+        aux = CB.prepass(fv, tex, cfg, p)
+        ms = _graph_ms(lambda: CB.prepass(fv, tex, cfg, p))
+        plain_ms = _graph_ms(lambda: CB.prepass_plain(fv, tex, cfg, p))
+        nbytes = prepass_bytes(aux, fv, tex, cfg)
+        bound = 1e3 * nbytes / H100_HBM_BYTES
+        host, kernels = _prepass_cost(fv, tex, cfg, p)
+        plain_host, plain_kernels = _prepass_cost(
+            fv, tex, cfg, p, fn=CB.prepass_plain)
+        kt[f'prepass {name}'] = {'prepass': dict(
+            ms=ms, plain_ms=plain_ms, bound=(bound, 'bytes'))}
+        print(f'[prepass timing] {smi}: {name} (B={fv.shape[0]}, '
+              f'{fv.shape[1]} faces, {cfg.image_size}^2): replayed in a '
+              f'graph, kernel {ms:.5f} ms against plain {plain_ms:.5f} ms '
+              f'({plain_ms / ms:.1f}x); bound {bound:.5f} ms ({nbytes / 1e6:.2f}'
+              f' MB at 3.35 TB/s; {100 * bound / ms:.1f} % of it); device '
+              f'kernels {kernels} against {plain_kernels}; host ms a call, '
+              f'synchronized, {host:.3f} against {plain_host:.3f}',
+              flush=True)
+    return kt, launches
 
 
 def compaction_phase(smi):
@@ -1061,7 +1363,7 @@ def compaction_phase(smi):
     fwd_bwd('auto')
     torch.cuda.synchronize()
     launches = dict(CB.LAUNCHES)
-    if launches != render_launches(1, 1, 1):
+    if render_counts(launches) != render_launches(1, 1, 1):
         raise AssertionError(f'compacted render launches {launches}')
 
     kt, t = {}, {}
@@ -1220,7 +1522,7 @@ def panda_path(args=PANDA_ARGS, what='1280 faces, TS=25'):
     if not ok:
         raise AssertionError(f'a frame is not finite or alpha leaves '
                              f'[0, 1]: {stats}')
-    if launches != render_launches(PANDA_FRAMES, 0):
+    if render_counts(launches) != render_launches(PANDA_FRAMES, 0):
         raise AssertionError(f'panda path launches {launches}')
     return launches, ms
 
@@ -1303,7 +1605,7 @@ def tcn_path():
     if not ok:
         raise AssertionError(f'a frame is not finite or alpha leaves '
                              f'[0, 1]: {sweeps}')
-    if launches != render_launches(sum(TCN_FRAMES), 0):
+    if render_counts(launches) != render_launches(sum(TCN_FRAMES), 0):
         raise AssertionError(f'tcn path launches {launches}')
     return launches
 
@@ -1538,7 +1840,7 @@ def gendr_default_path():
               flush=True)
         del ref, rfv, rv, rt
         torch.cuda.empty_cache()
-        if launches[texture_type] != render_launches(1, 1):
+        if render_counts(launches[texture_type]) != render_launches(1, 1):
             raise AssertionError(f'gendr path launches {launches}')
         if not finite or not (0.0 <= float(alpha.min())
                               and float(alpha.max()) <= 1.0):
@@ -1679,7 +1981,7 @@ def obj_path(obj_file):
           f'10, CUDA events)', flush=True)
     del ref, rfv, rv, rt
     torch.cuda.empty_cache()
-    if launches != render_launches(1, 1):
+    if render_counts(launches) != render_launches(1, 1):
         raise AssertionError(f'obj path launches {launches}')
     if not finite or not (0.0 <= float(alpha.min())
                           and float(alpha.max()) <= 1.0):
@@ -1777,7 +2079,7 @@ def camera_path():
     if not finite:
         raise AssertionError('camera path: non-finite pose or loss')
     n = rec['iterations']
-    if launches != render_launches(n, n, n):
+    if render_counts(launches) != render_launches(n, n, n):
         raise AssertionError(f'camera path launches {launches}')
     return launches, rec['seconds']
 
@@ -1840,7 +2142,7 @@ def reconstruction_path(device='cuda'):
     if not np.isfinite(res['mean_iou']):
         raise AssertionError(f'reconstruction IoU {res["mean_iou"]}')
     objects = RECON_OBJECTS * len(RECON_CLASSES)
-    if device != 'cpu' and launches != render_launches(
+    if device != 'cpu' and render_counts(launches) != render_launches(
             RECON_STEPS + objects, RECON_STEPS):
         raise AssertionError(f'reconstruction path launches {launches}')
     return launches, res
@@ -2534,7 +2836,7 @@ def chain_camera_path(smi):
     if c['fetches'] != blocks or e['fetches'] != n:
         raise AssertionError(f'(j2) fetches {c["fetches"]}, {e["fetches"]}')
     for r in (e, c):
-        if r['launches'] != render_launches(n, n, n):
+        if render_counts(r['launches']) != render_launches(n, n, n):
             raise AssertionError(f'(j2) launches {r["launches"]}')
     adam_vs_optax_rule()
     timing = {chain: time_chain(smi, f'opt_camera --quick --chain {chain}',
@@ -2798,7 +3100,7 @@ def camera_default_path(smi):
     if c['fetches'] != blocks or e['fetches'] != n:
         raise AssertionError(f'(k2) fetches {c["fetches"]}, {e["fetches"]}')
     for r in (c, e):
-        if r['launches'] != render_launches(n, n, n):
+        if render_counts(r['launches']) != render_launches(n, n, n):
             raise AssertionError(f'(k2) launches {r["launches"]}')
     timing = {str(chain): time_chain(
         smi, f'opt_camera defaults (200 poses) --chain {chain}',
@@ -3650,6 +3952,7 @@ def main():
         return 1
     # imported only now: a copy of this script without the repo fails here
     from gendr_tpu_torch import _build
+    from gendr_tpu_torch.raster import cuda_backend as CB
 
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -3674,6 +3977,13 @@ def main():
         # a quick look at path (k) alone
         _build.build(*_build.SIGNATURES)
         camera_default_path(smi)
+        return 0
+    if sys.argv[1:] == ['--prepass-only']:
+        # a quick look at phase 14 alone
+        _build.build('prepass')
+        for line in ptxas_summary(_build.BUILD_LOG['prepass']):
+            print(f'[build] prepass: {line}')
+        prepass_phase(smi)
         return 0
 
     t0 = time.perf_counter()
@@ -3730,9 +4040,11 @@ def main():
         img_err = max(img_err, k_img)
         grad_err = max(grad_err, k_grad)
         probe_launches, probe_err = probe_phase()
+        prepass_kt, by_path['prepass'] = prepass_phase(smi)
         kt = timings(smi, cuda_steps, yager_steps, obj_file)
         kt.update(compact_kt)
         kt.update(camera_kt)
+        kt.update(prepass_kt)
     print(f'[timing] {smi}: host clock: save_obj(texture_res='
           f'{OBJ_TEXTURE_RES}) of 1280 faces x 256 texels {save_ms:.1f} ms; '
           f'load_obj(load_texture=True, texture_res={OBJ_TEXTURE_RES}, '
@@ -3743,24 +4055,33 @@ def main():
     if not SLAB_CHECKS:
         raise AssertionError('rasterize_bwd_slab was held against its plain '
                              'version on no input')
+    # phase 14 raises on any bit that differs from the plain prepass
     errs = dict(rasterize_fwd=img_err, rasterize_bwd=grad_err,
                 rasterize_bwd_slab=max(c['err'] for c in SLAB_CHECKS),
-                ulp_elementwise=probe_err, ulp_param_vector=probe_err)
+                ulp_elementwise=probe_err, ulp_param_vector=probe_err,
+                prepass=0.0)
     sources = dict(rasterize_fwd='rasterize_fwd', rasterize_bwd='rasterize_bwd',
                    rasterize_bwd_slab='rasterize_bwd',
-                   ulp_elementwise='ulp_probe', ulp_param_vector='ulp_probe')
+                   ulp_elementwise='ulp_probe', ulp_param_vector='ulp_probe',
+                   prepass='prepass')
     replaces = dict(rasterize_fwd='gendr_tpu/raster/pallas_backend.py:254',
                     rasterize_bwd='gendr_tpu/raster/pallas_backend.py:1171',
                     rasterize_bwd_slab='gendr_tpu/raster/pallas_backend.py:'
                     '1171',
                     ulp_elementwise='tools/ulp_check.py:47 and '
                     'tools/ulp_bisect.py:36',
-                    ulp_param_vector='tools/ulp_smem.py:37')
+                    ulp_param_vector='tools/ulp_smem.py:37',
+                    prepass='no Pallas kernel: the XLA prepass of '
+                    'gendr_tpu/raster/pallas_backend.py:1002 (_sorted_faces)'
+                    ' and gendr_tpu/raster/pack.py (pack_faces, '
+                    'tile_chunk_mask, compact_hits)')
     envelopes = dict(rasterize_fwd='K1a+K1b+K1c+K1d+K1e',
                      rasterize_bwd='K2a+K2b+K2c+K2d+K2e',
                      rasterize_bwd_slab='K2 of compaction\'s appended chunks:'
                      ' alpha, hard RGB over vertex colours or one texel',
-                     ulp_elementwise='probe', ulp_param_vector='probe')
+                     ulp_elementwise='probe', ulp_param_vector='probe',
+                     prepass='the uncompacted prepass of up to '
+                     f'{CB.PREPASS_SORT_CAP} padded faces')
     # each kernel's numbers at the shape of the sharded slice's main path:
     # for both render kernels, the flagship's rank of path (h2) that the
     # kernel takes longest on (a 128-row band of a 640-face shard; the
@@ -3772,6 +4093,7 @@ def main():
     ranks = [k for k in kt if k.startswith('flagship shard ')]
     main_shape = dict(ulp_elementwise='probes', ulp_param_vector='probes',
                       rasterize_bwd_slab='opt_camera B=200 tau 0.1',
+                      prepass='prepass camera.sharp',
                       **{name: max(ranks, key=lambda k: kt[k][name]['ms'])
                          for name in ('rasterize_fwd', 'rasterize_bwd')})
     by_path['probes'] = probe_launches

@@ -71,6 +71,13 @@ SIGNATURES = {
                                 + (_I,) * 18 + (_P, _P), _I),
         'gendr_error_string': ((_I,), ctypes.c_char_p),
     },
+    'prepass': {
+        # fv tex fvalid par packed perm tile_counts tile_ids chunk_counts
+        # chunk_ids, then B F Fp FC NI TS ntex image_size row0 height
+        # device, then stream
+        'gendr_prepass': ((_P,) * 10 + (_I,) * 11 + (_P,), _I),
+        'gendr_error_string': ((_I,), ctypes.c_char_p),
+    },
     'ulp_probe': {
         # the case table on the host (and, for the parameter vector, on
         # the card), its cases, in n_in out n_out, device, stream

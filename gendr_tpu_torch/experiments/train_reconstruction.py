@@ -968,7 +968,7 @@ def train_data_parallel(args, world):
     if args.device.startswith('cuda'):
         # built once here, not raced by the ranks
         from gendr_tpu_torch import _build
-        _build.build('rasterize_fwd', 'rasterize_bwd')
+        _build.build('rasterize_fwd', 'rasterize_bwd', 'prepass')
     with tempfile.TemporaryDirectory() as out_dir:
         S.spawn_ranks(_dp_rank, world, (world, os.path.join(out_dir, 'init'),
                                         out_dir, args))

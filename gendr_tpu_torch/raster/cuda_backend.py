@@ -7,7 +7,10 @@ Port of ``gendr_tpu/raster/pallas_backend.py``:
   bbox centre, so a chunk of ``face_chunk`` faces is spatially tight), then
   ``pack.pack_faces``, then ``pack.tile_chunk_mask`` + ``compact_hits``
   (each 16x16 pixel tile's list of hit chunks, and each chunk's list of
-  hit tiles for the backward);
+  hit tiles for the backward); for CUDA tensors, where compaction is off
+  and the faces fit its sort, ``csrc/prepass.cu`` does all of it,
+  bitwise, in two launches (:func:`prepass_path`,
+  :func:`prepass_kernel`);
 * the forward kernel, ``csrc/rasterize_fwd.cu``, through
   :func:`rasterize_fwd`: one block per tile, which culls each listed
   chunk's faces against the tile (:func:`tile_face_survivors` is that
@@ -88,7 +91,14 @@ MODE_ALPHA, MODE_HARD, MODE_SOFTMAX = 0, 1, 2
 
 # launches of each kernel, counted where the wrapper launches it
 # (rasterize_bwd_slab: where rasterize_bwd's C entry reports it launched)
-LAUNCHES = {'rasterize_fwd': 0, 'rasterize_bwd': 0, 'rasterize_bwd_slab': 0}
+LAUNCHES = {'rasterize_fwd': 0, 'rasterize_bwd': 0, 'rasterize_bwd_slab': 0,
+            'prepass': 0}
+# prepass calls that took the plain PyTorch path, by device type (CUDA
+# tensors: a compacted shape, or more faces than the kernel's sort holds)
+PREPASS_PLAIN = {'cpu': 0, 'cuda': 0}
+# the prepass kernel's block sorts at most this many (padded) faces in
+# shared memory (csrc/prepass.cu SORT_CAP)
+PREPASS_SORT_CAP = 16384
 # the backward kernel's block is one thread per face of a chunk
 MAX_BWD_CHUNK = 256
 # the backward cuts each chunk's hit-tile list into at most BWD_SLICE_CAP
@@ -218,6 +228,102 @@ def _compact_slabs(cfg: C.RenderConfig, TS, T_tiles, Fp):
     return min(S, max(1, Fp // 128))
 
 
+def _compaction(cfg: C.RenderConfig, TS, Fp, fvalid, allow_compact):
+    """The slabs of per-tile face compaction for a prepass of Fp sorted
+    faces (0: off): :func:`_compact_slabs` where :func:`_compact_eligible`
+    admits the render, never with ``fvalid``, and only at 128-face
+    chunks (a slab is one chunk)."""
+    if (cfg.face_chunk != pack.OCT * pack.OCT_CAP or fvalid is not None
+            or not _compact_eligible(cfg, allow_compact)):
+        return 0
+    return _compact_slabs(cfg, TS, _num_tiles(cfg, cfg.image_size), Fp)
+
+
+def _prepass_smem(Fp, FC):
+    """Bytes of shared memory of a prepass_sort block (csrc/prepass.cu
+    prepass_smem): the sort's 64-bit words, one a face (an even count),
+    then each chunk's bbox union."""
+    return 8 * (Fp + Fp % 2) + 16 * (Fp // FC)
+
+
+def prepass_path(cfg: C.RenderConfig, F, TS, device, fvalid=None,
+                 allow_compact=True):
+    """Which prepass a render of F faces (TS texels per face) on
+    ``device`` runs: 'kernel' (:func:`prepass_kernel`) for
+    CUDA tensors where compaction is off for the shape and the padded
+    faces fit the kernel's sort (PREPASS_SORT_CAP) and its shared memory;
+    'plain' otherwise: the CPU, the compacted prepass and larger scenes."""
+    FC = cfg.face_chunk
+    Fp = -(-F // FC) * FC
+    if (torch.device(device).type != 'cuda' or F < 1
+            or _compaction(cfg, TS, Fp, fvalid, allow_compact)
+            or Fp > PREPASS_SORT_CAP or _prepass_smem(Fp, FC) > SMEM_LIMIT):
+        return 'plain'
+    return 'kernel'
+
+
+def prepass_kernel(face_vertices, textures, cfg: C.RenderConfig, par,
+                   fvalid=None, row0=0, height=None):
+    """The uncompacted prepass by ``csrc/prepass.cu`` on the current
+    stream, ``prepass_sort`` (the Morton sort, perm and both lists) then
+    ``prepass_pack`` (the packed rows): (packed, perm, tile_counts,
+    tile_ids, chunk_counts, chunk_ids), bitwise those of the plain prepass
+    on the card (the Morton sort, ``pack.pack_faces``,
+    ``pack.tile_chunk_mask`` with the margin ``par[P_MARGIN]`` and
+    ``pack.compact_hits``), for CUDA tensors that :func:`prepass_path`
+    sends here.  Nothing is read back to the host;
+    ``LAUNCHES['prepass']`` counts one a call."""
+    dev = face_vertices.device
+    if dev.type != 'cuda':
+        raise ValueError(f'no prepass kernel for device {dev}')
+    if face_vertices.dtype != torch.float32:
+        raise ValueError(f'face_vertices must be torch.float32, got '
+                         f'{face_vertices.dtype}')
+    height = cfg.image_size if height is None else height
+    B, F = face_vertices.shape[:2]
+    if (face_vertices.shape[2:] != (9,) or textures.shape[:2] != (B, F)
+            or (fvalid is not None and tuple(fvalid.shape) != (F,))):
+        raise ValueError(f'face_vertices must be [B, F, 9], textures [B, '
+                         f'F, TS, 3] and fvalid [F]; got '
+                         f'{tuple(face_vertices.shape)}, '
+                         f'{tuple(textures.shape)} and '
+                         f'{None if fvalid is None else tuple(fvalid.shape)}')
+    FC = cfg.face_chunk
+    Fp = -(-F // FC) * FC
+    K, T = Fp // FC, _num_tiles(cfg, height)
+    TS = textures.shape[2]
+    ntex = 0
+    if cfg.channels != 'alpha':
+        ntex = 3 if cfg.texture_type == C.TEXTURE_VERTEX else TS
+    NI = pack.num_rows(cfg.texture_type, TS, with_tex=ntex > 0)
+    fv = face_vertices.contiguous()
+    tex = textures.to(torch.float32).contiguous() if ntex else None
+    fval = None if fvalid is None else \
+        fvalid.to(device=dev, dtype=torch.bool).contiguous()
+    _check_tensors(dev, ('par', par, torch.float32))
+
+    def out(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    packed = out(B, NI, Fp, dtype=torch.float32)
+    perm, tile_counts, tile_ids = out(B, Fp), out(B, T), out(B, T, K)
+    chunk_counts, chunk_ids = out(B, K), out(B, K, T)
+
+    from gendr_tpu_torch import _build
+    lib = _build.load('prepass')
+    err = lib.gendr_prepass(
+        fv.data_ptr(), 0 if tex is None else tex.data_ptr(),
+        0 if fval is None else fval.data_ptr(), par.data_ptr(),
+        packed.data_ptr(), perm.data_ptr(), tile_counts.data_ptr(),
+        tile_ids.data_ptr(), chunk_counts.data_ptr(), chunk_ids.data_ptr(),
+        B, F, Fp, FC, NI, TS, ntex, cfg.image_size, row0, height,
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError('prepass launch failed: '
+                           + lib.gendr_error_string(err).decode())
+    LAUNCHES['prepass'] += 1
+    return packed, perm, tile_counts, tile_ids, chunk_counts, chunk_ids
+
+
 def prepass(face_vertices, textures, cfg: C.RenderConfig, params: Dict,
             fvalid=None, row_band=None, allow_compact=True):
     """Sort, pack and build the hit lists: the kernels' inputs (per tile
@@ -226,12 +332,35 @@ def prepass(face_vertices, textures, cfg: C.RenderConfig, params: Dict,
     ``row_band=(row0, height)`` lists the tiles of those image rows alone
     (the aux records the band as 'row0' and 'height').
 
-    Where per-tile face compaction is on (:func:`_compact_eligible`,
-    :func:`_compact_slabs`; never with ``fvalid``, never without
-    ``allow_compact``), the slot faces of ``pack.compact_plan`` are packed
-    after the Fp sorted faces, ``perm`` gives each slot its source face's
-    input id, the lists are the plan's, and the aux keeps 'oct_ids' for
-    the backward's fold of the slot rows."""
+    CUDA tensors go to :func:`prepass_kernel` where :func:`prepass_path`
+    says so; the rest runs :func:`prepass_plain` (PREPASS_PLAIN counts
+    those calls)."""
+    row0, height = _band(cfg, row_band)
+    dev = face_vertices.device
+    F, TS = face_vertices.shape[1], textures.shape[2]
+    if prepass_path(cfg, F, TS, dev, fvalid, allow_compact) == 'plain':
+        PREPASS_PLAIN[dev.type] = PREPASS_PLAIN.get(dev.type, 0) + 1
+        return prepass_plain(face_vertices, textures, cfg, params, fvalid,
+                             row_band, allow_compact)
+    par = PM._params_vec(params, cfg, dev)
+    packed, perm, tile_counts, tile_ids, chunk_counts, chunk_ids = \
+        prepass_kernel(face_vertices, textures, cfg, par, fvalid, row0,
+                       height)
+    return dict(par=par, row0=row0, height=height, packed=packed, perm=perm,
+                tile_counts=tile_counts, tile_ids=tile_ids,
+                chunk_counts=chunk_counts, chunk_ids=chunk_ids)
+
+
+def prepass_plain(face_vertices, textures, cfg: C.RenderConfig,
+                  params: Dict, fvalid=None, row_band=None,
+                  allow_compact=True):
+    """:func:`prepass` in plain PyTorch, on any device.  Where per-tile
+    face compaction is on (:func:`_compaction`: never with ``fvalid``,
+    never without ``allow_compact``), the slot faces of
+    ``pack.compact_plan`` are packed after the Fp sorted faces, ``perm``
+    gives each slot its source face's input id, the lists are the plan's,
+    and the aux keeps 'oct_ids' for the backward's fold of the slot
+    rows."""
     FC = cfg.face_chunk
     row0, height = _band(cfg, row_band)
     fv, tex, fvalid_s, perm = _sorted_faces(face_vertices, textures, FC,
@@ -241,11 +370,9 @@ def prepass(face_vertices, textures, cfg: C.RenderConfig, params: Dict,
     par = PM._params_vec(params, cfg, fv.device)
     # the cull's margin is the vector's slot (pack.cull_margin's value)
     margin = par[PM.P_MARGIN]
-    slabs = _compact_slabs(cfg, textures.shape[2],
-                           _num_tiles(cfg, cfg.image_size), Fp)
+    slabs = _compaction(cfg, textures.shape[2], Fp, fvalid, allow_compact)
     aux = dict(par=par, row0=row0, height=height)
-    if (FC == pack.OCT * pack.OCT_CAP and fvalid is None and slabs > 0
-            and _compact_eligible(cfg, allow_compact)):
+    if slabs:
         plan = pack.compact_plan(fv, tex if with_tex else None, fvalid_s,
                                  cfg.image_size, TILE, TILE, margin,
                                  Fp // FC, FC, height, row0, slabs)

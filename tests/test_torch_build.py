@@ -24,7 +24,8 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
 
 def test_every_kernel_source_has_its_signatures():
     names = sorted(p.stem for p in _build.CSRC.glob('*.cu'))
-    assert names == sorted(_build.SIGNATURES) == ['rasterize_bwd',
+    assert names == sorted(_build.SIGNATURES) == ['prepass',
+                                                    'rasterize_bwd',
                                                     'rasterize_fwd',
                                                     'ulp_probe']
     assert (_build.CSRC / 'pairmath.cuh').exists()

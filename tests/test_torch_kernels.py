@@ -28,7 +28,8 @@ from chip_smoke import (BAND_CASES, BANDS, BIG_TEXTURE_CASES,
                         camera_inputs,
                         check_kernels, check_slab, face_halves,
                         flagship_cfg, flagship_scene, gendr_inputs,
-                        grads_through, panda_inputs, render_launches,
+                        grads_through, panda_inputs, render_counts,
+                        render_launches,
                         t_conorm_inputs, training_inputs)
 from gendr_tpu_torch import config as C, render
 from gendr_tpu_torch.raster import cuda_backend as CB
@@ -296,7 +297,8 @@ def test_default_renderer_launches_each_kernel_once(cuda, texture_type):
                           *torch.autograd.grad(loss, (verts, t)))
         ran = int(backend is None)
         # softmax RGB: the appended chunks keep the chunk kernel
-        assert {k: CB.LAUNCHES[k] - n for k, n in launches.items()} \
+        assert render_counts({k: CB.LAUNCHES[k] - n
+                              for k, n in launches.items()}) \
             == render_launches(ran, ran)
     assert float((grads[None][0] - grads['torch'][0]).abs().max()) \
         <= IMG_ATOL
@@ -369,7 +371,8 @@ def test_render_of_a_loaded_obj_launches_each_kernel_once(cuda, tmp_path):
     img = G.GenDR(image_size=64, anti_aliasing=True)(
         look(G.Lighting().to(cuda)(mesh.with_textures(textures))))
     (0.5 * (img[:, 3] ** 2).sum() + 0.1 * img[:, :3].sum()).backward()
-    assert {k: CB.LAUNCHES[k] - n for k, n in launches.items()} \
+    assert render_counts({k: CB.LAUNCHES[k] - n
+                          for k, n in launches.items()}) \
         == render_launches(1, 1)
     assert bool(torch.isfinite(textures.grad).all())
     assert float(textures.grad.abs().max()) > 0
@@ -406,7 +409,8 @@ def test_opt_camera_steps_launch_the_kernels(cuda):
                    + captured.get(k, 0) * steps.replays
                    for k, n in launches.items()}
         warmup = steps.warmup if chain > 1 else 0
-        assert counted == {k: 10 + warmup for k in launches}
+        assert render_counts(counted) == {
+            k: 10 + warmup for k in render_counts(launches)}
         assert steps.replays == (10 if chain > 1 else 0)
         assert np.isfinite(rec['losses']).all()
         assert np.isfinite(rec['poses']).all()
