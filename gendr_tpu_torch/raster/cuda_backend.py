@@ -373,9 +373,15 @@ def prepass_plain(face_vertices, textures, cfg: C.RenderConfig,
     slabs = _compaction(cfg, textures.shape[2], Fp, fvalid, allow_compact)
     aux = dict(par=par, row0=row0, height=height)
     if slabs:
+        # a recorded step's phases: the plan alone, then the rest of the
+        # prepass again
+        profiling.mark('compact')
         plan = pack.compact_plan(fv, tex if with_tex else None, fvalid_s,
                                  cfg.image_size, TILE, TILE, margin,
                                  Fp // FC, FC, height, row0, slabs)
+        profiling.mark('prepass')
+        if profiling.recorder() is not None:
+            _count_compaction(plan, Fp // FC, slabs)
         fv = torch.cat([fv, plan['slot_fv']], 1)
         if with_tex:
             tex = torch.cat([tex, plan['slot_tex']], 1)
@@ -396,6 +402,20 @@ def prepass_plain(face_vertices, textures, cfg: C.RenderConfig,
     return dict(aux, packed=packed, perm=perm.to(torch.int32),
                 tile_counts=tile_counts, tile_ids=tile_ids,
                 chunk_counts=chunk_counts, chunk_ids=chunk_ids.contiguous())
+
+
+def _count_compaction(plan, K, slabs):
+    """The recorded step's census of a compaction plan over K sorted
+    chunks, summed over the batch: 'compact.tiles_hit', the tiles that
+    any octet hits (each lists a chunk); 'compact.tiles_slab', those
+    served by slabs (the first slab of tile t, chunk K + t slabs, lists
+    it); 'compact.slots_used', the slab slots that hold a valid face, of
+    'compact.slots'."""
+    profiling.count('compact.tiles_hit', (plan['tile_counts'] > 0).sum())
+    profiling.count('compact.tiles_slab', plan['chunk_counts'][:, K::slabs]
+                    .sum())
+    profiling.count('compact.slots_used', plan['slot_fvalid'].sum())
+    profiling.count('compact.slots', plan['slot_fvalid'].numel())
 
 
 def sorted_face_count(aux):

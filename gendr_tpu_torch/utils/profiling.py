@@ -20,17 +20,24 @@ profiler, and only while one records (``active()``):
 - ``grad_mark(x, name)``: x, through an identity whose backward marks
   ``name`` when x's gradient is complete (a mark inside autograd's
   backward); x itself without an active recorder.
+- ``count(name, value)``: a count of the step being recorded (a device
+  scalar, or a number), kept by the active recorder beside its marks and
+  read once the step has finished; nothing without an active recorder
+  (``recorder()`` is None: a caller computes a count only where it is
+  not).
 
 ``experiments.common.StepChain`` records the marks of a block's last step
 while a profiler records (on the card it replays there a second graph of
 the step, captured with its marks, so no other replay carries them) and,
-after the block's fetch, adds that step's phases to the process's table:
-``phase_table()`` then gives each phase's summed milliseconds and its
-samples (one a block), ``reset_phases()`` clears it.
+after the block's fetch, adds that step's phases and counts to the
+process's tables: ``phase_table()`` then gives each phase's summed
+milliseconds and its samples (one a block), ``counter_table()`` each
+count's sum and its samples; ``reset_phases()`` clears both.
 
     with trace('/tmp/t'):
         steps.run(xs)
-    phase_table()   # {'geometry': {'ms': ..., 'samples': ...}, ...}
+    phase_table()     # {'geometry': {'ms': ..., 'samples': ...}, ...}
+    counter_table()   # {'compact.tiles_hit': {'sum': ..., 'samples': ...}}
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ _OFF = contextlib.nullcontext()
 _recorder = None
 # phase -> [milliseconds summed over samples, samples]
 _phases = {}
+# count -> [sum over samples, samples]
+_counters = {}
 
 
 @contextlib.contextmanager
@@ -81,13 +90,15 @@ def span(name):
 
 
 class Recorder:
-    """The phase marks of a step on ``device``, in stream order.  Under
-    CUDA graph capture the events are made once and recorded by every
-    replay of that graph; ``phases()`` then reads the last replay's."""
+    """The phase marks and counts of a step on ``device``, in stream order.
+    Under CUDA graph capture the events and the counts' tensors are made
+    once and written by every replay of that graph; ``phases()`` and
+    ``counts()`` then read the last replay's."""
 
     def __init__(self, device):
         self.cuda = torch.device(device).type == 'cuda'
         self.marks = []
+        self.counters = []
 
     def mark(self, name):
         if self.cuda:
@@ -105,6 +116,17 @@ class Recorder:
         for (name, a), (_, b) in zip(self.marks, self.marks[1:]):
             ms = a.elapsed_time(b) if self.cuda else 1e3 * (b - a)
             out[name] = out.get(name, 0.0) + ms
+        return out
+
+    def count(self, name, value):
+        self.counters.append((name, value))
+
+    def counts(self):
+        """{count: value} of the step recorded last, which must have
+        finished (a name counted twice summed)."""
+        out = {}
+        for name, value in self.counters:
+            out[name] = out.get(name, 0.0) + float(value)
         return out
 
 
@@ -130,6 +152,13 @@ def mark(name):
         _recorder.mark(name)
 
 
+def count(name, value):
+    """Add ``value`` (a device scalar or a number) to count ``name`` of the
+    step being recorded."""
+    if _recorder is not None:
+        _recorder.count(name, value)
+
+
 class _GradMark(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, name):
@@ -151,11 +180,14 @@ def grad_mark(x, name):
 
 
 def add_phases(recorder):
-    """The recorder's last step into the phase table: one sample."""
-    for name, ms in recorder.phases().items():
-        entry = _phases.setdefault(name, [0.0, 0])
-        entry[0] += ms
-        entry[1] += 1
+    """The recorder's last step into the phase and counter tables: one
+    sample."""
+    for table, values in ((_phases, recorder.phases()),
+                          (_counters, recorder.counts())):
+        for name, v in values.items():
+            entry = table.setdefault(name, [0.0, 0])
+            entry[0] += v
+            entry[1] += 1
 
 
 def phase_table():
@@ -164,5 +196,13 @@ def phase_table():
     return {k: dict(ms=ms, samples=n) for k, (ms, n) in _phases.items()}
 
 
+def counter_table():
+    """{count: {'sum': its values summed over samples, 'samples': n}}, in
+    the order the counts were first seen."""
+    return {k: dict(sum=v, samples=n) for k, (v, n) in _counters.items()}
+
+
 def reset_phases():
+    """Empty the phase and counter tables."""
     _phases.clear()
+    _counters.clear()

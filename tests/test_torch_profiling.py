@@ -10,7 +10,8 @@ and adds nothing to the table; the reconstruction's step marks its
 encoder and decoder in both directions; ``opt_shape``'s step its own
 phases, each marked once, its hard evaluation one phase.  The benchmark's shared readers of these: ``phase_ms.py`` reads
 nothing from an empty table, ``span_idle.py`` puts each idle gap on the
-innermost ``gendr.*`` span of a nested trace.
+innermost ``gendr.*`` span of a nested trace; a recorder's counts fill
+the counter table, which ``counter_share.py`` reads as a share.
 
 On the card (``cuda`` marker; skips without one): marks captured into a
 CUDA graph around one kernel read that kernel's time as events outside a
@@ -220,6 +221,26 @@ def test_phase_reader_reads_nothing_from_an_empty_table():
     assert read(_run(Trace([]))) is None
     both = _module('benchmark/metrics/phase_ms.py').phase_ms('adam', 'x')
     assert both(_run(Trace([kernel]))) is None
+
+
+def test_counts_are_kept_by_a_recorder_and_read_as_a_share():
+    profiling.count('a', torch.tensor(3))   # no recorder: nothing kept
+    rec = profiling.Recorder('cpu')
+    with profiling.recording(rec):
+        profiling.count('a', torch.tensor(3))
+        profiling.count('a', 2)
+        profiling.count('b', torch.tensor(10))
+    assert rec.counts() == {'a': 5.0, 'b': 10.0}
+    share = _module('benchmark/metrics/counter_share.py').counter_share
+    assert share('a', 'b')(None) is None    # an empty table
+    profiling.add_phases(rec)
+    profiling.add_phases(rec)
+    assert profiling.counter_table() == {'a': dict(sum=10.0, samples=2),
+                                         'b': dict(sum=20.0, samples=2)}
+    assert share('a', 'b')(None) == pytest.approx(50.0)
+    assert share('a', 'c')(None) is None
+    profiling.reset_phases()
+    assert profiling.counter_table() == {}
 
 
 def test_span_idle_puts_gaps_on_the_innermost_program_span():
