@@ -177,24 +177,30 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    against their plain versions, one launch of each kernel a step; (k3)
    each step eager and chained, timed as (j6).  ``--camera-only`` runs it
    alone;
-14. holds the prepass kernel (``csrc/prepass.cu``) against the plain
+14. holds the prepass kernels (``csrc/prepass.cu``) against the plain
    prepass on the card, every output bit for bit (PREPASS_CASES: the
-   benchmark cells' shapes, B=200 and B=256 at 64x64, a face count that
-   is no chunk multiple, tied Morton keys, degenerate faces, a face shard's
-   band, surface and vertex textures, the flagship at 256x256 with
-   compaction off, the kernel's whole sort of 16384 faces), a captured prepass replayed against the eager one, the
-   plain path where compaction fires or the faces pass the kernel's sort,
-   one kernel prepass a forward at the cells' shapes; then, at the cells'
-   shapes, the kernel and the plain prepass captured in graphs and
-   replayed, beside the byte bound.  ``--prepass-only`` runs it alone, with
-   ptxas's report of the kernel.
+   benchmark cells' shapes, B=200 and B=256 at 64x64 and camera.sharp128's
+   B=200 at 128x128, a face count that is no chunk multiple, tied Morton
+   keys, degenerate faces, a face shard's band, surface and vertex
+   textures, the flagship at 256x256 with compaction off, the kernels'
+   whole sort of 16384 faces; compacted: camera.sharp128's shape at tau
+   1e-7 and 0.1, the flagship's, the default GenDR's over 25 texels and
+   over vertex colours, a row band, padded and degenerate faces, tiles
+   that no octet hits), the compacted cases' census and phase marks
+   against the plain prepass's, captured prepasses replayed against the
+   eager ones, the plain path where the faces pass the kernels' sort
+   (compacted or not), one kernel prepass a forward at the cells' shapes;
+   then, at the cells' shapes, the kernels and the plain prepass captured
+   in graphs and replayed, beside the byte bound, with each kernel's
+   device time.  ``--prepass-only`` runs it alone, with ptxas's report of
+   the kernels.
 
 Every failure raises, and the script then exits non-zero.  It exits
 non-zero with no result where there is no CUDA device.  The last line of
 its output is one JSON object naming the device; the one before it the
-card's name and power limit; the one before that the kernels (six:
-rasterize_fwd, rasterize_bwd, rasterize_bwd_slab, the two probes and the
-prepass).
+card's name and power limit; the one before that the kernels (seven:
+rasterize_fwd, rasterize_bwd, rasterize_bwd_slab, the two probes, the
+prepass and the compacted prepass).
 """
 
 from __future__ import annotations
@@ -406,7 +412,8 @@ def _template_name(mangled):
     for m in re.finditer(r'(?=(\d+))', mangled):
         n, start = int(m.group(1)), m.start() + len(m.group(1))
         name = mangled[start:start + n]
-        if mangled.startswith('ILi', start + n) and name.isidentifier():
+        if (mangled.startswith(('ILi', 'ILb'), start + n)
+                and name.isidentifier()):
             return name
     return ''
 
@@ -421,7 +428,7 @@ def ptxas_summary(report):
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            args = re.findall(r'Li(\d+)E', m.group(1))
+            args = re.findall(r'L[ib](\d+)E', m.group(1))
             entry = (_template_name(m.group(1)) + '<' + ', '.join(args) + '>'
                      if args else m.group(1))
         elif 'spill' in line:
@@ -1015,13 +1022,18 @@ def _prepass_cost(fv, tex, cfg, params, reps=20, fn=None):
     return float(np.median(times[3:])), kernels or None
 
 
-# phase 14: the prepass kernel (csrc/prepass.cu) against the plain prepass,
+# phase 14: the prepass kernels (csrc/prepass.cu) against the plain prepass,
 # bitwise (tests/test_torch_prepass.py runs the same cases): name, batch,
 # faces, image size, prepass_scene's kind, texels per face, RenderConfig
 # keywords (flagship_cfg's), RenderParams keywords.  The first three are
 # the benchmark's cells: opt_camera (logistic, dist_eps 100) at tau 0.1
 # and 1e-7, and the reconstruction's 256 silhouettes (uniform, dist_eps
-# 300, tau 10^-1.5)
+# 300, tau 10^-1.5); from 'camera.sharp128' on, per-tile face compaction
+# fires: camera.sharp128's cell (2 slabs a tile), the same at tau 0.1
+# (every tile overflows its slabs), the flagship's shape (1 slab), the
+# default GenDR's (512^2) with softmax RGB over 25 texels and over vertex
+# colours, a row band, padded faces, degenerate faces, and a scene in one
+# corner (tiles that no octet hits, one that overflows)
 _CAMERA_CFG = dict(dist_func='logistic', channels='alpha')
 PREPASS_CASES = [
     ('camera.blur', 200, 1280, 64, 'views', 1, _CAMERA_CFG,
@@ -1039,10 +1051,35 @@ PREPASS_CASES = [
     ('vertex', 4, 1280, 64, 'views', 1, dict(texture_type='vertex'), {}),
     ('flagship off', 1, 1280, 256, 'views', 1, dict(compact='off'), {}),
     ('sort full', 2, 16384, 64, 'views', 1, _CAMERA_CFG, {}),
+    ('camera.sharp128', 200, 1280, 128, 'views', 1, _CAMERA_CFG,
+     dict(dist_scale=1e-7, dist_eps=100.0)),
+    ('camera.sharp128 tau 0.1', 200, 1280, 128, 'views', 1, _CAMERA_CFG,
+     dict(dist_scale=1e-1, dist_eps=100.0)),
+    ('flagship', 1, 1280, 256, 'views', 1, {}, {}),
+    ('gendr surface 25', 4, 1280, 512, 'views', 25,
+     dict(aggr_rgb_func='softmax'), {}),
+    ('gendr vertex', 4, 1280, 512, 'views', 1,
+     dict(aggr_rgb_func='softmax', texture_type='vertex'), {}),
+    ('compacted band', 8, 1280, 128, 'band', 1, _CAMERA_CFG, {}),
+    ('compacted F=1000', 8, 1000, 128, 'views', 1, _CAMERA_CFG, {}),
+    ('compacted degenerate', 8, 1000, 128, 'degenerate', 1, _CAMERA_CFG,
+     {}),
+    ('compacted corner', 8, 1280, 128, 'corner', 1, _CAMERA_CFG,
+     dict(dist_scale=1e-4)),
 ]
-# the prepass's outputs that the kernel writes
+# camera.sharp128's shape, the first compacted case
+COMPACT_CASE = [c[0] for c in PREPASS_CASES].index('camera.sharp128')
+# eager steps of camera.sharp128's experiment whose prepasses phase 14
+# counts
+SHARP128_STEPS = 5
+# the prepass's outputs that the kernels write (and, compacted, oct_ids)
 PREPASS_OUTPUTS = ('packed', 'perm', 'tile_counts', 'tile_ids',
                    'chunk_counts', 'chunk_ids')
+
+
+def prepass_outputs(aux):
+    """The kernel-written outputs of a prepass's aux."""
+    return PREPASS_OUTPUTS + (('oct_ids',) if 'oct_ids' in aux else ())
 
 
 def prepass_scene(kind, B, F, device, seed=0, TS=1, texture_type='surface'):
@@ -1055,8 +1092,10 @@ def prepass_scene(kind, B, F, device, seed=0, TS=1, texture_type='surface'):
     'degenerate', the same with point-degenerate faces, faces whose three
     vertices are collinear or two of them equal, and vertices at depth 0;
     'shard', the same with the face-sharded path's keywords (a seeded
-    fvalid, the band of rows 16-47, no compaction).  Textures: TS texels a
-    face, or three vertex colours."""
+    fvalid, the band of rows 16-47, no compaction); 'band', the same with
+    the band of rows 40-89 alone; 'corner', the same shrunk to a tenth
+    about the image's upper left corner.  Textures: TS texels a face, or
+    three vertex colours."""
     import torch
     from gendr_tpu_torch import data
     from gendr_tpu_torch.geometry import core, transforms as T
@@ -1082,6 +1121,11 @@ def prepass_scene(kind, B, F, device, seed=0, TS=1, texture_type='surface'):
     elif kind == 'shard':
         kw = dict(fvalid=torch.as_tensor(rng.rand(F) < 0.8, device=device),
                   row_band=(16, 32), allow_compact=False)
+    elif kind == 'band':
+        kw = dict(row_band=(40, 50))
+    elif kind == 'corner':
+        fv[..., [0, 3, 6]] = 0.1 * fv[..., [0, 3, 6]] - 0.85
+        fv[..., [1, 4, 7]] = 0.1 * fv[..., [1, 4, 7]] + 0.85
     ts = 3 if texture_type == 'vertex' else TS
     tex = rng.rand(B, F, ts, 3).astype(np.float32)
     return (torch.as_tensor(fv, device=device),
@@ -1107,7 +1151,10 @@ def prepass_mismatch(got, want):
     equal."""
     import torch
     bad = {}
-    for k in PREPASS_OUTPUTS:
+    for k in prepass_outputs(want):
+        if k not in got:
+            bad[k] = 'missing'
+            continue
         a, b = got[k], want[k]
         if a.shape != b.shape or a.dtype != b.dtype:
             bad[k] = (f'{tuple(a.shape)} {a.dtype} against '
@@ -1125,9 +1172,21 @@ def prepass_mismatch(got, want):
     return bad
 
 
+def prepass_counter(cfg, fv, tex, kw):
+    """The LAUNCHES key of the kernel prepass of these inputs:
+    'prepass_compact' where per-tile face compaction fires, else
+    'prepass'."""
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    Fp = -(-fv.shape[1] // cfg.face_chunk) * cfg.face_chunk
+    return 'prepass_compact' if CB._compaction(
+        cfg, tex.shape[2], Fp, kw.get('fvalid'),
+        kw.get('allow_compact', True)) else 'prepass'
+
+
 def check_prepass(name, cfg, params, fv, tex, kw):
-    """The prepass kernel against the plain prepass on one input:
-    prepass_path sends it to the kernel, the call launches it once, and
+    """The prepass kernels against the plain prepass on one input:
+    prepass_path sends it to the kernels, the call counts one launch of
+    its kernel set (and none of the other, nor a plain prepass), and
     every output, the parameter vector and the band are bitwise the plain
     prepass's.  Prints one line; raises on a difference."""
     import torch
@@ -1136,20 +1195,26 @@ def check_prepass(name, cfg, params, fv, tex, kw):
                            kw.get('fvalid'), kw.get('allow_compact', True))
     if path != 'kernel':
         raise AssertionError(f'[prepass] {name}: prepass_path {path}')
-    n = CB.LAUNCHES['prepass']
+    counter = prepass_counter(cfg, fv, tex, kw)
+    before, plain = dict(CB.LAUNCHES), dict(CB.PREPASS_PLAIN)
     got = CB.prepass(fv, tex, cfg, params, **kw)
-    if CB.LAUNCHES['prepass'] != n + 1:
-        raise AssertionError(f'[prepass] {name}: {CB.LAUNCHES["prepass"] - n}'
-                             f' prepass launches for one call')
+    delta = {k: CB.LAUNCHES[k] - before[k]
+             for k in ('prepass', 'prepass_compact')}
+    if delta != {**dict.fromkeys(delta, 0), counter: 1} \
+            or CB.PREPASS_PLAIN != plain:
+        raise AssertionError(f'[prepass] {name}: launches {delta} for one '
+                             f'call, plain calls {CB.PREPASS_PLAIN} '
+                             f'(before {plain})')
     want = CB.prepass_plain(fv, tex, cfg, params, **kw)
     torch.cuda.synchronize()
     bad = prepass_mismatch(got, want)
     if set(got) != set(want) or not torch.equal(got['par'], want['par']) \
             or (got['row0'], got['height']) != (want['row0'], want['height']):
         bad['aux'] = f'{sorted(got)} against {sorted(want)}'
-    B, NI, Fp = want['packed'].shape
-    print(f'[prepass] {name}: B={B} F={fv.shape[1]} Fp={Fp} NI={NI} '
-          f'{cfg.image_size}^2 rows {got["row0"]}+{got["height"]}: '
+    B, NI, NC = want['packed'].shape
+    print(f'[prepass] {name}: B={B} F={fv.shape[1]} columns={NC} NI={NI} '
+          f'{cfg.image_size}^2 rows {got["row0"]}+{got["height"]} '
+          f'({counter}): '
           + ('every output bitwise the plain prepass\'s' if not bad else
              f'DIFFERS {bad}'), flush=True)
     if bad:
@@ -1188,12 +1253,13 @@ def check_prepass_replay(name, cfg, params, fv, tex):
     from gendr_tpu_torch.raster import pairmath as PM
     p = PM.vector_params(PM._params_vec(params, cfg, fv.device))
     eager = CB.prepass(fv, tex, cfg, p)
-    n = CB.LAUNCHES['prepass']
+    counter = prepass_counter(cfg, fv, tex, {})
+    n = CB.LAUNCHES[counter]
     graph, captured = _captured(lambda: CB.prepass(fv, tex, cfg, p))
-    if CB.LAUNCHES['prepass'] != n + 2:  # the warm-up and the capture
-        raise AssertionError(f'[prepass] {name}: {CB.LAUNCHES["prepass"] - n}'
+    if CB.LAUNCHES[counter] != n + 2:  # the warm-up and the capture
+        raise AssertionError(f'[prepass] {name}: {CB.LAUNCHES[counter] - n}'
                              f' launches counted for a warm-up and a capture')
-    for k in PREPASS_OUTPUTS:
+    for k in prepass_outputs(eager):
         captured[k].fill_(-1)
     graph.replay()
     torch.cuda.synchronize()
@@ -1202,15 +1268,41 @@ def check_prepass_replay(name, cfg, params, fv, tex):
         raise AssertionError(f'[prepass] {name} replayed: {bad}')
 
 
+def check_prepass_census(name, cfg, params, fv, tex, kw):
+    """A recorded step's view of a compacted prepass on the kernels
+    against the plain prepass's: the same phase marks ('compact', then
+    'prepass') and the same census counts (compact.tiles_hit, .tiles_slab,
+    .slots_used, .slots).  Returns the counts; raises on a difference."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    from gendr_tpu_torch.utils import profiling
+    recs = []
+    for fn in (CB.prepass, CB.prepass_plain):
+        with profiling.recording(profiling.Recorder(fv.device)) as rec:
+            fn(fv, tex, cfg, params, **kw)
+        recs.append(rec)
+    torch.cuda.synchronize()
+    (got, marks), (want, plain_marks) = [
+        (r.counts(), [m for m, _ in r.marks]) for r in recs]
+    if (got != want or marks != plain_marks
+            or marks != ['compact', 'prepass']):
+        raise AssertionError(f'[prepass] {name} census: {got} and marks '
+                             f'{marks} against {want} and {plain_marks}')
+    return got
+
+
 def check_plain_prepass(name, cfg, params, fv, tex):
     """A CUDA prepass that prepass_path sends to the plain PyTorch path:
-    PREPASS_PLAIN counts it, the kernel stays unlaunched, and the aux is
+    PREPASS_PLAIN counts it, the kernels stay unlaunched, and the aux is
     bitwise prepass_plain's.  Raises otherwise."""
     from gendr_tpu_torch.raster import cuda_backend as CB
+
+    def kernel_calls():
+        return CB.LAUNCHES['prepass'] + CB.LAUNCHES['prepass_compact']
     path = CB.prepass_path(cfg, fv.shape[1], tex.shape[2], fv.device)
-    n, m = CB.LAUNCHES['prepass'], CB.PREPASS_PLAIN['cuda']
+    n, m = kernel_calls(), CB.PREPASS_PLAIN['cuda']
     aux = CB.prepass(fv, tex, cfg, params)
-    counts = (CB.LAUNCHES['prepass'] - n, CB.PREPASS_PLAIN['cuda'] - m)
+    counts = (kernel_calls() - n, CB.PREPASS_PLAIN['cuda'] - m)
     bad = prepass_mismatch(aux, CB.prepass_plain(fv, tex, cfg, params))
     if path != 'plain' or counts != (0, 1) or bad:
         raise AssertionError(f'[prepass] {name}: path {path}, (kernel, '
@@ -1220,26 +1312,62 @@ def check_plain_prepass(name, cfg, params, fv, tex):
 
 def prepass_bytes(aux, fv, tex, cfg):
     """Bytes a prepass must move at least: the face vertices (and the
-    texture rows it packs) read once, the packed rows, perm and both lists
-    written once."""
+    texture rows it packs) read once, the packed rows, perm, both lists
+    and, compacted, the octet ids written once."""
     ntex = 0 if cfg.channels == 'alpha' else (
         3 if cfg.texture_type == 'vertex' else tex.shape[2])
     B, F = fv.shape[:2]
     written = sum(aux[k].numel() * aux[k].element_size()
-                  for k in PREPASS_OUTPUTS)
+                  for k in prepass_outputs(aux))
     return B * F * (9 + 3 * ntex) * 4 + written
 
 
+def compacted_past_the_sort(device):
+    """(cfg, face vertices, textures) of a render whose compaction fires
+    but whose padded faces pass the kernels' sort: 16 385 faces at 768^2,
+    2 304 tiles, one slab a tile."""
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    fv, tex, _ = prepass_scene('views', 1, CB.PREPASS_SORT_CAP + 1, device)
+    return flagship_cfg(768), fv, tex
+
+
+def _kernel_split(fn, n=20):
+    """{kernel: device ms a call} of fn captured in a CUDA graph, from the
+    profiler over n replays (a prepass kernel by its short name)."""
+    import re
+    import torch
+    from torch import profiler
+    graph = _captured(fn)[0]
+    graph.replay()
+    torch.cuda.synchronize()
+    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
+                                      profiler.ProfilerActivity.CUDA]) as pr:
+        for _ in range(n):
+            graph.replay()
+        torch.cuda.synchronize()
+    split = {}
+    for e in pr.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r'prepass_\w+?(<\w+>)?(?=\()', e.key)
+            name = m.group(0) if m else e.key[:40]
+            split[name] = split.get(name, 0.0) \
+                + e.self_device_time_total / 1e3 / n
+    return split
+
+
 def prepass_phase(smi):
-    """Phase 14: the prepass kernel against the plain prepass, bitwise, on
-    PREPASS_CASES; a captured prepass replayed against the eager one; the
-    plain path where compaction fires or the faces pass the kernel's sort
-    (PREPASS_PLAIN counts the call, the kernel stays unlaunched); one
-    kernel prepass per forward at each cell's shape; then, at the cells'
-    shapes, the kernel and the plain prepass each captured in a graph and
-    replayed back to back (the way the cells run them) beside the byte
-    bound, their device kernels and host ms a call (_prepass_cost).
-    Returns ({shape: {'prepass': numbers}}, launches of the phase)."""
+    """Phase 14: the prepass kernels against the plain prepass, bitwise,
+    on PREPASS_CASES; on the compacted ones, a recorded prepass's marks
+    and census against the plain one's; a captured prepass replayed
+    against the eager one, uncompacted and compacted; the plain path where
+    the faces pass the kernels' sort, compacted or not (PREPASS_PLAIN
+    counts the call, no kernel launches); one kernel prepass per forward
+    at each cell's shape; then, at the cells' shapes, the kernels and the
+    plain prepass each captured in a graph and replayed back to back (the
+    way the cells run them) beside the byte bound, their device kernels,
+    each kernel's device ms and host ms a call (_prepass_cost).  Returns
+    ({shape: {'prepass' or 'prepass_compact': numbers}}, launches of the
+    phase)."""
     import torch
     from gendr_tpu_torch.raster import cuda_backend as CB
     from gendr_tpu_torch.raster import pairmath as PM
@@ -1248,51 +1376,84 @@ def prepass_phase(smi):
     inputs = [prepass_inputs(case, 'cuda') for case in PREPASS_CASES]
     for name, cfg, params, fv, tex, kw in inputs:
         check_prepass(name, cfg, params, fv, tex, kw)
+    compacted = [i for i, (_, cfg, _, fv, tex, kw) in enumerate(inputs)
+                 if prepass_counter(cfg, fv, tex, kw) == 'prepass_compact']
+    for i in compacted:
+        counts = check_prepass_census(*inputs[i])
+        print(f'[prepass] {inputs[i][0]}: census {counts}, the plain '
+              f'prepass\'s', flush=True)
 
-    name, cfg, params, fv, tex, kw = inputs[0]
-    check_prepass_replay(name, cfg, params, fv, tex)
-    # the plain path: a compacted shape, and faces past the kernel's sort
+    cells = (0, 1, 2, COMPACT_CASE)
+    for i in (0, COMPACT_CASE):
+        name, cfg, params, fv, tex, kw = inputs[i]
+        check_prepass_replay(name, cfg, params, fv, tex)
+    # the plain path: faces past the kernels' sort, compacted or not
     plain_cases = [
-        ('compacted flagship', flagship_cfg(), *flagship_scene('cuda')),
+        ('compacted, past the sort', *compacted_past_the_sort('cuda')),
         ('F > sort cap', flagship_cfg(64, compact='off'),
          *prepass_scene('views', 1, CB.PREPASS_SORT_CAP + 1, 'cuda')[:2])]
     for what, cfg_p, fv_p, tex_p in plain_cases:
         check_plain_prepass(what, cfg_p, params, fv_p, tex_p)
     # one kernel prepass per forward at each cell's shape
-    for name, cfg, params, fv, tex, kw in inputs[:3]:
+    for i in cells:
+        name, cfg, params, fv, tex, kw = inputs[i]
         before = dict(CB.LAUNCHES)
         CB.forward_with_aux(fv, tex, cfg, params)
         delta = {k: CB.LAUNCHES[k] - before[k] for k in CB.LAUNCHES}
-        if delta != dict(render_launches(1, 0), prepass=1):
+        want = dict(render_launches(1, 0), prepass=0, prepass_compact=0)
+        want[prepass_counter(cfg, fv, tex, kw)] = 1
+        if delta != want:
             raise AssertionError(f'[prepass] {name} forward: {delta}')
+    # camera.sharp128's experiment (opt_camera at 128x128), eager: each
+    # render's prepass is one call of the compacted kernels, none plain
+    exp, init = camera_experiment(1, ('--image-size', '128'))
+    before, plain = dict(CB.LAUNCHES), dict(CB.PREPASS_PLAIN)
+    exp.run(init, num_iterations=SHARP128_STEPS)
     torch.cuda.synchronize()
+    delta = {k: CB.LAUNCHES[k] - before[k] for k in CB.LAUNCHES}
+    del exp
+    if (delta['prepass'] or delta['prepass_compact'] < SHARP128_STEPS
+            or delta['prepass_compact'] != delta['rasterize_fwd']
+            or CB.PREPASS_PLAIN != plain):
+        raise AssertionError(f'[prepass] opt_camera at 128^2: launches '
+                             f'{delta}, plain prepasses {CB.PREPASS_PLAIN} '
+                             f'(before {plain})')
     launches = dict(CB.LAUNCHES)
-    print(f'[prepass] {len(inputs)} inputs bitwise, a replay bitwise the '
-          f'eager prepass, {len(plain_cases)} shapes on the plain path, one '
-          f'kernel prepass a forward at the cells\' shapes; launches '
-          f'{launches}', flush=True)
+    print(f'[prepass] {len(inputs)} inputs bitwise ({len(compacted)} '
+          f'compacted, each census the plain prepass\'s), replays bitwise '
+          f'the eager prepass, {len(plain_cases)} shapes on the plain path, '
+          f'one kernel prepass a forward at the cells\' shapes; '
+          f'opt_camera at 128^2, {SHARP128_STEPS} eager steps: '
+          f'{delta["prepass_compact"]} compacted kernel prepasses for '
+          f'{delta["rasterize_fwd"]} renders, plain prepasses '
+          f'{CB.PREPASS_PLAIN}; launches {launches}', flush=True)
 
     kt = {}
-    for name, cfg, params, fv, tex, kw in inputs[:3]:
+    for i in cells + (COMPACT_CASE + 1,):
+        name, cfg, params, fv, tex, kw = inputs[i]
+        counter = prepass_counter(cfg, fv, tex, kw)
         p = PM.vector_params(PM._params_vec(params, cfg, 'cuda'))
         aux = CB.prepass(fv, tex, cfg, p)
         ms = _graph_ms(lambda: CB.prepass(fv, tex, cfg, p))
         plain_ms = _graph_ms(lambda: CB.prepass_plain(fv, tex, cfg, p))
+        split = _kernel_split(lambda: CB.prepass(fv, tex, cfg, p))
         nbytes = prepass_bytes(aux, fv, tex, cfg)
         bound = 1e3 * nbytes / H100_HBM_BYTES
         host, kernels = _prepass_cost(fv, tex, cfg, p)
         plain_host, plain_kernels = _prepass_cost(
             fv, tex, cfg, p, fn=CB.prepass_plain)
-        kt[f'prepass {name}'] = {'prepass': dict(
+        kt[f'prepass {name}'] = {counter: dict(
             ms=ms, plain_ms=plain_ms, bound=(bound, 'bytes'))}
         print(f'[prepass timing] {smi}: {name} (B={fv.shape[0]}, '
-              f'{fv.shape[1]} faces, {cfg.image_size}^2): replayed in a '
-              f'graph, kernel {ms:.5f} ms against plain {plain_ms:.5f} ms '
-              f'({plain_ms / ms:.1f}x); bound {bound:.5f} ms ({nbytes / 1e6:.2f}'
-              f' MB at 3.35 TB/s; {100 * bound / ms:.1f} % of it); device '
-              f'kernels {kernels} against {plain_kernels}; host ms a call, '
-              f'synchronized, {host:.3f} against {plain_host:.3f}',
-              flush=True)
+              f'{fv.shape[1]} faces, {cfg.image_size}^2, {counter}): '
+              f'replayed in a graph, kernels {ms:.5f} ms against plain '
+              f'{plain_ms:.5f} ms ({plain_ms / ms:.1f}x); bound {bound:.5f} '
+              f'ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s; '
+              f'{100 * bound / ms:.1f} % of it); device ms a replay by '
+              f'kernel ' + ', '.join(f'{k} {v:.5f}' for k, v in split.items())
+              + f'; device kernels {kernels} against {plain_kernels}; host '
+              f'ms a call, synchronized, {host:.3f} against '
+              f'{plain_host:.3f}', flush=True)
     return kt, launches
 
 
@@ -4059,11 +4220,11 @@ def main():
     errs = dict(rasterize_fwd=img_err, rasterize_bwd=grad_err,
                 rasterize_bwd_slab=max(c['err'] for c in SLAB_CHECKS),
                 ulp_elementwise=probe_err, ulp_param_vector=probe_err,
-                prepass=0.0)
+                prepass=0.0, prepass_compact=0.0)
     sources = dict(rasterize_fwd='rasterize_fwd', rasterize_bwd='rasterize_bwd',
                    rasterize_bwd_slab='rasterize_bwd',
                    ulp_elementwise='ulp_probe', ulp_param_vector='ulp_probe',
-                   prepass='prepass')
+                   prepass='prepass', prepass_compact='prepass')
     replaces = dict(rasterize_fwd='gendr_tpu/raster/pallas_backend.py:254',
                     rasterize_bwd='gendr_tpu/raster/pallas_backend.py:1171',
                     rasterize_bwd_slab='gendr_tpu/raster/pallas_backend.py:'
@@ -4074,14 +4235,20 @@ def main():
                     prepass='no Pallas kernel: the XLA prepass of '
                     'gendr_tpu/raster/pallas_backend.py:1002 (_sorted_faces)'
                     ' and gendr_tpu/raster/pack.py (pack_faces, '
-                    'tile_chunk_mask, compact_hits)')
+                    'tile_chunk_mask, compact_hits)',
+                    prepass_compact='no Pallas kernel: the XLA prepass of '
+                    'gendr_tpu/raster/pallas_backend.py:1002 (_sorted_faces)'
+                    ' and gendr_tpu/raster/pack.py (compact_plan, '
+                    'pack_faces)')
     envelopes = dict(rasterize_fwd='K1a+K1b+K1c+K1d+K1e',
                      rasterize_bwd='K2a+K2b+K2c+K2d+K2e',
                      rasterize_bwd_slab='K2 of compaction\'s appended chunks:'
                      ' alpha, hard RGB over vertex colours or one texel',
                      ulp_elementwise='probe', ulp_param_vector='probe',
                      prepass='the uncompacted prepass of up to '
-                     f'{CB.PREPASS_SORT_CAP} padded faces')
+                     f'{CB.PREPASS_SORT_CAP} padded faces',
+                     prepass_compact='the compacted prepass of up to '
+                     f'{CB.PREPASS_SORT_CAP} padded faces in chunks of 128')
     # each kernel's numbers at the shape of the sharded slice's main path:
     # for both render kernels, the flagship's rank of path (h2) that the
     # kernel takes longest on (a 128-row band of a 640-face shard; the
@@ -4094,6 +4261,7 @@ def main():
     main_shape = dict(ulp_elementwise='probes', ulp_param_vector='probes',
                       rasterize_bwd_slab='opt_camera B=200 tau 0.1',
                       prepass='prepass camera.sharp',
+                      prepass_compact='prepass camera.sharp128',
                       **{name: max(ranks, key=lambda k: kt[k][name]['ms'])
                          for name in ('rasterize_fwd', 'rasterize_bwd')})
     by_path['probes'] = probe_launches

@@ -76,6 +76,14 @@ SIGNATURES = {
         # chunk_ids, then B F Fp FC NI TS ntex image_size row0 height
         # device, then stream
         'gendr_prepass': ((_P,) * 10 + (_I,) * 11 + (_P,), _I),
+        # the compacted prepass's three launches, each with B F Fp slabs
+        # image_size row0 height device after its pointers, then stream:
+        # fv perm; fv par perm oct_ids tile_live tile_counts tile_ids
+        # chunk_counts chunk_ids; fv tex oct_ids tile_live perm packed, then
+        # B F Fp NI TS ntex slabs image_size row0 height device
+        'gendr_compact_sort': ((_P,) * 2 + (_I,) * 8 + (_P,), _I),
+        'gendr_compact_plan': ((_P,) * 9 + (_I,) * 8 + (_P,), _I),
+        'gendr_compact_pack': ((_P,) * 6 + (_I,) * 11 + (_P,), _I),
         'gendr_error_string': ((_I,), ctypes.c_char_p),
     },
     'ulp_probe': {

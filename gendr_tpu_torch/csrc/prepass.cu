@@ -1,28 +1,36 @@
 // The render's prepass for Hopper (sm_90a), hand-written CUDA C++: the
 // Morton sort of the faces, their packed rows and both hit lists, in two
-// launches.
+// launches; and the prepass of per-tile face compaction, the sort, the
+// compaction plan and the packed rows of the sorted faces and of the
+// tiles' slots, in three.
 //
 // It replaces no Pallas kernel.  It stands in for the XLA prepass of the
 // JAX package, gendr_tpu/raster/pallas_backend.py:_sorted_faces (the
 // Morton order of gendr_tpu/raster/pack.py:morton_order) followed by
-// pack.py's pack_faces, tile_chunk_mask and compact_hits, which the port
-// runs as plain PyTorch in raster/cuda_backend.py:prepass.  There every
-// row of every face is its own elementwise op: some 360 kernels and the
-// argsorts' own, about 380 launches a render, which in a replayed CUDA
-// graph cost ~2.5 us each (0.96 ms a render at the camera cells' 200 x
-// 1280 faces).  cuda_backend.prepass launches these kernels for CUDA
-// tensors where compaction is off for the shape and the faces fit the
-// block's sort (cuda_backend.prepass_path); the compacted prepass keeps
-// the plain code.
+// pack.py's pack_faces, tile_chunk_mask and compact_hits or, where
+// compaction fires, pack.py's compact_plan and pack_faces over the sorted
+// faces and the slots, which the port runs as plain PyTorch in
+// raster/cuda_backend.py:prepass_plain.  There every row of every face is
+// its own elementwise op: some 360 kernels and the argsorts' own, about
+// 380 launches a render (0.96 ms at the camera cells' 200 x 1280 faces in
+// a replayed CUDA graph); compacted, 433 kernels with the slots' gathers
+// and concatenations, 6.58 ms at camera.sharp128's 200 x 1280 faces over
+// 64 tiles of two slabs.  cuda_backend.prepass launches these kernels for
+// CUDA tensors whose padded faces fit the block's sort
+// (cuda_backend.prepass_path): gendr_prepass where compaction is off,
+// gendr_compact_sort, gendr_compact_plan and gendr_compact_pack where it
+// fires.
 //
 // What bounds it on the card: bytes.  At the camera cells' shape it reads
 // 9.2 MB of projected vertices and writes 49 MB of packed rows ([200, 48,
 // 1280] float32) and two lists of a few thousand ints: ~59 MB, 0.018 ms at
-// 3.35 TB/s.  The work per face is a few hundred float operations, far
-// below the operations bound.
+// 3.35 TB/s.  Compacted, at camera.sharp128's shape, the packed rows are
+// [200, 48, 1280 + 16384] (678 MB), perm 14 MB, the lists and the octet
+// ids 9 MB: ~710 MB, 0.21 ms.  The work per column is a few hundred float
+// operations, far below the operations bound.
 //
-// What the design does about it.  Two launches, nothing read back to the
-// host between or after them (they are captured in the experiments'
+// What the design does about it.  Nothing is read back to the host
+// between or after the launches (they are captured in the experiments'
 // graphs):
 //  1. prepass_sort, one block per batch element: each face's Morton key,
 //     pack.morton_order's expressions, with 0x7FFFFFFF for faces past F
@@ -32,21 +40,35 @@
 //     argsort's order (ties by face index): the form whose merges all
 //     sort upwards, so that the padding to a power of two is never
 //     touched, and every comparator within 128 words in a warp's
-//     registers; perm from the sorted words; then a warp per chunk takes
-//     the union of its faces' bboxes (+-1e30
+//     registers; perm from the sorted words; then (uncompacted only) a
+//     warp per chunk takes the union of its faces' bboxes (+-1e30
 //     for faces whose packed fvalid is 0, as tile_chunk_mask), each face
 //     gathered through the sorted words and its bbox and fvalid rows
 //     computed by the very function that packs them, and a warp per tile,
 //     then a warp per chunk, lists the hits in ascending order and then
 //     the rest in ascending order (a ballot per 32 candidates), which is
 //     what compact_hits' stable argsorts give;
-//  2. prepass_pack, a thread per (batch element, sorted slot) over the
-//     whole card: it gathers its face through perm and writes its packed
-//     column with pack.pack_faces' expressions in their order of
-//     operations (built without multiply-add contraction,
-//     _build.NVCC_FLAGS; divisions IEEE), a slot a lane, so the row writes,
-//     most of the bytes, are coalesced; then the texture rows and the zero
-//     rows.
+//  2. (compacted) prepass_plan, one block per batch element: the bbox
+//     union of each octet of 8 sorted faces in shared memory (compact_plan
+//     fills +-1e30 where the sorted fvalid is False: not the packed fvalid
+//     row, which also masks point-degenerate faces), 8 lanes an octet;
+//     then a warp per tile ballots the octets that meet its rectangle +-
+//     the margin, 32 at a time, counts them, writes its first slabs x 16
+//     octet ids (hits ascending, then the rest: the stable argsort of 1 -
+//     hit, cut), its forward list (an overflow tile's hit chunks, else
+//     its slab chunks) and its live octets and slots; then a warp per
+//     chunk writes the backward lists (a sorted chunk: the overflow tiles
+//     it hits; slab chunk K + t slabs + j: tile t, counted while j is
+//     below the tile's slabs).  A few kB of lists and ids a block;
+//  3. prepass_pack, a thread per (batch element, column) over the whole
+//     card: a sorted face's column gathers its face through perm, a slot's
+//     through its octet id and perm (and writes that perm entry), and
+//     writes the packed column with pack.pack_faces' expressions in their
+//     order of operations (built without multiply-add contraction,
+//     _build.NVCC_FLAGS; divisions IEEE), a column a lane, so the row
+//     writes, most of the bytes, are coalesced; then the texture rows and
+//     the zero rows.  A slot's fvalid is its face's and'ed with its slab
+//     entry being live, so every other row of a slot is its face's.
 // Measured at the camera cells' shape, captured in a graph (NVIDIA H100
 // 80GB HBM3, 700 W): one block per batch element for everything, a single
 // launch, took 0.089 ms, its 49 MB of rows written by 200 blocks in two
@@ -55,12 +77,16 @@
 // barrier and 16 KB of traffic a block each, then took 0.030 ms of the
 // sort kernel's 0.053; in registers and shuffles where the comparators
 // allow, on Fp words and not the power of two, the sort kernel takes
-// 0.029 ms, the two launches 0.052 ms a replay.
-// torch.minimum / maximum and clamp propagate NaN on the card, and so do
-// the helpers below; the tile rectangles divide by the image size as
-// PyTorch's CUDA division by a Python number does, multiplying by its
-// float reciprocal.  So every output is bitwise the plain prepass's on
-// the card (tests/test_torch_prepass.py, chip_smoke.py's prepass phase).
+// 0.029 ms, the two launches 0.052 ms a replay.  Compacted, at
+// camera.sharp128's shape, the three launches take 0.341 ms a replay, 62 %
+// of the bound: the pack 0.289 (its 678 MB at 2.35 TB/s), the plan 0.027
+// and the sort 0.023; the plain prepass 6.58 ms.
+// torch.minimum / maximum, amin / amax and clamp propagate NaN on the
+// card, and so do the helpers below; the tile rectangles divide by the
+// image size as PyTorch's CUDA division by a Python number does,
+// multiplying by its float reciprocal.  So every output is bitwise the
+// plain prepass's on the card (tests/test_torch_prepass.py,
+// chip_smoke.py's prepass phase).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -81,6 +107,12 @@ constexpr size_t STATIC_SMEM = 48 * 1024;
 constexpr float DET_EPS = 1e-10f;     // config.DET_EPS
 constexpr float BIG = 1e30f;          // pack.tile_chunk_mask's fill
 constexpr unsigned FULL = 0xffffffffu;
+// per-tile face compaction (pack.OCT, pack.OCT_CAP): octets of 8 sorted
+// faces, 16 octets a slab, so a slab's 128 slots are one chunk of the
+// compacted prepass's faces
+constexpr int OCT = 8;
+constexpr int OCT_CAP = 16;
+constexpr int SLAB = OCT * OCT_CAP;
 // the sort's comparators within this many words run in a warp's
 // registers, four words a lane
 constexpr int SEGMENT = 128;
@@ -92,6 +124,13 @@ static_assert(SEGMENT == 4 * 32, "a segment is four words a lane");
 // span, the power of two N >= Fp (at least 4) its stages index
 __host__ __device__ constexpr size_t prepass_smem(int Fp, int FC) {
   return (size_t)(Fp + Fp % 2) * 8 + (size_t)(Fp / FC) * 16;
+}
+// prepass_plan's shared memory (cuda_backend._plan_smem): each octet's
+// bbox union and its valid faces, then each tile's slabs and its chunk-hit
+// bits (a word per 32 chunks)
+__host__ __device__ constexpr size_t plan_smem(int Fp, int T) {
+  return (size_t)(Fp / OCT) * 20 +
+         (size_t)T * 4 * (1 + (Fp / SLAB + 31) / 32);
 }
 __host__ __device__ constexpr int sort_width(int Fp) {
   int n = 4;
@@ -257,14 +296,14 @@ __device__ __forceinline__ FaceBox face_box(const float* v, float fval) {
 
 // pack.pack_faces' 48 geometry rows of one face (v: its 9 projected
 // coordinates; fval: its fvalid as 1 or 0), written down its column (col
-// = row 0 of the slot, rows Fp apart), in the plain version's order of
+// = row 0 of the column, rows NC apart), in the plain version's order of
 // operations
 __device__ __forceinline__ void pack_geometry(const float* v, float fval,
-                                              float* col, int Fp) {
+                                              float* col, int NC) {
   const float x0 = v[0], y0 = v[1], z0 = v[2];
   const float x1 = v[3], y1 = v[4], z1 = v[5];
   const float x2 = v[6], y2 = v[7], z2 = v[8];
-  const size_t ld = (size_t)Fp;
+  const size_t ld = (size_t)NC;
   const FaceBox box = face_box(v, fval);
   col[R_BBOX * ld] = box.xmin;
   col[(R_BBOX + 1) * ld] = box.xmax;
@@ -387,15 +426,17 @@ __device__ __forceinline__ int write_list(int n, int* ids, Hit hit) {
 }
 
 // prepass_sort: one block per batch element blockIdx.x.  fv [B, F, 9];
-// fvalid [F] bytes or null; par [16].  Writes perm [B, Fp], tile_counts
-// [B, T], tile_ids [B, T, K], chunk_counts [B, K], chunk_ids [B, K, T].
+// fvalid [F] bytes or null; par [16].  Writes the first Fp columns of perm
+// [B, NC] and, with LISTS, tile_counts [B, T], tile_ids [B, T, K],
+// chunk_counts [B, K], chunk_ids [B, K, T].
+template <bool LISTS>
 __global__ void __launch_bounds__(SORT_THREADS)
     prepass_sort(const float* __restrict__ fv,
                  const unsigned char* __restrict__ fvalid,
                  const float* __restrict__ par, int* __restrict__ perm,
                  int* __restrict__ tile_counts, int* __restrict__ tile_ids,
                  int* __restrict__ chunk_counts, int* __restrict__ chunk_ids,
-                 int F, int Fp, int FC, int image_size, int row0,
+                 int F, int Fp, int NC, int FC, int image_size, int row0,
                  int tiles_x, int T) {
   extern __shared__ unsigned long long words[];  // [Fp + Fp % 2]
   const int N = sort_width(Fp);
@@ -447,7 +488,8 @@ __global__ void __launch_bounds__(SORT_THREADS)
     __syncthreads();
   }
   for (int s = tid; s < Fp; s += SORT_THREADS)
-    perm[(size_t)b * Fp + s] = (int)(unsigned)(words[s] & 0xffffffffull);
+    perm[(size_t)b * NC + s] = (int)(unsigned)(words[s] & 0xffffffffull);
+  if (!LISTS) return;
 
   // each chunk's bbox union over its faces whose packed fvalid is set
   for (int k = warp; k < K; k += WARPS) {
@@ -503,50 +545,252 @@ __global__ void __launch_bounds__(SORT_THREADS)
   }
 }
 
-// prepass_pack: a thread per sorted slot blockIdx.y * PACK_THREADS +
+// prepass_plan: one block per batch element blockIdx.x, pack.compact_plan
+// of its Fp sorted faces over the T tiles of the band (slabs a tile, CAP =
+// slabs x OCT_CAP octets; K = Fp / SLAB sorted chunks, K' = K + T slabs).
+// fv [B, F, 9]; par [16]; perm [B, NC] (prepass_sort's first Fp columns).
+// Writes oct_ids [B, T, CAP], tile_live [B, 2, T] (each tile's live
+// octets, then its live slots: the slots whose fvalid compact_plan sets),
+// tile_counts [B, T], tile_ids [B, T, max(K, slabs) + 1], chunk_counts
+// [B, K'] and chunk_ids [B, K', T].
+__global__ void __launch_bounds__(SORT_THREADS)
+    prepass_plan(const float* __restrict__ fv, const float* __restrict__ par,
+                 const int* __restrict__ perm, int* __restrict__ oct_ids,
+                 int* __restrict__ tile_live, int* __restrict__ tile_counts,
+                 int* __restrict__ tile_ids, int* __restrict__ chunk_counts,
+                 int* __restrict__ chunk_ids, int F, int Fp, int NC,
+                 int slabs, int image_size, int row0, int tiles_x, int T) {
+  extern __shared__ float4 ob[];  // [noct] each octet's bbox union
+  const int noct = Fp / OCT, K = Fp / SLAB, KW = (K + 31) / 32;
+  const int CAP = slabs * OCT_CAP, Kcap = (K > slabs ? K : slabs) + 1;
+  const int KK = K + T * slabs;
+  int* valid_faces = reinterpret_cast<int*>(ob + noct);  // [noct]
+  int* nslab = valid_faces + noct;                        // [T]
+  // [T][KW]: the chunks each tile hits, kept for overflow tiles alone
+  unsigned* chunk_bits = reinterpret_cast<unsigned*>(nslab + T);
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const unsigned below = (1u << lane) - 1u;
+  const float* fvb = fv + (size_t)b * F * 9;
+  const int* pb = perm + (size_t)b * NC;
+
+  // each octet's bbox union over its faces whose sorted fvalid is set
+  // (+-1e30 for the others), a face a lane, 8 lanes an octet (Fp is a
+  // multiple of SLAB, so every lane has a face)
+  for (int s = tid; s < Fp; s += SORT_THREADS) {
+    const int f = pb[s];
+    const bool ok = f < F;
+    float xmin = BIG, xmax = -BIG, ymin = BIG, ymax = -BIG;
+    if (ok) {
+      const float* v = fvb + (size_t)f * 9;
+      xmin = tmin(tmin(v[0], v[3]), v[6]);
+      xmax = tmax(tmax(v[0], v[3]), v[6]);
+      ymin = tmin(tmin(v[1], v[4]), v[7]);
+      ymax = tmax(tmax(v[1], v[4]), v[7]);
+    }
+#pragma unroll
+    for (int o = 1; o < OCT; o <<= 1) {
+      xmin = tmin(xmin, __shfl_xor_sync(FULL, xmin, o));
+      xmax = tmax(xmax, __shfl_xor_sync(FULL, xmax, o));
+      ymin = tmin(ymin, __shfl_xor_sync(FULL, ymin, o));
+      ymax = tmax(ymax, __shfl_xor_sync(FULL, ymax, o));
+    }
+    const unsigned valid = __ballot_sync(FULL, ok);
+    if (lane % OCT == 0) {
+      ob[s / OCT] = make_float4(xmin, xmax, ymin, ymax);
+      valid_faces[s / OCT] = __popc((valid >> lane) & ((1u << OCT) - 1u));
+    }
+  }
+  __syncthreads();
+
+  // a warp per tile: its octet hits (compact_plan's ov), 32 octets a
+  // ballot, the two chunks of OCT_CAP octets each ballot covers
+  const float m = par[P_MARGIN];
+  for (int t = warp; t < T; t += WARPS) {
+    const Rect r = tile_rect(t, tiles_x, image_size, row0);
+    int n = 0;
+    unsigned word = 0;
+    for (int g = 0; g < noct; g += 32) {
+      const int o = g + lane;
+      const unsigned mask =
+          __ballot_sync(FULL, o < noct && hits(r, ob[o], m));
+      n += __popc(mask);
+      const int k = g / OCT_CAP;  // even: chunks k and k + 1 share a word
+      word |= ((mask & 0xffffu) != 0u ? 1u : 0u) << (k % 32);
+      word |= ((mask >> 16) != 0u ? 1u : 0u) << ((k + 1) % 32);
+      if ((k + 2) % 32 == 0 || k + 2 >= K) {
+        if (lane == 0) chunk_bits[t * KW + k / 32] = word;
+        word = 0;
+      }
+    }
+    const bool overflow = n > CAP;
+    const bool active = n > 0 && !overflow;
+    const int ns = active ? (n + OCT_CAP - 1) / OCT_CAP : 0;
+    // the first CAP of the stable argsort of (1 - hit): the hit octets in
+    // ascending order, then the others; a live slab's faces are its hits'
+    int* ids = oct_ids + ((size_t)b * T + t) * CAP;
+    int nh = 0, nn = n, slots = 0;
+    for (int g = 0; g < noct && (nh < CAP || nn < CAP); g += 32) {
+      const int o = g + lane;
+      const bool in = o < noct;
+      const bool h = in && hits(r, ob[o], m);
+      const unsigned mh = __ballot_sync(FULL, h);
+      const unsigned mn = __ballot_sync(FULL, in && !h);
+      const int ph = nh + __popc(mh & below), pn = nn + __popc(mn & below);
+      if (h && ph < CAP) {
+        ids[ph] = o;
+        slots += valid_faces[o];
+      } else if (in && !h && pn < CAP) {
+        ids[pn] = o;
+      }
+      nh += __popc(mh);
+      nn += __popc(mn);
+    }
+    slots = __reduce_add_sync(FULL, slots);
+    if (lane == 0) {
+      nslab[t] = ns;
+      tile_live[(size_t)b * 2 * T + t] = active ? n : 0;
+      tile_live[((size_t)b * 2 + 1) * T + t] = active ? slots : 0;
+    }
+    __syncwarp();
+    // the forward's list: an overflow tile's hit chunks (compact_hits'
+    // order), then zeros; any other tile its slab chunks K + t slabs + j
+    int* list = tile_ids + ((size_t)b * T + t) * Kcap;
+    const unsigned* bits = chunk_bits + t * KW;
+    int count = ns;
+    if (overflow) {
+      count = write_list(K, list, [&](int k) {
+        return ((bits[k / 32] >> (k % 32)) & 1u) != 0u;
+      });
+      for (int j = K + lane; j < Kcap; j += 32) list[j] = 0;
+    } else {
+      for (int j = lane; j < Kcap; j += 32) list[j] = K + t * slabs + j;
+    }
+    if (lane == 0) tile_counts[(size_t)b * T + t] = count;
+    __syncwarp();
+    // the sorted chunks serve the overflow tiles alone
+    if (!overflow)
+      for (int w = lane; w < KW; w += 32) chunk_bits[t * KW + w] = 0u;
+  }
+  __syncthreads();
+
+  // the backward's lists over the K' chunks: a sorted chunk's overflow
+  // tiles that it hits, then the other tiles, in ascending order; slab
+  // chunk K + t slabs + j lists tile t in every entry, counted while j is
+  // below the tile's slabs
+  for (int k = warp; k < KK; k += WARPS) {
+    int* list = chunk_ids + ((size_t)b * KK + k) * T;
+    int count;
+    if (k < K) {
+      count = write_list(T, list, [&](int t) {
+        return ((chunk_bits[t * KW + k / 32] >> (k % 32)) & 1u) != 0u;
+      });
+    } else {
+      const int t = (k - K) / slabs;
+      for (int i = lane; i < T; i += 32) list[i] = t;
+      count = (k - K) % slabs < nslab[t] ? 1 : 0;
+    }
+    if (lane == 0) chunk_counts[(size_t)b * KK + k] = count;
+  }
+}
+
+// prepass_pack: a thread per column blockIdx.y * PACK_THREADS +
 // threadIdx.x of batch element blockIdx.x.  fv [B, F, 9]; tex [B, F, TS,
 // 3] (read for ntex > 0: its first ntex texels or vertex colours); fvalid
-// [F] bytes or null; perm [B, Fp] (prepass_sort's).  Writes packed [B, NI,
-// Fp].
+// [F] bytes or null; perm [B, NC] (prepass_sort's first Fp columns).
+// Columns below Fp are the sorted faces; with SLOTS, column Fp + 8 g + i is
+// face i of octet oct_ids [B, T CAP] entry g, its slot live while g % CAP
+// is below tile_live [B, 2, T]'s live octets of tile g / CAP, and the
+// column's perm entry is written too.  Writes packed [B, NI, NC].
+template <bool SLOTS>
 __global__ void __launch_bounds__(PACK_THREADS)
     prepass_pack(const float* __restrict__ fv,
                  const float* __restrict__ tex,
                  const unsigned char* __restrict__ fvalid,
-                 const int* __restrict__ perm, float* __restrict__ packed,
-                 int F, int Fp, int NI, int TS, int ntex) {
+                 const int* __restrict__ oct_ids,
+                 const int* __restrict__ tile_live, int* __restrict__ perm,
+                 float* __restrict__ packed, int F, int Fp, int NC, int NI,
+                 int TS, int ntex, int CAP, int T) {
   const int b = blockIdx.x;
-  const int s = blockIdx.y * PACK_THREADS + threadIdx.x;
-  if (s >= Fp) return;
-  const int f = perm[(size_t)b * Fp + s];
+  const int c = blockIdx.y * PACK_THREADS + threadIdx.x;
+  if (c >= NC) return;
+  int s = c;
+  bool live = true;
+  if (SLOTS && c >= Fp) {
+    const int g = (c - Fp) / OCT;
+    s = oct_ids[(size_t)b * T * CAP + g] * OCT + (c - Fp) % OCT;
+    live = g % CAP < tile_live[(size_t)b * 2 * T + g / CAP];
+  }
+  const int f = perm[(size_t)b * NC + s];
+  if (SLOTS && c >= Fp) perm[(size_t)b * NC + c] = f;
   float v[9];
   float fval = 0.0f;
   if (f < F) {
     const float* fvf = fv + ((size_t)b * F + f) * 9;
 #pragma unroll
     for (int i = 0; i < 9; ++i) v[i] = fvf[i];
-    fval = (fvalid == nullptr || fvalid[f]) ? 1.0f : 0.0f;
+    fval = live && (fvalid == nullptr || fvalid[f]) ? 1.0f : 0.0f;
   } else {
 #pragma unroll
     for (int i = 0; i < 9; ++i) v[i] = 0.0f;  // chunk padding
   }
-  float* col = packed + (size_t)b * NI * Fp + s;
-  pack_geometry(v, fval, col, Fp);
+  float* col = packed + (size_t)b * NI * NC + c;
+  pack_geometry(v, fval, col, NC);
   // texel (or vertex) t, channel c at row R_TEX + 3 t + c, then zeros
   if (ntex > 0) {
     const float* tf = tex + ((size_t)b * F + (f < F ? f : 0)) * TS * 3;
     for (int r = 0; r < 3 * ntex; ++r)
-      col[(size_t)(R_TEX + r) * Fp] = f < F ? tf[r] : 0.0f;
+      col[(size_t)(R_TEX + r) * NC] = f < F ? tf[r] : 0.0f;
   }
-  for (int r = R_TEX + 3 * ntex; r < NI; ++r) col[(size_t)r * Fp] = 0.0f;
+  for (int r = R_TEX + 3 * ntex; r < NI; ++r) col[(size_t)r * NC] = 0.0f;
+}
+
+// Opts a kernel into smem bytes of dynamic shared memory where they pass
+// the static budget
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= STATIC_SMEM) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// The tiles of image rows [row0, row0 + height): their count T (0 where the
+// band is not inside the image) and the tiles a row, tiles_x
+int band_tiles(int image_size, int row0, int height, int* tiles_x) {
+  if (row0 < 0 || height < 1 || row0 + height > image_size) return 0;
+  *tiles_x = (image_size + TILE - 1) / TILE;
+  return *tiles_x * ((height + TILE - 1) / TILE);
+}
+
+// A compacted prepass's shape: B batch elements of F faces padded to Fp,
+// a multiple of SLAB that the sort holds, and slabs a tile (1 to Fp /
+// SLAB) over the T tiles of the band.  Returns T (0: not such a shape)
+// and sets NC = Fp + T slabs SLAB, the packed columns (the sorted faces,
+// then the slots).
+int compact_shape(int B, int F, int Fp, int slabs, int image_size, int row0,
+                  int height, int* tiles_x, int* NC) {
+  if (B < 1 || F < 1 || Fp % SLAB != 0 || F > Fp || F <= Fp - SLAB ||
+      Fp > SORT_CAP || prepass_smem(Fp, SLAB) > SMEM_CAP || slabs < 1 ||
+      slabs > Fp / SLAB)
+    return 0;
+  const int T = band_tiles(image_size, row0, height, tiles_x);
+  *NC = Fp + T * slabs * SLAB;
+  return T;
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes (gendr_tpu_torch/_build.py).  Launches
-// prepass_sort, then prepass_pack, on `stream` and returns the launches'
-// error (0 on success); never synchronizes and allocates nothing.  F faces padded to Fp (a multiple of
-// FC, at most SORT_CAP); ntex texture rows' texels (0: geometry rows
-// alone); the lists cover the tiles of image rows [row0, row0 + height).
+// C interface, loaded with ctypes (gendr_tpu_torch/_build.py).  Each entry
+// launches on `stream` and returns the launches' error (0 on success;
+// cudaErrorInvalidValue for a shape it does not take); none synchronizes
+// or allocates.
+//
+// gendr_prepass, the uncompacted prepass: prepass_sort, then prepass_pack.
+// F faces padded to Fp (a multiple of FC, at most SORT_CAP); ntex texture
+// rows' texels (0: geometry rows alone); the lists cover the tiles of
+// image rows [row0, row0 + height).
 extern "C" int gendr_prepass(const float* fv, const float* tex,
                              const unsigned char* fvalid, const float* par,
                              float* packed, int* perm, int* tile_counts,
@@ -557,28 +801,102 @@ extern "C" int gendr_prepass(const float* fv, const float* tex,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = FC >= 1 ? prepass_smem(Fp, FC) : 0;
+  int tiles_x = 0;
+  const int T = band_tiles(image_size, row0, height, &tiles_x);
   if (B < 1 || F < 1 || FC < 1 || Fp % FC != 0 || F > Fp ||
       F <= Fp - FC || Fp > SORT_CAP || smem > SMEM_CAP ||
-      NI < R_TEX + 3 * ntex || ntex < 0 || (ntex > 0 && TS < ntex) ||
-      row0 < 0 || height < 1 || row0 + height > image_size)
+      NI < R_TEX + 3 * ntex || ntex < 0 || (ntex > 0 && TS < ntex) || T < 1)
     return (int)cudaErrorInvalidValue;
-  const int tiles_x = (image_size + TILE - 1) / TILE;
-  const int T = tiles_x * ((height + TILE - 1) / TILE);
-  if (smem > STATIC_SMEM) {
-    err = cudaFuncSetAttribute(prepass_sort,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  err = allow_smem(prepass_sort<true>, smem);
+  if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  prepass_sort<<<B, SORT_THREADS, smem, s>>>(
+  prepass_sort<true><<<B, SORT_THREADS, smem, s>>>(
       fv, fvalid, par, perm, tile_counts, tile_ids, chunk_counts, chunk_ids,
-      F, Fp, FC, image_size, row0, tiles_x, T);
+      F, Fp, Fp, FC, image_size, row0, tiles_x, T);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B, (Fp + PACK_THREADS - 1) / PACK_THREADS);
-  prepass_pack<<<grid, PACK_THREADS, 0, s>>>(fv, tex, fvalid, perm, packed,
-                                             F, Fp, NI, TS, ntex);
+  prepass_pack<false><<<grid, PACK_THREADS, 0, s>>>(
+      fv, tex, fvalid, nullptr, nullptr, perm, packed, F, Fp, Fp, NI, TS,
+      ntex, 0, 0);
+  return (int)cudaGetLastError();
+}
+
+// The compacted prepass, one launch each, so that the caller can mark the
+// plan's phase between them: of B batch elements of F faces (no fvalid:
+// compaction never runs with one) padded to Fp, slabs a tile over the
+// tiles of image rows [row0, row0 + height) (compact_shape), NC = Fp + T
+// slabs 128 packed columns.  gendr_compact_sort: prepass_sort without its
+// lists, perm's first Fp columns ([B, NC]).
+extern "C" int gendr_compact_sort(const float* fv, int* perm, int B, int F,
+                                  int Fp, int slabs, int image_size,
+                                  int row0, int height, int device,
+                                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int tiles_x = 0, NC = 0;
+  const int T = compact_shape(B, F, Fp, slabs, image_size, row0, height,
+                              &tiles_x, &NC);
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = prepass_smem(Fp, SLAB);
+  err = allow_smem(prepass_sort<false>, smem);
+  if (err != cudaSuccess) return (int)err;
+  prepass_sort<false><<<B, SORT_THREADS, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      fv, nullptr, nullptr, perm, nullptr, nullptr, nullptr, nullptr, F, Fp,
+      NC, SLAB, image_size, row0, tiles_x, T);
+  return (int)cudaGetLastError();
+}
+
+// gendr_compact_plan: prepass_plan, from perm's first Fp columns and the
+// margin par[P_MARGIN]: oct_ids [B, T slabs 16], tile_live [B, 2, T]
+// (for gendr_compact_pack and the plan's census), tile_counts [B, T],
+// tile_ids [B, T, max(K, slabs) + 1], chunk_counts [B, K + T slabs] and
+// chunk_ids [B, K + T slabs, T] (K = Fp / 128).
+extern "C" int gendr_compact_plan(const float* fv, const float* par,
+                                  const int* perm, int* oct_ids,
+                                  int* tile_live, int* tile_counts,
+                                  int* tile_ids, int* chunk_counts,
+                                  int* chunk_ids, int B, int F, int Fp,
+                                  int slabs, int image_size, int row0,
+                                  int height, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int tiles_x = 0, NC = 0;
+  const int T = compact_shape(B, F, Fp, slabs, image_size, row0, height,
+                              &tiles_x, &NC);
+  const size_t smem = plan_smem(Fp, T);
+  if (T < 1 || smem > SMEM_CAP) return (int)cudaErrorInvalidValue;
+  err = allow_smem(prepass_plan, smem);
+  if (err != cudaSuccess) return (int)err;
+  prepass_plan<<<B, SORT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      fv, par, perm, oct_ids, tile_live, tile_counts, tile_ids, chunk_counts,
+      chunk_ids, F, Fp, NC, slabs, image_size, row0, tiles_x, T);
+  return (int)cudaGetLastError();
+}
+
+// gendr_compact_pack: prepass_pack over all NC columns, the sorted faces'
+// and the slots' (perm's slot columns too), from gendr_compact_plan's
+// oct_ids and tile_live: packed [B, NI, NC]; tex and ntex as gendr_prepass
+// takes them.
+extern "C" int gendr_compact_pack(const float* fv, const float* tex,
+                                  const int* oct_ids, const int* tile_live,
+                                  int* perm, float* packed, int B, int F,
+                                  int Fp, int NI, int TS, int ntex,
+                                  int slabs, int image_size, int row0,
+                                  int height, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int tiles_x = 0, NC = 0;
+  const int T = compact_shape(B, F, Fp, slabs, image_size, row0, height,
+                              &tiles_x, &NC);
+  if (T < 1 || NI < R_TEX + 3 * ntex || ntex < 0 || (ntex > 0 && TS < ntex))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(B, (NC + PACK_THREADS - 1) / PACK_THREADS);
+  prepass_pack<true><<<grid, PACK_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      fv, tex, nullptr, oct_ids, tile_live, perm, packed, F, Fp, NC, NI, TS,
+      ntex, slabs * OCT_CAP, T);
   return (int)cudaGetLastError();
 }
 

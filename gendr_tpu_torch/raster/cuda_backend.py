@@ -7,10 +7,12 @@ Port of ``gendr_tpu/raster/pallas_backend.py``:
   bbox centre, so a chunk of ``face_chunk`` faces is spatially tight), then
   ``pack.pack_faces``, then ``pack.tile_chunk_mask`` + ``compact_hits``
   (each 16x16 pixel tile's list of hit chunks, and each chunk's list of
-  hit tiles for the backward); for CUDA tensors, where compaction is off
-  and the faces fit its sort, ``csrc/prepass.cu`` does all of it,
-  bitwise, in two launches (:func:`prepass_path`,
-  :func:`prepass_kernel`);
+  hit tiles for the backward), or, where per-tile face compaction fires,
+  ``pack.compact_plan`` and ``pack.pack_faces`` of the sorted faces and
+  the tiles' slots; for CUDA tensors whose faces fit its sort,
+  ``csrc/prepass.cu`` does all of it, bitwise, in two launches
+  (:func:`prepass_kernel`) or, compacted, three
+  (:func:`prepass_compact_kernel`; :func:`prepass_path`);
 * the forward kernel, ``csrc/rasterize_fwd.cu``, through
   :func:`rasterize_fwd`: one block per tile, which culls each listed
   chunk's faces against the tile (:func:`tile_face_survivors` is that
@@ -91,10 +93,12 @@ MODE_ALPHA, MODE_HARD, MODE_SOFTMAX = 0, 1, 2
 
 # launches of each kernel, counted where the wrapper launches it
 # (rasterize_bwd_slab: where rasterize_bwd's C entry reports it launched)
+# (prepass: the uncompacted prepass's call; prepass_compact: the compacted
+# one's three launches, a call)
 LAUNCHES = {'rasterize_fwd': 0, 'rasterize_bwd': 0, 'rasterize_bwd_slab': 0,
-            'prepass': 0}
+            'prepass': 0, 'prepass_compact': 0}
 # prepass calls that took the plain PyTorch path, by device type (CUDA
-# tensors: a compacted shape, or more faces than the kernel's sort holds)
+# tensors: more faces than the kernels' sort holds)
 PREPASS_PLAIN = {'cpu': 0, 'cuda': 0}
 # the prepass kernel's block sorts at most this many (padded) faces in
 # shared memory (csrc/prepass.cu SORT_CAP)
@@ -246,20 +250,70 @@ def _prepass_smem(Fp, FC):
     return 8 * (Fp + Fp % 2) + 16 * (Fp // FC)
 
 
+def _plan_smem(Fp, T):
+    """Bytes of shared memory of a prepass_plan block over T tiles
+    (csrc/prepass.cu plan_smem): each octet's bbox union and valid faces,
+    then each tile's slabs and a bit per sorted chunk of 128 faces."""
+    return 20 * (Fp // pack.OCT) + 4 * T * (1 + (Fp // 128 + 31) // 32)
+
+
 def prepass_path(cfg: C.RenderConfig, F, TS, device, fvalid=None,
                  allow_compact=True):
     """Which prepass a render of F faces (TS texels per face) on
-    ``device`` runs: 'kernel' (:func:`prepass_kernel`) for
-    CUDA tensors where compaction is off for the shape and the padded
-    faces fit the kernel's sort (PREPASS_SORT_CAP) and its shared memory;
-    'plain' otherwise: the CPU, the compacted prepass and larger scenes."""
+    ``device`` runs: 'kernel' for CUDA tensors whose padded faces fit the
+    kernels' sort (PREPASS_SORT_CAP) and its shared memory; 'plain'
+    otherwise: the CPU and larger scenes.  Compaction (TS, ``fvalid``,
+    ``allow_compact``: :func:`_compaction`) picks the kernel set,
+    :func:`prepass_kernel` or :func:`prepass_compact_kernel`, not the
+    path: the plan's shared memory (:func:`_plan_smem`) fits wherever
+    compaction fires, since ``_compact_slabs`` keeps T x slabs under
+    5 462 and the sort keeps Fp under 16 384."""
     FC = cfg.face_chunk
     Fp = -(-F // FC) * FC
     if (torch.device(device).type != 'cuda' or F < 1
-            or _compaction(cfg, TS, Fp, fvalid, allow_compact)
             or Fp > PREPASS_SORT_CAP or _prepass_smem(Fp, FC) > SMEM_LIMIT):
         return 'plain'
     return 'kernel'
+
+
+def _kernel_inputs(face_vertices, textures, cfg: C.RenderConfig, par,
+                   fvalid=None):
+    """A kernel prepass's inputs, checked: (face vertices and, where the
+    packed rows hold texels, textures as contiguous float32, fvalid as
+    contiguous bools or None, B, F, Fp, TS, ntex the texture rows' texels,
+    NI the packed rows)."""
+    dev = face_vertices.device
+    if dev.type != 'cuda':
+        raise ValueError(f'no prepass kernel for device {dev}')
+    if face_vertices.dtype != torch.float32:
+        raise ValueError(f'face_vertices must be torch.float32, got '
+                         f'{face_vertices.dtype}')
+    B, F = face_vertices.shape[:2]
+    if (face_vertices.shape[2:] != (9,) or textures.shape[:2] != (B, F)
+            or (fvalid is not None and tuple(fvalid.shape) != (F,))):
+        raise ValueError(f'face_vertices must be [B, F, 9], textures [B, '
+                         f'F, TS, 3] and fvalid [F]; got '
+                         f'{tuple(face_vertices.shape)}, '
+                         f'{tuple(textures.shape)} and '
+                         f'{None if fvalid is None else tuple(fvalid.shape)}')
+    Fp = -(-F // cfg.face_chunk) * cfg.face_chunk
+    TS = textures.shape[2]
+    ntex = 0
+    if cfg.channels != 'alpha':
+        ntex = 3 if cfg.texture_type == C.TEXTURE_VERTEX else TS
+    NI = pack.num_rows(cfg.texture_type, TS, with_tex=ntex > 0)
+    fv = face_vertices.contiguous()
+    tex = textures.to(torch.float32).contiguous() if ntex else None
+    fval = None if fvalid is None else \
+        fvalid.to(device=dev, dtype=torch.bool).contiguous()
+    _check_tensors(dev, ('par', par, torch.float32))
+    return fv, tex, fval, B, F, Fp, TS, ntex, NI
+
+
+def _launched(lib, err):
+    if err != 0:
+        raise RuntimeError('prepass launch failed: '
+                           + lib.gendr_error_string(err).decode())
 
 
 def prepass_kernel(face_vertices, textures, cfg: C.RenderConfig, par,
@@ -273,34 +327,12 @@ def prepass_kernel(face_vertices, textures, cfg: C.RenderConfig, par,
     ``pack.compact_hits``), for CUDA tensors that :func:`prepass_path`
     sends here.  Nothing is read back to the host;
     ``LAUNCHES['prepass']`` counts one a call."""
-    dev = face_vertices.device
-    if dev.type != 'cuda':
-        raise ValueError(f'no prepass kernel for device {dev}')
-    if face_vertices.dtype != torch.float32:
-        raise ValueError(f'face_vertices must be torch.float32, got '
-                         f'{face_vertices.dtype}')
+    fv, tex, fval, B, F, Fp, TS, ntex, NI = _kernel_inputs(
+        face_vertices, textures, cfg, par, fvalid)
+    dev = fv.device
     height = cfg.image_size if height is None else height
-    B, F = face_vertices.shape[:2]
-    if (face_vertices.shape[2:] != (9,) or textures.shape[:2] != (B, F)
-            or (fvalid is not None and tuple(fvalid.shape) != (F,))):
-        raise ValueError(f'face_vertices must be [B, F, 9], textures [B, '
-                         f'F, TS, 3] and fvalid [F]; got '
-                         f'{tuple(face_vertices.shape)}, '
-                         f'{tuple(textures.shape)} and '
-                         f'{None if fvalid is None else tuple(fvalid.shape)}')
     FC = cfg.face_chunk
-    Fp = -(-F // FC) * FC
     K, T = Fp // FC, _num_tiles(cfg, height)
-    TS = textures.shape[2]
-    ntex = 0
-    if cfg.channels != 'alpha':
-        ntex = 3 if cfg.texture_type == C.TEXTURE_VERTEX else TS
-    NI = pack.num_rows(cfg.texture_type, TS, with_tex=ntex > 0)
-    fv = face_vertices.contiguous()
-    tex = textures.to(torch.float32).contiguous() if ntex else None
-    fval = None if fvalid is None else \
-        fvalid.to(device=dev, dtype=torch.bool).contiguous()
-    _check_tensors(dev, ('par', par, torch.float32))
 
     def out(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -310,18 +342,70 @@ def prepass_kernel(face_vertices, textures, cfg: C.RenderConfig, par,
 
     from gendr_tpu_torch import _build
     lib = _build.load('prepass')
-    err = lib.gendr_prepass(
+    _launched(lib, lib.gendr_prepass(
         fv.data_ptr(), 0 if tex is None else tex.data_ptr(),
         0 if fval is None else fval.data_ptr(), par.data_ptr(),
         packed.data_ptr(), perm.data_ptr(), tile_counts.data_ptr(),
         tile_ids.data_ptr(), chunk_counts.data_ptr(), chunk_ids.data_ptr(),
         B, F, Fp, FC, NI, TS, ntex, cfg.image_size, row0, height,
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError('prepass launch failed: '
-                           + lib.gendr_error_string(err).decode())
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream))
     LAUNCHES['prepass'] += 1
     return packed, perm, tile_counts, tile_ids, chunk_counts, chunk_ids
+
+
+def prepass_compact_kernel(face_vertices, textures, cfg: C.RenderConfig,
+                           par, slabs, row0=0, height=None):
+    """The compacted prepass by ``csrc/prepass.cu`` on the current stream,
+    ``slabs`` 128-slot slabs a tile (:func:`_compaction`): the Morton sort
+    (``prepass_sort`` without its lists), the plan (``prepass_plan``:
+    ``pack.compact_plan``'s octet ids and lists, with the margin
+    ``par[P_MARGIN]``) and the packed rows of the sorted faces and the
+    slots (``prepass_pack``), each its own launch so that the phase marks
+    'compact' and 'prepass' lie between them as in :func:`prepass_plain`.
+    Returns (packed, perm, tile_counts, tile_ids, chunk_counts, chunk_ids,
+    oct_ids), bitwise the plain prepass's on the card, for CUDA tensors
+    that :func:`prepass_path` sends here.  Nothing is read back to the
+    host; a recorded step counts the plan's census
+    (:func:`_count_compaction`); ``LAUNCHES['prepass_compact']`` counts
+    one a call."""
+    fv, tex, _, B, F, Fp, TS, ntex, NI = _kernel_inputs(
+        face_vertices, textures, cfg, par)
+    dev = fv.device
+    height = cfg.image_size if height is None else height
+    K, T = Fp // cfg.face_chunk, _num_tiles(cfg, height)
+    G = T * slabs * pack.OCT_CAP  # slot groups of OCT slots, per tile CAP
+
+    def out(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    packed = out(B, NI, Fp + G * pack.OCT, dtype=torch.float32)
+    perm, oct_ids, tile_live = out(B, Fp + G * pack.OCT), out(B, G), \
+        out(B, 2, T)
+    tile_counts, tile_ids = out(B, T), out(B, T, max(K, slabs) + 1)
+    chunk_counts, chunk_ids = out(B, K + T * slabs), out(B, K + T * slabs, T)
+
+    from gendr_tpu_torch import _build
+    lib = _build.load('prepass')
+    # the three C entries' last arguments
+    tail = (slabs, cfg.image_size, row0, height, dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _launched(lib, lib.gendr_compact_sort(fv.data_ptr(), perm.data_ptr(),
+                                          B, F, Fp, *tail))
+    profiling.mark('compact')
+    _launched(lib, lib.gendr_compact_plan(
+        fv.data_ptr(), par.data_ptr(), perm.data_ptr(), oct_ids.data_ptr(),
+        tile_live.data_ptr(), tile_counts.data_ptr(), tile_ids.data_ptr(),
+        chunk_counts.data_ptr(), chunk_ids.data_ptr(), B, F, Fp, *tail))
+    profiling.mark('prepass')
+    _launched(lib, lib.gendr_compact_pack(
+        fv.data_ptr(), 0 if tex is None else tex.data_ptr(),
+        oct_ids.data_ptr(), tile_live.data_ptr(), perm.data_ptr(),
+        packed.data_ptr(), B, F, Fp, NI, TS, ntex, *tail))
+    if profiling.recorder() is not None:
+        _count_compaction(tile_counts, chunk_counts, tile_live[:, 1].sum(),
+                          B * G * pack.OCT, K, slabs)
+    LAUNCHES['prepass_compact'] += 1
+    return (packed, perm, tile_counts, tile_ids, chunk_counts, chunk_ids,
+            oct_ids)
 
 
 def prepass(face_vertices, textures, cfg: C.RenderConfig, params: Dict,
@@ -332,9 +416,10 @@ def prepass(face_vertices, textures, cfg: C.RenderConfig, params: Dict,
     ``row_band=(row0, height)`` lists the tiles of those image rows alone
     (the aux records the band as 'row0' and 'height').
 
-    CUDA tensors go to :func:`prepass_kernel` where :func:`prepass_path`
-    says so; the rest runs :func:`prepass_plain` (PREPASS_PLAIN counts
-    those calls)."""
+    CUDA tensors go to :func:`prepass_kernel`, or where compaction fires
+    :func:`prepass_compact_kernel` (the aux keeps 'oct_ids'), where
+    :func:`prepass_path` says so; the rest runs :func:`prepass_plain`
+    (PREPASS_PLAIN counts those calls)."""
     row0, height = _band(cfg, row_band)
     dev = face_vertices.device
     F, TS = face_vertices.shape[1], textures.shape[2]
@@ -343,12 +428,18 @@ def prepass(face_vertices, textures, cfg: C.RenderConfig, params: Dict,
         return prepass_plain(face_vertices, textures, cfg, params, fvalid,
                              row_band, allow_compact)
     par = PM._params_vec(params, cfg, dev)
-    packed, perm, tile_counts, tile_ids, chunk_counts, chunk_ids = \
-        prepass_kernel(face_vertices, textures, cfg, par, fvalid, row0,
-                       height)
-    return dict(par=par, row0=row0, height=height, packed=packed, perm=perm,
-                tile_counts=tile_counts, tile_ids=tile_ids,
-                chunk_counts=chunk_counts, chunk_ids=chunk_ids)
+    aux = dict(par=par, row0=row0, height=height)
+    Fp = -(-F // cfg.face_chunk) * cfg.face_chunk
+    slabs = _compaction(cfg, TS, Fp, fvalid, allow_compact)
+    if slabs:
+        *outs, aux['oct_ids'] = prepass_compact_kernel(
+            face_vertices, textures, cfg, par, slabs, row0, height)
+    else:
+        outs = prepass_kernel(face_vertices, textures, cfg, par, fvalid,
+                              row0, height)
+    aux.update(zip(('packed', 'perm', 'tile_counts', 'tile_ids',
+                    'chunk_counts', 'chunk_ids'), outs))
+    return aux
 
 
 def prepass_plain(face_vertices, textures, cfg: C.RenderConfig,
@@ -381,7 +472,9 @@ def prepass_plain(face_vertices, textures, cfg: C.RenderConfig,
                                  Fp // FC, FC, height, row0, slabs)
         profiling.mark('prepass')
         if profiling.recorder() is not None:
-            _count_compaction(plan, Fp // FC, slabs)
+            _count_compaction(plan['tile_counts'], plan['chunk_counts'],
+                              plan['slot_fvalid'].sum(),
+                              plan['slot_fvalid'].numel(), Fp // FC, slabs)
         fv = torch.cat([fv, plan['slot_fv']], 1)
         if with_tex:
             tex = torch.cat([tex, plan['slot_tex']], 1)
@@ -404,18 +497,18 @@ def prepass_plain(face_vertices, textures, cfg: C.RenderConfig,
                 chunk_counts=chunk_counts, chunk_ids=chunk_ids.contiguous())
 
 
-def _count_compaction(plan, K, slabs):
+def _count_compaction(tile_counts, chunk_counts, slots_used, slots, K,
+                      slabs):
     """The recorded step's census of a compaction plan over K sorted
-    chunks, summed over the batch: 'compact.tiles_hit', the tiles that
-    any octet hits (each lists a chunk); 'compact.tiles_slab', those
-    served by slabs (the first slab of tile t, chunk K + t slabs, lists
-    it); 'compact.slots_used', the slab slots that hold a valid face, of
-    'compact.slots'."""
-    profiling.count('compact.tiles_hit', (plan['tile_counts'] > 0).sum())
-    profiling.count('compact.tiles_slab', plan['chunk_counts'][:, K::slabs]
-                    .sum())
-    profiling.count('compact.slots_used', plan['slot_fvalid'].sum())
-    profiling.count('compact.slots', plan['slot_fvalid'].numel())
+    chunks (its lists tile_counts and chunk_counts), summed over the
+    batch: 'compact.tiles_hit', the tiles that any octet hits (each lists
+    a chunk); 'compact.tiles_slab', those served by slabs (the first slab
+    of tile t, chunk K + t slabs, lists it); 'compact.slots_used', the
+    slab slots that hold a valid face, of 'compact.slots'."""
+    profiling.count('compact.tiles_hit', (tile_counts > 0).sum())
+    profiling.count('compact.tiles_slab', chunk_counts[:, K::slabs].sum())
+    profiling.count('compact.slots_used', slots_used)
+    profiling.count('compact.slots', slots)
 
 
 def sorted_face_count(aux):

@@ -109,8 +109,13 @@ _PREPASS = ("the XLA prepass of gendr_tpu/raster/pallas_backend.py:"
             "compact_hits: as ~380 plain torch launches a render it took "
             "0.96 ms of a 2.15 ms step at the camera cells' shape "
             "(PERF.md)")
+_COMPACT = ("the XLA prepass of gendr_tpu/raster/pallas_backend.py:"
+            "_sorted_faces and pack.py's compact_plan and pack_faces: as "
+            "433 plain torch kernels a render it took 6.70 ms of a 9.0 "
+            "ms step at camera.sharp128's shape (PERF.md)")
 NO_SITE = {'prepass_sort': ('prepass.cu', _PREPASS),
-           'prepass_pack': ('prepass.cu', _PREPASS)}
+           'prepass_pack': ('prepass.cu', _PREPASS),
+           'prepass_plan': ('prepass.cu', _COMPACT)}
 
 # each __global__ kernel's launch counter: (the wrapper's module, its key
 # in that module's LAUNCHES)
@@ -129,6 +134,8 @@ COUNTERS = {
         ('gendr_tpu_torch.tools._ulp', 'ulp_param_vector'),
     'prepass_sort': ('gendr_tpu_torch.raster.cuda_backend', 'prepass'),
     'prepass_pack': ('gendr_tpu_torch.raster.cuda_backend', 'prepass'),
+    'prepass_plan': ('gendr_tpu_torch.raster.cuda_backend',
+                     'prepass_compact'),
 }
 
 SCANNED = ('gendr_tpu', 'tools', 'experiments', 'animations')
