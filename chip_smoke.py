@@ -54,8 +54,8 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    (l): the default GenDR through backend='torch' on 4 views of the
    stand-in at 33 x 33 texels a face, above the kernels' softmax cap,
    forward and backward twice, the image and the face, vertex and texel
-   gradients bitwise equal (no atomics), under 16 GiB of device memory,
-   both runs timed (``--torch-texel-only`` runs it alone);
+   gradients bitwise equal (no atomics), under 16 GiB of device memory
+   (``--torch-texel-only`` runs it alone);
 5. drives the t-conorm sweeps, path (c): ``gendr_tpu_torch.animations.
    panda_tcn`` at its defaults (1536x1536 renders, 25 texels, softmax RGB,
    uniform CDF) over the full canonical list of 11 t-conorm configurations
@@ -118,26 +118,8 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    (the first step's B=256 render and the dataset's 24-view hard render)
    with phase 1's gates; (i4) the
    synthetic dataset's silhouettes and voxels on the card against the
-   CPU's; (i5) the step's time beside opt_shape's;
-10. times the kernels against their plain versions beside their bounds, at
-   a 128-row band and a face half of the flagship (K1e/K2e),
-   the flagship (hard RGB, and softmax RGB with one texel), at the panda
-   frame and at the default GenDR's shapes (surface and vertex textures),
-   a yager panda_tcn frame at tau 1e-2 and tau 1 and path (d)'s render
-   beside the probabilistic fold at the same shapes, path (i)'s two
-   renders, the probe kernels (a whole probe phase in one launch against
-   one case a launch),
-   path (e)'s mesh at 25, 256 and 1024 texels per face under softmax and
-   hard RGB (forward and backward at 4 views of 512x512, forward at a
-   1536x1536 frame; each forward line also gives the longest tile list
-   in chunks and the pairs the kernel visits after its per-tile cull
-   beside those a walk of every face of the listed chunks would visit,
-   each backward line the slices S its chunk lists are cut into, the
-   longest slice in tiles and the workspace's size),
-   ``load_obj`` and ``voxelization`` on the host clock, the panda frames'
-   render alone, the forward render and the forward + backward through
-   both backends, and the median training step through both backends;
-11. drives path (j), ``--chain`` of the three experiments (the eager
+   CPU's;
+10. drives path (j), ``--chain`` of the three experiments (the eager
    phases above pass ``--chain 1``): (j1) ``opt_shape --chain 10``, (j2)
    ``opt_camera --quick --chain 20`` and (j3) ``train_reconstruction
    --synthetic --chain 8`` at path (i)'s width, a block cut short by
@@ -147,37 +129,27 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    two eager runs bitwise equal; (j4) the kernels of a
    replay against their plain versions on the CUDA graph's buffers; the
    captured Adam against optax's rule; (j5) one host fetch a block, and a
-   capture with a host read-back raising (run last); (j6) each
-   experiment's step eager and chained: the median step on the host
-   clock, the device busy share and kernels a step (torch.profiler), one
-   replay's time on the card and the render kernels' launches;
-12. drives per-tile face compaction (``RenderConfig.compact='auto'``, the
-   default, which phases 1-11 also run where its gate fires): on the
+   capture with a host read-back raising (run last);
+11. drives per-tile face compaction (``RenderConfig.compact='auto'``, the
+   default, which phases 1-10 also run where its gate fires): on the
    flagship, its band of rows 128-255, the default GenDR's inputs and a
    scene whose corner tile overflows its slabs, the gate fires and both
    kernels hold against their plain versions with phase 1's gates, the
    forward bitwise compact='off'; rasterize_bwd_slab (K2's launch over
    the appended chunks, a thread per pixel of a chunk's tile, for alpha
    and hard RGB over vertex colours or one texel) alone against its plain
-   version wherever it runs, with its blocks and lanes with work; then
-   'auto' against 'off' in turns: both kernels per call and back to back,
-   the prepass's device kernels and host time, the eager flagship render
-   and forward + backward, the default GenDR's forward + backward, visited
-   pairs, path (k)'s render at both of its taus (both kernels, K2 back to
-   back) and the chained opt_camera --quick step;
-13. drives path (k), ``experiments.opt_camera`` at its command line's
+   version wherever it runs, with its blocks and lanes with work;
+12. drives path (k), ``experiments.opt_camera`` at its command line's
    defaults (200 poses at 64x64, logistic x probabilistic, --chain 20, the
    cube stand-in, starting angles 15-35 degrees): (k1) both kernels
    against their plain versions with phase 1's gates on the soft render of
    the first step at B=200, at tau 1e-1 and 1e-7 (the anneal's ends;
    compaction fires: one slab a tile, 3200 blocks of rasterize_bwd_slab,
-   held alone against its plain version), each timed beside its bound;
-   (k2) 100 annealed steps with --chain 20 against
-   --chain 1 from the same poses, bitwise, the first replay's kernels
-   against their plain versions, one launch of each kernel a step; (k3)
-   each step eager and chained, timed as (j6).  ``--camera-only`` runs it
-   alone;
-14. holds the prepass kernels (``csrc/prepass.cu``) against the plain
+   held alone against its plain version); (k2) 100 annealed steps with
+   --chain 20 against --chain 1 from the same poses, bitwise, the first
+   replay's kernels against their plain versions, one launch of each
+   kernel a step.  ``--camera-only`` runs it alone;
+13. holds the prepass kernels (``csrc/prepass.cu``) against the plain
    prepass on the card, every output bit for bit (PREPASS_CASES: the
    benchmark cells' shapes, B=200 and B=256 at 64x64 and camera.sharp128's
    B=200 at 128x128, a face count that is no chunk multiple, tied Morton
@@ -189,23 +161,41 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    that no octet hits), the compacted cases' census and phase marks
    against the plain prepass's, captured prepasses replayed against the
    eager ones, the plain path where the faces pass the kernels' sort
-   (compacted or not), one kernel prepass a forward at the cells' shapes;
-   then, at the cells' shapes, the kernels and the plain prepass captured
-   in graphs and replayed, beside the byte bound, with each kernel's
-   device time.  ``--prepass-only`` runs it alone, with ptxas's report of
-   the kernels.
+   (compacted or not), one kernel prepass a forward at the cells' shapes.
+   ``--prepass-only`` runs it alone, with ptxas's report of the kernels.
 
 Every failure raises, and the script then exits non-zero.  It exits
 non-zero with no result where there is no CUDA device.  The last line of
 its output is one JSON object naming the device; the one before it the
-card's name and power limit; the one before that the kernels (seven:
-rasterize_fwd, rasterize_bwd, rasterize_bwd_slab, the two probes, the
-prepass and the compacted prepass).
+card's name and power limit; the one before that the kernels (seven, the
+rows of KERNELS: rasterize_fwd, rasterize_bwd, rasterize_bwd_slab, the
+two probes, the prepass and the compacted prepass) with their launches by
+path and their largest errors against the plain versions.
+
+The checks time nothing.  The kernels' times come from one timer:
+
+    python3 chip_smoke.py --times [--shapes NAME,NAME,...]
+
+builds every kernel, prints ptxas's report, and for each shape of
+times_shapes (``--shapes``: those alone) calls each wrapper the shape
+launches (the prepass, rasterize_fwd, rasterize_bwd or the probe phase)
+TIMES_CALLS times back to back after a warm-up, under torch.profiler:
+the device ms a call of each kernel whose name holds the wrapper's, and
+their sum, the quantity the benchmark's rooflines divide by.  Beside it,
+one synchronized call of the plain version on the host clock, and the
+bound: the larger of the bytes of the wrapper's tensor arguments and
+results (each read or written once) over 3.35 TB/s and the gated pairs'
+float operations over 67 TFLOP/s.  For each render shape it prints a
+SHA-1 of the forward kernel's output (the inputs are made under
+torch.use_deterministic_algorithms, so two checkouts compare bitwise),
+and last the card's name and power limit and one JSON object {"ms":
+{shape: {wrapper: {"ms", "kernels", "plain_ms", "bound_ms",
+"bound_by"}}}, "sha1": {shape: hex}}.
 """
 
 from __future__ import annotations
 
-import contextlib
+import collections
 import json
 import os
 import subprocess
@@ -294,9 +284,9 @@ SHARD_GRAD_REL = 1e-4
 # run); (i3)'s dp ranks and its bound against the one-process step; the
 # share of (i4)'s silhouette pixels that must equal the CPU's (a pixel
 # centre on a face edge is a tie the card's and the CPU's camera transforms
-# may break apart); (i5)'s timed steps
+# may break apart)
 RECON_CLASSES = ('syn_ellipsoid', 'syn_box', 'syn_peanut')
-RECON_OBJECTS, RECON_STEPS, RECON_TIMED_STEPS = 8, 30, 10
+RECON_OBJECTS, RECON_STEPS = 8, 30
 RECON_DP_RANKS, RECON_DP_REL = 2, 1e-4
 # (i3) runs at these seeds: the spread of its parameter difference
 RECON_DP_SEEDS = (0, 1, 2)
@@ -330,11 +320,9 @@ RECON_SIL_AGREE = 0.999
 # train_reconstruction at path (i)'s width, --decay-at inside the first
 # block of 8 (blocks of 5, 8 and 3).  Losses and parameters bitwise equal
 # (every sum of the training paths runs in a fixed order), with no
-# deterministic algorithms asked for; each timed over CHAIN_TIMED_BLOCKS
-# blocks of the chain's length after the comparison
+# deterministic algorithms asked for
 CHAIN_SHAPE, CHAIN_CAMERA, CHAIN_RECON = 10, 20, 8
 CHAIN_RECON_STEPS, CHAIN_RECON_DECAY = 16, 6
-CHAIN_TIMED_BLOCKS = 3
 # the first range of the camera experiment's starting angles, which (j2)
 # and path (k) run; path (k): opt_camera at its command line's defaults
 # (200 poses at 64x64, logistic x probabilistic, lr 0.3, dist-eps 100,
@@ -380,13 +368,53 @@ def render_launches(fwd, bwd, slab=0):
 def render_counts(launches):
     """The render kernels' counts of a cuda_backend.LAUNCHES snapshot, the
     prepass kernel's left out (a path's shapes decide whether its prepass
-    takes the kernel; phase 14 checks that count)."""
+    takes the kernel; phase 13 checks that count)."""
     return {k: launches[k] for k in render_launches(0, 0)}
 
 
 # the kernels every backward render launches (rasterize_bwd_slab runs only
 # where compaction fires)
 RENDER_KERNELS = ('rasterize_fwd', 'rasterize_bwd')
+
+# the port's hand-written kernels, a row per launch counter
+# (cuda_backend.LAUNCHES, _ulp.LAUNCHES), each reported on the kernels
+# line: the .cu under gendr_tpu_torch/csrc/ that defines it, the TPU site
+# it replaces, its envelope ({sort_cap}: cuda_backend.PREPASS_SORT_CAP)
+# and its main shape, one of the timer's (--times)
+Kernel = collections.namedtuple('Kernel', 'source replaces envelope shape')
+_XLA_PREPASS = ('no Pallas kernel: the XLA prepass of '
+                'gendr_tpu/raster/pallas_backend.py:1002 (_sorted_faces) and '
+                'gendr_tpu/raster/pack.py ')
+# the render kernels' main shape: the flagship's rank of path (h2) with
+# the most gated pairs (a 128-row band of a 640-face shard; a sharded step
+# waits for its slowest rank)
+_RANK = 'flagship shard fp0 sp0'
+KERNELS = {
+    'rasterize_fwd': Kernel('rasterize_fwd',
+                            'gendr_tpu/raster/pallas_backend.py:254',
+                            'K1a+K1b+K1c+K1d+K1e', _RANK),
+    'rasterize_bwd': Kernel('rasterize_bwd',
+                            'gendr_tpu/raster/pallas_backend.py:1171',
+                            'K2a+K2b+K2c+K2d+K2e', _RANK),
+    # no sharded render launches it: path (k)'s render at tau 1e-1, where
+    # the slab launch takes K2 longest
+    'rasterize_bwd_slab': Kernel(
+        'rasterize_bwd', 'gendr_tpu/raster/pallas_backend.py:1171',
+        'K2 of compaction\'s appended chunks: alpha, hard RGB over vertex '
+        'colours or one texel', 'opt_camera B=200 tau 0.1'),
+    'ulp_elementwise': Kernel('ulp_probe', 'tools/ulp_check.py:47 and '
+                              'tools/ulp_bisect.py:36', 'probe', 'probes'),
+    'ulp_param_vector': Kernel('ulp_probe', 'tools/ulp_smem.py:37', 'probe',
+                               'probes'),
+    'prepass': Kernel('prepass', _XLA_PREPASS + '(pack_faces, '
+                      'tile_chunk_mask, compact_hits)', 'the uncompacted '
+                      'prepass of up to {sort_cap} padded faces',
+                      'prepass camera.sharp'),
+    'prepass_compact': Kernel('prepass', _XLA_PREPASS + '(compact_plan, '
+                              'pack_faces)', 'the compacted prepass of up to '
+                              '{sort_cap} padded faces in chunks of 128',
+                              'prepass camera.sharp128'),
+}
 
 
 def flops_per_pair(cfg, mode):
@@ -768,19 +796,16 @@ def obj_scene(obj_path, texture_res=OBJ_TEXTURE_RES):
     return v, f, tex, texture_res
 
 
-def gendr_path(texture_type, backend=None, scene=None, times=None,
-               **renderer_kw):
+def gendr_path(texture_type, backend=None, scene=None, **renderer_kw):
     """Mesh -> Lighting -> LookAt -> GenDR(anti_aliasing=True) with the
     renderer's defaults (256x256 rendered at 512x512, softmax RGB, uniform
     tau 1e-2, probabilistic, single-sided) on the textured stand-in
     (texture_res 5, TS=25; or random vertex colours), or on scene =
     (vertices, faces, textures, texture_res), from GENDR_VIEWS
     views, and loss.backward() of 0.5 sum(alpha^2) + 0.1 sum(rgb) to the
-    vertices and textures.  Where times is a dict, it gets 'forward_ms'
-    (the mesh to the loss) and 'backward_ms', host clock, each ended by a
-    synchronise.  Returns (image, face vertices [B, F, 9] and textures as
-    the renderer took them, the gradients of the face vertices, vertices
-    and textures)."""
+    vertices and textures.  Returns (image, face vertices [B, F, 9] and
+    textures as the renderer took them, the gradients of the face
+    vertices, vertices and textures)."""
     import torch
     import gendr_tpu_torch as G
     from gendr_tpu_torch import data
@@ -790,9 +815,6 @@ def gendr_path(texture_type, backend=None, scene=None, times=None,
     verts = torch.as_tensor(v, device='cuda').clone().requires_grad_(True)
     tex = torch.as_tensor(tex, dtype=torch.float32, device='cuda').clone() \
         .requires_grad_(True)
-    if times is not None:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
     mesh = G.Mesh.create(verts, f, tex, res if texture_type == 'surface'
                          else 1, texture_type).repeat(GENDR_VIEWS)
     look = G.LookAt().to('cuda')
@@ -806,14 +828,7 @@ def gendr_path(texture_type, backend=None, scene=None, times=None,
     img = G.GenDR(anti_aliasing=True, texture_type=texture_type,
                   backend=backend, **renderer_kw).forward_tensors(fv, ftex)
     loss = 0.5 * (img[:, 3] ** 2).sum() + 0.1 * img[:, :3].sum()
-    if times is not None:
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
     loss.backward()
-    if times is not None:
-        torch.cuda.synchronize()
-        times['forward_ms'] = 1e3 * (t1 - t0)
-        times['backward_ms'] = 1e3 * (time.perf_counter() - t1)
     B = fv.shape[0]
     return (img.detach(), fv.detach().reshape(B, -1, 9).contiguous(),
             ftex.detach().contiguous(), fv.grad.reshape(B, -1, 9),
@@ -944,22 +959,6 @@ def render_path():
     return launches
 
 
-@contextlib.contextmanager
-def compaction(mode):
-    """Renders within run with per-tile face compaction as RenderConfig.
-    compact = mode says: 'auto' is every render's default (GenDR has no
-    compact keyword, as gendr_tpu's has none), and 'off' shuts the gate
-    (cuda_backend._compact_eligible) for a comparison of the two."""
-    from gendr_tpu_torch.raster import cuda_backend as CB
-    gate = CB._compact_eligible
-    if mode == 'off':
-        CB._compact_eligible = lambda cfg, allow_compact: False
-    try:
-        yield
-    finally:
-        CB._compact_eligible = gate
-
-
 def overflow_scene(device='cuda'):
     """384 tiny faces clustered in one corner of a 128x128 image
     (tests/test_pallas.py:818-852): one tile hits 48 octets, more than its
@@ -978,51 +977,7 @@ def overflow_scene(device='cuda'):
             torch.ones((1, F, 1, 3), device=device))
 
 
-def _back_to_back(fn, n=200):
-    """ms a call of fn over n calls back to back between two CUDA events
-    (the card's queue stays full: the host's latency per call is left
-    out), the median of 3 such runs after a warm-up."""
-    import torch
-    fn()
-    runs = []
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        runs.append(start.elapsed_time(end) / n)
-    return float(np.median(runs))
-
-
-def _prepass_cost(fv, tex, cfg, params, reps=20, fn=None):
-    """(host-clock ms of a prepass, synchronized, median of reps; its
-    device kernels from the profiler, None where it shows none).  fn: the
-    prepass to run, cuda_backend.prepass where None."""
-    import torch
-    from torch import profiler
-    from gendr_tpu_torch.raster import cuda_backend as CB
-    fn = fn or CB.prepass
-    times = []
-    for _ in range(reps + 3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(fv, tex, cfg, params)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
-                                      profiler.ProfilerActivity.CUDA]) as pr:
-        fn(fv, tex, cfg, params)
-        torch.cuda.synchronize()
-    kernels = sum(e.count for e in pr.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return float(np.median(times[3:])), kernels or None
-
-
-# phase 14: the prepass kernels (csrc/prepass.cu) against the plain prepass,
+# phase 13: the prepass kernels (csrc/prepass.cu) against the plain prepass,
 # bitwise (tests/test_torch_prepass.py runs the same cases): name, batch,
 # faces, image size, prepass_scene's kind, texels per face, RenderConfig
 # keywords (flagship_cfg's), RenderParams keywords.  The first three are
@@ -1069,7 +1024,7 @@ PREPASS_CASES = [
 ]
 # camera.sharp128's shape, the first compacted case
 COMPACT_CASE = [c[0] for c in PREPASS_CASES].index('camera.sharp128')
-# eager steps of camera.sharp128's experiment whose prepasses phase 14
+# eager steps of camera.sharp128's experiment whose prepasses phase 13
 # counts
 SHARP128_STEPS = 5
 # the prepass's outputs that the kernels write (and, compacted, oct_ids)
@@ -1083,7 +1038,7 @@ def prepass_outputs(aux):
 
 
 def prepass_scene(kind, B, F, device, seed=0, TS=1, texture_type='surface'):
-    """(face vertices [B, F, 9], textures, prepass keywords) of a phase 14
+    """(face vertices [B, F, 9], textures, prepass keywords) of a phase 13
     scene: 'views', the 1280-face icosphere's first F faces (repeated past
     1280) seen from B seeded cameras (distance 2.5-4, elevation and
     azimuth N(0, 60) degrees, perspective 30 degrees); 'ties', the same
@@ -1236,13 +1191,6 @@ def _captured(fn):
     return graph, out
 
 
-def _graph_ms(fn, n=100):
-    """ms a replay of fn captured in a CUDA graph, over n replays back to
-    back between two CUDA events (median of 3 after a warm-up), as the
-    experiments' chained steps run it."""
-    return _back_to_back(_captured(fn)[0].replay, n)
-
-
 def check_prepass_replay(name, cfg, params, fv, tex):
     """A kernel prepass captured in a CUDA graph (one launch counted at
     the capture), its outputs overwritten, then replayed: bitwise the
@@ -1310,18 +1258,6 @@ def check_plain_prepass(name, cfg, params, fv, tex):
     return aux
 
 
-def prepass_bytes(aux, fv, tex, cfg):
-    """Bytes a prepass must move at least: the face vertices (and the
-    texture rows it packs) read once, the packed rows, perm, both lists
-    and, compacted, the octet ids written once."""
-    ntex = 0 if cfg.channels == 'alpha' else (
-        3 if cfg.texture_type == 'vertex' else tex.shape[2])
-    B, F = fv.shape[:2]
-    written = sum(aux[k].numel() * aux[k].element_size()
-                  for k in prepass_outputs(aux))
-    return B * F * (9 + 3 * ntex) * 4 + written
-
-
 def compacted_past_the_sort(device):
     """(cfg, face vertices, textures) of a render whose compaction fires
     but whose padded faces pass the kernels' sort: 16 385 faces at 768^2,
@@ -1331,46 +1267,16 @@ def compacted_past_the_sort(device):
     return flagship_cfg(768), fv, tex
 
 
-def _kernel_split(fn, n=20):
-    """{kernel: device ms a call} of fn captured in a CUDA graph, from the
-    profiler over n replays (a prepass kernel by its short name)."""
-    import re
-    import torch
-    from torch import profiler
-    graph = _captured(fn)[0]
-    graph.replay()
-    torch.cuda.synchronize()
-    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
-                                      profiler.ProfilerActivity.CUDA]) as pr:
-        for _ in range(n):
-            graph.replay()
-        torch.cuda.synchronize()
-    split = {}
-    for e in pr.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            m = re.search(r'prepass_\w+?(<\w+>)?(?=\()', e.key)
-            name = m.group(0) if m else e.key[:40]
-            split[name] = split.get(name, 0.0) \
-                + e.self_device_time_total / 1e3 / n
-    return split
-
-
-def prepass_phase(smi):
-    """Phase 14: the prepass kernels against the plain prepass, bitwise,
+def prepass_phase():
+    """Phase 13: the prepass kernels against the plain prepass, bitwise,
     on PREPASS_CASES; on the compacted ones, a recorded prepass's marks
     and census against the plain one's; a captured prepass replayed
     against the eager one, uncompacted and compacted; the plain path where
     the faces pass the kernels' sort, compacted or not (PREPASS_PLAIN
     counts the call, no kernel launches); one kernel prepass per forward
-    at each cell's shape; then, at the cells' shapes, the kernels and the
-    plain prepass each captured in a graph and replayed back to back (the
-    way the cells run them) beside the byte bound, their device kernels,
-    each kernel's device ms and host ms a call (_prepass_cost).  Returns
-    ({shape: {'prepass' or 'prepass_compact': numbers}}, launches of the
-    phase)."""
+    at each cell's shape.  Returns the launches of the phase."""
     import torch
     from gendr_tpu_torch.raster import cuda_backend as CB
-    from gendr_tpu_torch.raster import pairmath as PM
     for k in CB.LAUNCHES:
         CB.LAUNCHES[k] = 0
     inputs = [prepass_inputs(case, 'cuda') for case in PREPASS_CASES]
@@ -1427,56 +1333,22 @@ def prepass_phase(smi):
           f'{delta["prepass_compact"]} compacted kernel prepasses for '
           f'{delta["rasterize_fwd"]} renders, plain prepasses '
           f'{CB.PREPASS_PLAIN}; launches {launches}', flush=True)
-
-    kt = {}
-    for i in cells + (COMPACT_CASE + 1,):
-        name, cfg, params, fv, tex, kw = inputs[i]
-        counter = prepass_counter(cfg, fv, tex, kw)
-        p = PM.vector_params(PM._params_vec(params, cfg, 'cuda'))
-        aux = CB.prepass(fv, tex, cfg, p)
-        ms = _graph_ms(lambda: CB.prepass(fv, tex, cfg, p))
-        plain_ms = _graph_ms(lambda: CB.prepass_plain(fv, tex, cfg, p))
-        split = _kernel_split(lambda: CB.prepass(fv, tex, cfg, p))
-        nbytes = prepass_bytes(aux, fv, tex, cfg)
-        bound = 1e3 * nbytes / H100_HBM_BYTES
-        host, kernels = _prepass_cost(fv, tex, cfg, p)
-        plain_host, plain_kernels = _prepass_cost(
-            fv, tex, cfg, p, fn=CB.prepass_plain)
-        kt[f'prepass {name}'] = {counter: dict(
-            ms=ms, plain_ms=plain_ms, bound=(bound, 'bytes'))}
-        print(f'[prepass timing] {smi}: {name} (B={fv.shape[0]}, '
-              f'{fv.shape[1]} faces, {cfg.image_size}^2, {counter}): '
-              f'replayed in a graph, kernels {ms:.5f} ms against plain '
-              f'{plain_ms:.5f} ms ({plain_ms / ms:.1f}x); bound {bound:.5f} '
-              f'ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s; '
-              f'{100 * bound / ms:.1f} % of it); device ms a replay by '
-              f'kernel ' + ', '.join(f'{k} {v:.5f}' for k, v in split.items())
-              + f'; device kernels {kernels} against {plain_kernels}; host '
-              f'ms a call, synchronized, {host:.3f} against '
-              f'{plain_host:.3f}', flush=True)
-    return kt, launches
+    return launches
 
 
-def compaction_phase(smi):
+def compaction_phase():
     """Per-tile face compaction (RenderConfig.compact 'auto', the default):
     on the flagship, its band of rows 128-255, the default GenDR's inputs
     and the overflow scene, the gate fires (packed columns past the sorted
     faces; the overflow scene keeps a chunk list), K1 and K2 against their
     plain versions under check_kernels' gates, and the forward kernel's
-    output bitwise that of compact='off'.  Then 'auto' against 'off' in
-    turns (off, auto, auto, off): both kernels per call and back to back,
-    the prepass's device kernels and host time, the flagship's eager
-    render and forward + backward through render, the default GenDR's
-    forward + backward, visited pairs, and the chained opt_camera --quick
-    step (16 poses of a 12-face cube at 64x64: the gate fires).  The
-    eager flagship forward + backward is this phase's main path: the
-    kernels' counts are set to 0 before it and read after.  Returns
-    (launches, largest image error, largest gradient error, time_kernels'
-    results by shape)."""
+    output bitwise that of compact='off'.  Then this phase's main path,
+    the eager flagship forward + backward through render: the kernels'
+    counts are set to 0 before it and read after.  Returns (launches,
+    largest image error, largest gradient error)."""
     import dataclasses
     import torch
     from gendr_tpu_torch import config as C, render
-    from gendr_tpu_torch.experiments import opt_camera as OC
     from gendr_tpu_torch.raster import cuda_backend as CB
     params = C.RenderParams(dist_scale=1e-2).as_dict()
     fv, tex = flagship_scene('cuda')
@@ -1509,102 +1381,20 @@ def compaction_phase(smi):
           f'the gates of their plain versions, the forward bitwise '
           f'compact=\'off\'', flush=True)
 
-    kw = dict(image_size=256, dist_func='uniform', dist_scale=1e-2,
-              aggr_alpha_func='probabilistic', aggr_rgb_func='hard')
-    fvg = fv.clone().requires_grad_(True)
-
-    def fwd_bwd(mode):
-        img = render(fvg, tex, compact=mode, **kw)
-        loss = 0.5 * (img[:, 3] ** 2).sum() + 0.1 * img[:, :3].sum()
-        return torch.autograd.grad(loss, fvg)
-
     # the main path: the eager flagship forward + backward, compacted
+    fvg = fv.clone().requires_grad_(True)
     for k in CB.LAUNCHES:
         CB.LAUNCHES[k] = 0
-    fwd_bwd('auto')
+    out = render(fvg, tex, compact='auto', image_size=256,
+                 dist_func='uniform', dist_scale=1e-2,
+                 aggr_alpha_func='probabilistic', aggr_rgb_func='hard')
+    torch.autograd.grad(0.5 * (out[:, 3] ** 2).sum()
+                        + 0.1 * out[:, :3].sum(), fvg)
     torch.cuda.synchronize()
     launches = dict(CB.LAUNCHES)
     if render_counts(launches) != render_launches(1, 1, 1):
         raise AssertionError(f'compacted render launches {launches}')
-
-    kt, t = {}, {}
-    gcfg, gparams, gfv, gtex = next(
-        (c, p, f, x) for n, c, p, f, x in gendr_inputs() if 'surf' in n)
-    for mode in ('off', 'auto', 'auto', 'off'):
-        with compaction(mode):
-            c = dataclasses.replace(cfg, compact=mode)
-            r = time_kernels(smi, f'flagship compact={mode}', c, params, fv,
-                             tex, 50, plain=(1, 0))
-            gc = dataclasses.replace(gcfg, compact=mode)
-            rg = time_kernels(smi, f'default GenDR compact={mode}', gc,
-                              gparams, gfv, gtex, 20, plain=(1, 0))
-            kt.setdefault(f'flagship compact={mode}', r)
-            kt.setdefault(f'default GenDR compact={mode}', rg)
-            aux = CB.prepass(fv, tex, c, params)
-            fargs = (aux['tile_counts'], aux['tile_ids'], aux['par'],
-                     aux['packed'], aux['perm'], c, 1)
-            bargs = backward_args(aux, c, params, 1,
-                                  CB.rasterize_fwd(*fargs))
-            row = dict(
-                fwd_b2b=_back_to_back(lambda: CB.rasterize_fwd(*fargs)),
-                bwd_b2b=_back_to_back(lambda: CB.rasterize_bwd(*bargs)),
-                prepass=_prepass_cost(fv, tex, c, params),
-                gendr_prepass=_prepass_cost(gfv, gtex, gc, gparams),
-                render=_median_ms(lambda: render(fv, tex, compact=mode,
-                                                 **kw), 50),
-                fwd_bwd=_median_ms(lambda: fwd_bwd(mode), 50),
-                gendr_fwd_bwd=_median_ms(lambda: gendr_path('surface'), 10),
-                visited=r['rasterize_fwd']['visited_pairs'])
-            for k, v in row.items():
-                t.setdefault(k, {}).setdefault(mode, []).append(v)
-    # path (k)'s render (opt_camera at its defaults, B=200) both ways, K2
-    # back to back beside time_kernels' medians
-    exp, init = camera_experiment(CHAIN_CAMERA)
-    for tau in CAMERA_DEFAULT_TAUS:
-        ccfg, cparams, cfv, ctex = camera_inputs(exp, init, tau)
-        for mode in ('off', 'auto', 'auto', 'off'):
-            with compaction(mode):
-                c = dataclasses.replace(ccfg, compact=mode)
-                shape = f'opt_camera B=200 tau {tau:g} compact={mode}'
-                kt.setdefault(shape, time_kernels(smi, shape, c, cparams,
-                                                  cfv, ctex, 50,
-                                                  plain=(1, 0)))
-                aux = CB.prepass(cfv, ctex, c, cparams)
-                TS = ctex.shape[2]
-                bargs = backward_args(aux, c, cparams, TS, CB.rasterize_fwd(
-                    aux['tile_counts'], aux['tile_ids'], aux['par'],
-                    aux['packed'], aux['perm'], c, TS))
-                t.setdefault(f'camera_bwd_b2b tau {tau:g}', {}).setdefault(
-                    mode, []).append(_back_to_back(
-                        lambda: CB.rasterize_bwd(*bargs)))
-    del exp
-    cam = {}
-    for mode in ('off', 'auto'):
-        with compaction(mode):
-            args = OC.parse_args(['--quick', '--device', 'cuda', '--chain',
-                                  str(CHAIN_CAMERA)])
-            exp = OC.CameraExperiment(args, args.device, args.backend)
-            exp.run(OC.initial_poses(args.batch_size, 15, 35),
-                    num_iterations=1)
-            cam[mode] = time_chain(
-                smi, f'opt_camera --quick --chain {CHAIN_CAMERA}, '
-                f'compact={mode}', exp.chain('iou'), CHAIN_CAMERA)['step_ms']
-            del exp
-    t['camera_chained_step'] = cam
-    print(f'[compaction] {smi}: compact=\'auto\' against \'off\', in turns '
-          f'(off, auto, auto, off): flagship K1 / K2 back to back (200 '
-          f'launches, CUDA events) {t["fwd_b2b"]} / {t["bwd_b2b"]} ms; '
-          f'prepass (host ms, device kernels) flagship {t["prepass"]}, '
-          f'default GenDR {t["gendr_prepass"]}; eager flagship render '
-          f'{t["render"]} ms, forward + backward {t["fwd_bwd"]} ms (medians '
-          f'of 50, CUDA events); default GenDR forward + backward '
-          f'{t["gendr_fwd_bwd"]} ms (medians of 10); visited pairs at the '
-          f'flagship {t["visited"]}; chained opt_camera --quick step {cam} '
-          f'ms; opt_camera at its defaults (B=200), K2 back to back '
-          + ', '.join(f'{k[15:]} {v} ms' for k, v in t.items()
-                      if k.startswith('camera_bwd_b2b'))
-          + f'; the main path\'s launches {launches}', flush=True)
-    return launches, img, grad, kt
+    return launches, img, grad
 
 
 def _shape_experiment(backend, device='cuda', extra=()):
@@ -1620,7 +1410,7 @@ def _shape_experiment(backend, device='cuda', extra=()):
 def training_path(extra=()):
     """Phase 3, and with extra = YAGER_ARGS path (d): TRAIN_STEPS steps of
     the shape optimizer through the kernels.  Returns each kernel's
-    launches in that run and the step times."""
+    launches in that run."""
     import torch
     from gendr_tpu_torch.raster import cuda_backend as CB
     exp, eyes, targets = _shape_experiment(None, extra=['--chain', '1',
@@ -1645,7 +1435,7 @@ def training_path(extra=()):
     for k in RENDER_KERNELS:
         if launches[k] < 1:
             raise AssertionError(f'the training path never launched {k}')
-    return launches, rec['step_s']
+    return launches
 
 
 def panda_path(args=PANDA_ARGS, what='1280 faces, TS=25'):
@@ -1654,7 +1444,7 @@ def panda_path(args=PANDA_ARGS, what='1280 faces, TS=25'):
     a temporary directory), forward only.  Checks one forward launch per
     frame and none backward, every frame finite with alpha in [0, 1], and
     every PNG read back as a 768x768 RGB image that is not blank.  Returns
-    the launches and ms/frame."""
+    the launches."""
     import tempfile
     import torch
     from gendr_tpu_torch.animations import panda_dist as PD
@@ -1662,7 +1452,7 @@ def panda_path(args=PANDA_ARGS, what='1280 faces, TS=25'):
     with tempfile.TemporaryDirectory() as out_dir:
         for k in CB.LAUNCHES:
             CB.LAUNCHES[k] = 0
-        ms, stats = PD.main(args + ['--out-dir', out_dir])
+        _, stats = PD.main(args + ['--out-dir', out_dir])
         torch.cuda.synchronize()
         launches = dict(CB.LAUNCHES)
         pngs = [p for p in os.listdir(out_dir) if p.endswith('.png')]
@@ -1675,8 +1465,7 @@ def panda_path(args=PANDA_ARGS, what='1280 faces, TS=25'):
     ok = all(fin and 0.0 <= lo and hi <= 1.0 for fin, lo, hi in stats)
     print(f'[panda path] panda_dist {" ".join(args)}: {what}, '
           f'1536x1536 render (768x768 with 2x AA): {len(stats)} '
-          f'frames, {len(pngs)} PNGs read back, ms/frame (render+fetch+png, host '
-          f'clock) {[round(x, 3) for x in ms]}; frames finite with alpha '
+          f'frames, {len(pngs)} PNGs read back; frames finite with alpha '
           f'in [0, 1]: {ok}; launches={launches}', flush=True)
     if len(stats) != PANDA_FRAMES or len(pngs) != PANDA_FRAMES:
         raise AssertionError(f'{len(stats)} frames, {len(pngs)} PNGs')
@@ -1685,7 +1474,7 @@ def panda_path(args=PANDA_ARGS, what='1280 faces, TS=25'):
                              f'[0, 1]: {stats}')
     if render_counts(launches) != render_launches(PANDA_FRAMES, 0):
         raise AssertionError(f'panda path launches {launches}')
-    return launches, ms
+    return launches
 
 
 def panda_frame_vs_torch():
@@ -1742,12 +1531,10 @@ def tcn_path():
         out = ['--out-dir', out_dir]
         for k in CB.LAUNCHES:
             CB.LAUNCHES[k] = 0
-        t0 = time.perf_counter()
         sweeps = [TCN.run(TCN.parse_args(TCN_ARGS + out), T_CONORMS),
                   TCN.main(TCN_ARGS + ['--sweep-p'] + out),
                   triangles_tcn.main(TCN_ARGS + out)]
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
         launches = dict(CB.LAUNCHES)
         pngs = len([p for p in os.listdir(out_dir) if p.endswith('.png')])
     frames = tuple(len(stats) for stats in sweeps)
@@ -1756,9 +1543,9 @@ def tcn_path():
     print(f'[tcn path] panda_tcn {" ".join(TCN_ARGS)} over the 11 canonical '
           f't-conorm configurations, then --sweep-p, then triangles_tcn: '
           f'1280 faces, TS=25, 1536x1536 renders (768x768 with 2x AA), '
-          f'softmax RGB, uniform: {frames} frames, {pngs} PNGs in '
-          f'{seconds:.1f} s (render+fetch+png, host clock); frames finite '
-          f'with alpha in [0, 1]: {ok}; launches={launches}', flush=True)
+          f'softmax RGB, uniform: {frames} frames, {pngs} PNGs; frames '
+          f'finite with alpha in [0, 1]: {ok}; launches={launches}',
+          flush=True)
     # the triangle sweep's --quick names coincide with the tau sweep's first
     # two configurations, so its 14 PNGs replace theirs
     if frames != TCN_FRAMES or pngs != sum(TCN_FRAMES[:2]):
@@ -1862,103 +1649,6 @@ def probe_phase():
     return launches, worst
 
 
-def time_probes(smi, reps):
-    """Both probe kernels over the whole probe phase (the 111 cases of the
-    three tools), the inputs packed on the card beforehand: one launch of
-    the phase back to back (CUDA events, median of reps) and its device
-    time (the profiler); the same cases as one-case launches, one after
-    another (CUDA events around all of them) and their device time a
-    launch (the profiler's mean); the torch expressions of every case on
-    the card (the plain version); the batch's bound from its bytes: each x
-    and second y read once, each output written once (operations counted
-    as one an element, a floor: the bytes bound it).  Then where the
-    batch's time goes, on the device: the phase with every op made
-    MUL_ADD (the same bytes, no work), the cases of the Kummer series (31
-    IEEE divisions an element) alone and the others alone.  Returns
-    {kernel: dict}."""
-    import torch
-    from gendr_tpu_torch import config as C
-    from gendr_tpu_torch.tools import _ulp
-    cases = _ulp.check_cases() + _ulp.bisect_cases() + _ulp.smem_cases()
-    elements = sum(c.x.size for c in cases)
-    nbytes = 4 * (2 * elements + sum(c.y.size for c in cases
-                                     if _ulp._has_y(c)))
-    kummer = [c.op in ('KUMMER_DIV', 'GAMMA_FULL_DIV') or (
-        c.op == 'CDF' and int(c.q[0]) in (C.GAMMA, C.GAMMA_REV))
-        for c in cases]
-    parts = dict(
-        no_work=[c._replace(op='MUL_ADD', y=c.x if c.y is None else c.y)
-                 for c in cases],
-        kummer=[c for c, k in zip(cases, kummer) if k],
-        others=[c for c, k in zip(cases, kummer) if not k])
-    args = [(c.op, torch.as_tensor(c.x).cuda(),
-             torch.as_tensor(c.x if c.y is None else c.y).cuda(),
-             _ulp._pad_params(c.q)) for c in cases]
-    vector = [(op, x, y, torch.tensor(q, device='cuda'))
-              for op, x, y, q in args]
-    res = {}
-    for kernel in _ulp.LAUNCHES:
-        name = f'{kernel}_kernel'
-        batch = _probe_launch(cases, kernel)
-        singles = [_probe_launch([c], kernel) for c in cases]
-
-        def one_by_one():
-            for single in singles:
-                single()
-
-        def plain():
-            for op, x, y, q in (args if kernel == 'ulp_elementwise'
-                                else vector):
-                _ulp.OPS[op].torch(x, y, q)
-        events_ms = _median_ms(batch, reps)
-        device_ms = _profiled_ms(batch, [name], reps)[name]
-        res[kernel] = dict(
-            ms=device_ms if device_ms is not None else events_ms,
-            events_ms=events_ms, device_ms=device_ms,
-            cases_ms=_median_ms(one_by_one, 5),
-            case_device_ms=_profiled_ms(one_by_one, [name], 3)[name],
-            plain_ms=_median_ms(plain, 3),
-            bound=bound(nbytes, elements),
-            parts={k: _profiled_ms(_probe_launch(v, kernel), [name],
-                                   reps)[name] for k, v in parts.items()})
-    for kernel, r in res.items():
-        case_ms = r['case_device_ms']
-        print(f'[timing] {smi}: probe phase, {len(cases)} cases, {elements} '
-              f'elements, {nbytes} bytes, through {kernel}: one launch '
-              f'({_ulp.launches(len(cases), kernel)} a phase) '
-              f'{r["events_ms"]:.4f} ms back to back (CUDA events, median '
-              f'of {reps}), {_fmt_ms(r["device_ms"])} on the device '
-              f'(profiler); {len(cases)} one-case launches '
-              f'{r["cases_ms"]:.4f} ms one after another (CUDA events, '
-              f'median of 5), {_fmt_ms(case_ms)} a launch on the device '
-              f'(profiler), '
-              f'{_fmt_ms(case_ms and case_ms * len(cases))} summed; torch '
-              f'on the card {r["plain_ms"]:.4f} ms; bound '
-              f'{r["bound"][0]:.6f} ms ({r["bound"][1]}); on the device, '
-              f'every op as MUL_ADD (the same bytes) '
-              f'{_fmt_ms(r["parts"]["no_work"])}, the '
-              f'{sum(kummer)} Kummer-series cases alone '
-              f'{_fmt_ms(r["parts"]["kummer"])}, the other '
-              f'{len(cases) - sum(kummer)} alone '
-              f'{_fmt_ms(r["parts"]["others"])}', flush=True)
-    return res
-
-
-def _probe_launch(cases, kernel):
-    """A function that launches kernel over cases, packed on the card once
-    beforehand."""
-    import torch
-    from gendr_tpu_torch.tools import _ulp
-    packed = _ulp.pack(cases)
-    inputs = _ulp._inputs(cases, packed, 'cuda')
-    out = torch.empty(packed.n_out, device='cuda')
-    return lambda: _ulp.launch(kernel, packed, inputs, out)
-
-
-def _fmt_ms(ms):
-    return 'not measured' if ms is None else f'{ms:.6f} ms'
-
-
 def gendr_default_path():
     """Phase 4c: the default GenDR forward and backward (path (b)) with
     surface and vertex textures.  Checks one launch of each kernel per
@@ -1973,11 +1663,7 @@ def gendr_default_path():
         img, _, _, gfv, gv, gt = gendr_path(texture_type)
         torch.cuda.synchronize()
         launches[texture_type] = dict(CB.LAUNCHES)
-        t0 = time.perf_counter()
         ref, _, _, rfv, rv, rt = gendr_path(texture_type, 'torch')
-        torch.cuda.synchronize()
-        torch_ms = 1e3 * (time.perf_counter() - t0)
-        cuda_ms = _median_ms(lambda: gendr_path(texture_type), 10)
         err = float((img - ref).abs().max())
         alpha = img[:, 3]
         finite = all(bool(torch.isfinite(x).all())
@@ -1994,11 +1680,7 @@ def gendr_default_path():
               f'texture_grad_agree={agree[2]:.6f} '
               f'face_grad_scale={float(rfv.abs().max()):.3g} '
               f'vertex_grad_err={float((gv - rv).abs().max()):.3g} '
-              f'vertex_grad_scale={float(rv.abs().max()):.3g} | forward + '
-              f'backward: backend=cuda {cuda_ms:.3f} ms (median of 10, CUDA '
-              f'events), backend=torch {torch_ms:.1f} ms (one run, host '
-              f'clock)',
-              flush=True)
+              f'vertex_grad_scale={float(rv.abs().max()):.3g}', flush=True)
         del ref, rfv, rv, rt
         torch.cuda.empty_cache()
         if render_counts(launches[texture_type]) != render_launches(1, 1):
@@ -2025,8 +1707,7 @@ def torch_texel_phase():
     bitwise equal across the runs (the texel gradient is a fixed-order
     segment sum, torch_backend.texel_sums: no atomics), finite, the texel
     gradient not zero, the peak device memory under TORCH_PEAK_GIB.
-    Prints both runs' forward and backward times.  Returns nothing: no
-    kernel runs here."""
+    Returns nothing: no kernel runs here."""
     import torch
     from gendr_tpu_torch import data
     from gendr_tpu_torch.raster import cuda_backend as CB
@@ -2040,18 +1721,17 @@ def torch_texel_phase():
     for _ in range(2):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        times = {}
-        img, _, _, gfv, gv, gt = gendr_path('surface', 'torch', scene, times)
-        runs.append(((img, gfv, gv, gt), times,
+        img, _, _, gfv, gv, gt = gendr_path('surface', 'torch', scene)
+        runs.append(((img, gfv, gv, gt),
                      torch.cuda.max_memory_allocated() / 2 ** 30))
     names = ('image', 'face gradient', 'vertex gradient', 'texel gradient')
-    (first, _, _), (second, _, _) = runs
+    (first, _), (second, _) = runs
     equal = {n: torch.equal(a.view(torch.int32), b.view(torch.int32))
              for n, a, b in zip(names, first, second)}
     gt = first[3]
     finite = all(bool(torch.isfinite(x).all()) for x in first)
     nonzero = int((gt != 0).sum())
-    peak = max(p for _, _, p in runs)
+    peak = max(p for _, p in runs)
     print(f'[torch texels] {smi_line()}: default GenDR (softmax RGB, '
           f'anti-aliased 256x256) through backend=torch on {GENDR_VIEWS} '
           f'views of the stand-in at {res * res} texels a face (kernels\' '
@@ -2060,12 +1740,9 @@ def torch_texel_phase():
           + ', '.join(f'{n} {e}' for n, e in equal.items())
           + f'; finite {finite}; texel gradient entries not zero '
           f'{nonzero} of {gt.numel()}, largest '
-          f'{float(gt.abs().max()):.3g}; forward / backward ms (host clock, '
-          f'synchronised) ' + ', '.join(
-              f'{t["forward_ms"]:.1f} / {t["backward_ms"]:.1f}'
-              for _, t, _ in runs)
-          + f'; peak device memory (max_memory_allocated) {peak:.2f} GiB '
-          f'(gate {TORCH_PEAK_GIB} GiB)', flush=True)
+          f'{float(gt.abs().max()):.3g}; peak device memory '
+          f'(max_memory_allocated) {peak:.2f} GiB (gate {TORCH_PEAK_GIB} '
+          f'GiB)', flush=True)
     del runs, first, second, gt
     torch.cuda.empty_cache()
     if CB.LAUNCHES != launches:
@@ -2082,15 +1759,11 @@ def obj_path(obj_file):
     """Phase 6, path (e): load_obj of the written OBJ onto the card, the
     default GenDR on 4 views of it forward and backward, and the sweep
     through GENDR_PANDA_OBJ.  Returns the launches of the GenDR run and of
-    the sweep, and load_obj's host-clock time."""
+    the sweep."""
     import torch
     from gendr_tpu_torch import data
     from gendr_tpu_torch.raster import cuda_backend as CB
-    obj_scene(obj_file)  # builds the tokenizer, reads the files once
-    t0 = time.perf_counter()
     scene = obj_scene(obj_file)
-    torch.cuda.synchronize()
-    load_ms = 1e3 * (time.perf_counter() - t0)
     v, f, tex, res = scene
     TS = res * res
     src = torch.as_tensor(data.textured_scene(res)[2][0], device='cuda')
@@ -2102,8 +1775,8 @@ def obj_path(obj_file):
           f'vertices {tuple(v.shape)}, faces {tuple(f.shape)}, textures '
           f'{tuple(tex.shape)} on {tex.device} in [{float(tex.min()):.4f}, '
           f'{float(tex.max()):.4f}], per-face mean colour within '
-          f'{bake_err:.4f} of the source after bake and resample; '
-          f'{load_ms:.1f} ms (host clock, second call)', flush=True)
+          f'{bake_err:.4f} of the source after bake and resample',
+          flush=True)
     if tuple(tex.shape) != (1280, TS, 3) or tuple(f.shape) != (1280, 3) \
             or tuple(v.shape) != (642, 3) or not tex.is_cuda:
         raise AssertionError('load_obj shapes or device')
@@ -2120,8 +1793,6 @@ def obj_path(obj_file):
     torch.cuda.synchronize()
     launches = dict(CB.LAUNCHES)
     ref, _, _, rfv, rv, rt = gendr_path('surface', 'torch', scene)
-    torch.cuda.synchronize()
-    cuda_ms = _median_ms(lambda: gendr_path('surface', None, scene), 10)
     err = (img - ref).abs().amax(1)
     off_fold = float((err > IMG_TOL).float().mean())
     alpha_err = float((img[:, 3] - ref[:, 3]).abs().max())
@@ -2138,8 +1809,7 @@ def obj_path(obj_file):
           f'{off_fold:.6f} (budget {FOLD_BUDGET}), alpha_err='
           f'{alpha_err:.3g} '
           f'face_grad_agree={agree[0]:.6f} texture_grad_agree='
-          f'{agree[1]:.6f} | forward + backward {cuda_ms:.3f} ms (median of '
-          f'10, CUDA events)', flush=True)
+          f'{agree[1]:.6f}', flush=True)
     del ref, rfv, rv, rt
     torch.cuda.empty_cache()
     if render_counts(launches) != render_launches(1, 1):
@@ -2156,33 +1826,23 @@ def obj_path(obj_file):
 
     os.environ['GENDR_PANDA_OBJ'] = obj_file
     try:
-        sweep, _ = panda_path(OBJ_PANDA_ARGS,
-                              f'GENDR_PANDA_OBJ, 1280 faces, TS={TS}')
+        sweep = panda_path(OBJ_PANDA_ARGS,
+                           f'GENDR_PANDA_OBJ, 1280 faces, TS={TS}')
     finally:
         del os.environ['GENDR_PANDA_OBJ']
-    return launches, sweep, load_ms
+    return launches, sweep
 
 
 def voxel_path():
     """Phase 6, path (f): Mesh.voxelize of the 1280-face icosphere (radius
     0.4 in the reference's [-0.5, 0.5] convention) on the card and on the
-    CPU.  Returns the host-clock ms per grid size on the card."""
-    import torch
+    CPU."""
     import gendr_tpu_torch as G
     from gendr_tpu_torch import data
     v, f = data.icosphere(3)
-    ms = {}
     for vs in VOXEL_SIZES:
-        mesh = G.Mesh.create(v * 0.4, f, device='cuda')
-        mesh.voxelize(vs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        vox = mesh.voxelize(vs)
-        torch.cuda.synchronize()
-        ms[vs] = 1e3 * (time.perf_counter() - t0)
-        t0 = time.perf_counter()
+        vox = G.Mesh.create(v * 0.4, f, device='cuda').voxelize(vs)
         cpu = G.Mesh.create(v * 0.4, f, device='cpu').voxelize(vs)
-        cpu_ms = 1e3 * (time.perf_counter() - t0)
         differ = int((vox.cpu() != cpu).sum())
         solid = int(vox.sum())
         radius = 0.4 * vs * vs / (vs - 1)
@@ -2193,8 +1853,7 @@ def voxel_path():
               f'{radius:.2f} + {VOXEL_SHELL} cells {ball:.0f} (ratio '
               f'{solid / ball:.4f}), centre {int(vox[0, c, c, c])}, corner '
               f'{int(vox[0, 0, 0, 0])}; cells differing from the CPU: '
-              f'{differ}; {ms[vs]:.2f} ms on the card, {cpu_ms:.1f} ms on '
-              f'the CPU (host clock)', flush=True)
+              f'{differ}', flush=True)
         if tuple(vox.shape) != (1, vs, vs, vs) or not vox.is_cuda:
             raise AssertionError(f'voxel grid {tuple(vox.shape)}')
         if differ:
@@ -2203,20 +1862,18 @@ def voxel_path():
             raise AssertionError(f'solid count {solid} against {ball}')
         if int(vox[0, c, c, c]) != 1 or int(vox[0, 0, 0, 0]) != 0:
             raise AssertionError('centre not solid or corner not empty')
-    return ms
 
 
 def camera_path():
     """Phase 6, path (g): opt_camera --quick on the card (16 poses, 50
     steps, 64x64, alpha only, tau annealed 1e-1 .. 1e-7).  Returns each
-    kernel's launches in the run and the seconds it took."""
+    kernel's launches in the run."""
     import torch
     from gendr_tpu_torch.experiments import opt_camera as OC
     from gendr_tpu_torch.raster import cuda_backend as CB
     args = OC.parse_args(CAMERA_ARGS)
     exp = OC.CameraExperiment(args, args.device, args.backend)
     init = OC.initial_poses(args.batch_size, 15, 35)
-    exp.run(init, num_iterations=2)  # warm-up
     for k in CB.LAUNCHES:
         CB.LAUNCHES[k] = 0
     rec = exp.run(init)
@@ -2232,9 +1889,7 @@ def camera_path():
           f'{args.image_size}x{args.image_size}, procedural cube: IoU loss '
           f'(sum over poses) {first:.4f} over the first 5 steps, {last:.4f} '
           f'over the last 5; poses and losses finite={finite}, largest pose '
-          f'change {moved:.3f}; {1e3 * rec["seconds"] / rec["iterations"]:.3f}'
-          f' ms per step (host clock, synchronized at the ends); '
-          f'launches={launches}', flush=True)
+          f'change {moved:.3f}; launches={launches}', flush=True)
     if not last < first:
         raise AssertionError(f'camera loss did not fall: {first} -> {last}')
     if not finite:
@@ -2242,7 +1897,7 @@ def camera_path():
     n = rec['iterations']
     if render_counts(launches) != render_launches(n, n, n):
         raise AssertionError(f'camera path launches {launches}')
-    return launches, rec['seconds']
+    return launches
 
 
 def reconstruction_args(device='cuda', extra=()):
@@ -2275,11 +1930,9 @@ def reconstruction_path(device='cuda'):
         '--print_freq', '5', '--max-eval-batches', '2', '--chain', '1'])
     for k in CB.LAUNCHES:
         CB.LAUNCHES[k] = 0
-    t0 = time.perf_counter()
     res = TR.main(argv)
     if device != 'cpu':
         torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launches = dict(CB.LAUNCHES)
     losses = np.array(res['losses'])
     first, last = float(losses[:5].mean()), float(losses[-5:].mean())
@@ -2291,8 +1944,7 @@ def reconstruction_path(device='cuda'):
           f'loss {first:.6f} over the first 5 steps, {last:.6f} over the '
           f'last 5 ({[round(x, 6) for x in res["losses"]]}); gradients '
           f'finite={res["grads_finite"]}; mean voxel IoU '
-          f'{res["mean_iou"]:.3f}; {seconds:.1f} s with the dataset and '
-          f'the evaluation; launches={launches}', flush=True)
+          f'{res["mean_iou"]:.3f}; launches={launches}', flush=True)
     if len(losses) != RECON_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f'reconstruction losses {losses}')
     if not last < first:
@@ -2355,28 +2007,23 @@ def reconstruction_inputs(device='cuda'):
            mesh.face_textures.contiguous())
 
 
-def reconstruction_phase(opt_shape_steps, device='cuda'):
-    """Paths (i2), (i4) and (i5): K1a / K2a against their plain versions on
-    path (i)'s own inputs with phase 1's gates (the check's time and peak
-    device memory printed: the plain versions walk B=256 x 4096 pixels a
-    face chunk at a time); SyntheticShapeNet's silhouettes and voxels on
-    the card against the CPU's plain render and voxelizer; the training
-    step's time, host clock after warm-up, beside opt_shape's.  Returns
-    (largest image error, largest gradient error, median step ms)."""
+def reconstruction_phase(device='cuda'):
+    """Paths (i2) and (i4): K1a / K2a against their plain versions on path
+    (i)'s own inputs with phase 1's gates (the check's peak device memory
+    printed: the plain versions walk B=256 x 4096 pixels a face chunk at a
+    time); SyntheticShapeNet's silhouettes and voxels on the card against
+    the CPU's plain render and voxelizer.  Returns (largest image error,
+    largest gradient error)."""
     import torch
     from gendr_tpu_torch.experiments import train_reconstruction as TR
     worst_img = worst_grad = 0.0
     for name, cfg, params, fv, tex in reconstruction_inputs(device):
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         img_err, grad_err = check_kernels(name, cfg, params, fv, tex)
-        torch.cuda.synchronize()
         print(f'[kernel vs plain] {name}: the check (kernels, plain versions '
-              f'and the backward twice) took {time.perf_counter() - t0:.2f} '
-              f's, peak device memory '
-              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB',
-              flush=True)
+              f'and the backward twice) peaked at '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of '
+              f'device memory', flush=True)
         worst_img, worst_grad = max(worst_img, img_err), max(worst_grad,
                                                              grad_err)
         del fv, tex
@@ -2399,36 +2046,7 @@ def reconstruction_phase(opt_shape_steps, device='cuda'):
                              f'equal to the CPU\'s')
     if not voxels_equal:
         raise AssertionError('synthetic voxels differ from the CPU\'s')
-
-    # (i5) the step, synchronized, after 3 warm-up steps
-    args = TR.parse_args(reconstruction_args(device))
-    args.synthetic_objects = 1
-    dataset, _ = TR.make_datasets(args, device)
-    exp = TR.build_experiment(args, device)
-    opt = torch.optim.Adam(exp.parameters(), lr=args.learning_rate)
-    images = torch.from_numpy(dataset.images).to(device)
-    rng = np.random.RandomState(args.seed)
-    times = []
-    for i in range(3 + RECON_TIMED_STEPS):
-        ids_a, ids_b, ea, eb = dataset.get_random_batch_ids(rng,
-                                                            args.batch_size)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        batch = [images[torch.from_numpy(ids).to(device).long()].float()
-                 / 255. for ids in (ids_a, ids_b)]
-        exp.train_step(opt, *batch, torch.from_numpy(ea).to(device),
-                       torch.from_numpy(eb).to(device), args.dist_scale)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    step_ms = float(np.median(times[3:]))
-    print(f'[reconstruction step] train_reconstruction step (batch 64, '
-          f'256 silhouettes at 64x64, 1280 faces: encoder, decoder, render '
-          f'forward + backward, Adam), host clock, synchronized: median '
-          f'{step_ms:.3f} ms of {RECON_TIMED_STEPS} after 3 warm-up steps '
-          f'({[round(t, 3) for t in times]}), beside opt_shape\'s '
-          f'{1e3 * float(np.median(opt_shape_steps[1:])):.3f} ms (24 '
-          f'silhouettes, phase 3)', flush=True)
-    return worst_img, worst_grad, step_ms
+    return worst_img, worst_grad
 
 
 def _grad(exp, batch, dist_scale, order):
@@ -2517,10 +2135,8 @@ def _reconstruction_dp_step(device, seed, first=True):
         '1', '--seed', str(seed)])
     with tempfile.TemporaryDirectory() as tmp:
         one = TR.main(argv + ['--checkpoint-dir', os.path.join(tmp, 'one')])
-        t0 = time.perf_counter()
         two = TR.main(argv + ['--checkpoint-dir', os.path.join(tmp, 'two'),
                               '--data-parallel', str(RECON_DP_RANKS)])
-        seconds = time.perf_counter() - t0
         want, got = (torch.load(TR._checkpoints(os.path.join(tmp, d))[-1],
                                 weights_only=True) for d in ('one', 'two'))
     args = TR.parse_args(argv)
@@ -2615,9 +2231,7 @@ def _reconstruction_dp_step(device, seed, first=True):
           f'{len(names) - len(grad_over)} of {len(names)} (largest ratio '
           f'{max(_ratio(d, f) for d, f in by_tensor["gradient"].values()):.3f}'
           f'); convolution biases within lr {bias_ok}; '
-          f'seconds in collectives per rank {two["collective_seconds"]}; '
-          f'launches per rank {two["launches"]}; {seconds:.1f} s with the '
-          f'ranks\' start', flush=True)
+          f'launches per rank {two["launches"]}', flush=True)
     if not (errs[worst] < RECON_DP_REL and bias_ok
             and grad_rel < RECON_DP_GRAD_REL and not grad_over
             and errs['parameters'] <= RECON_DP_FLOOR_K * floor_params
@@ -2735,89 +2349,13 @@ def chained_run(steps, fn):
             steps.fetches - fetches0)
 
 
-def time_chain(smi, label, steps, n):
-    """(j6): blocks of n steps through steps (a StepChain), each step on
-    the inputs its buffers hold now: the median step (host clock, the
-    block to its fetch, over n; at least CHAIN_TIMED_BLOCKS blocks and 30
-    steps), the device's busy share over blocks of at least 10 steps
-    (torch.profiler: device time over wall time), the device kernels a
-    step and each render kernel's launches a step; for a captured step,
-    also one replay's time on the card (CUDA events around 20 replays back
-    to back), which the kernels' time and the gaps between them fill.
-    Returns a dict."""
-    import torch
-    from torch import profiler
-    xs = {k: v.detach().cpu()[None].repeat(n, *([1] * v.ndim))
-          for k, v in steps.inputs.items()}
-    reps = max(CHAIN_TIMED_BLOCKS, 30 // n)
-    profiled = max(1, 10 // n)
-    steps.run(xs)  # warm-up (the capture, where there is none yet)
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        steps.run(xs)
-        times.append(1e3 * (time.perf_counter() - t0) / n)
-    torch.cuda.synchronize()
-    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
-                                      profiler.ProfilerActivity.CUDA]) \
-            as prof:
-        t0 = time.perf_counter()
-        (_, launches, _) = chained_run(
-            steps, lambda: [steps.run(xs) for _ in range(profiled)])
-        wall = time.perf_counter() - t0
-    stepped = n * profiled
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(getattr(e, 'self_device_time_total', None)
-                  or getattr(e, 'self_cuda_time_total', 0) for e in dev)
-    kernels = sum(e.count for e in dev)
-    replay_ms = None
-    if steps.graph is not None:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(20):
-            steps.graph.replay()
-        end.record()
-        end.synchronize()
-        replay_ms = start.elapsed_time(end) / 20
-    r = dict(step_ms=float(np.median(times)), times=times, profiled=stepped,
-             busy=busy_us * 1e-6 / wall if kernels else None,
-             kernels=kernels / stepped if kernels else None,
-             kernel_ms=busy_us * 1e-3 / stepped if kernels else None,
-             replay_ms=replay_ms,
-             # the profiler slows what it traces (most where a step is many
-             # small kernels): the kernels' time against the untraced step
-             kernel_share=(busy_us * 1e-3 / stepped / float(np.median(times))
-                           if kernels else None),
-             launches={k: v / stepped for k, v in launches.items()})
-    busy = 'not measured' if r['busy'] is None else f'{r["busy"]:.4f}'
-    replay = '' if replay_ms is None else (
-        f'; one replay {replay_ms:.3f} ms on the card (20 back to back, '
-        f'CUDA events)')
-    print(f'[chain] (j6) {smi}: {label}: median step '
-          f'{r["step_ms"]:.3f} ms (host clock, a block of {n} to its '
-          f'fetch over {n}, {reps} blocks: '
-          f'{[round(t, 3) for t in times]}); device busy share {busy} '
-          f'(profiler, {stepped} steps; the kernels\' time a step over the '
-          f'untraced median step: '
-          f'{r["kernel_share"] if kernels else "not measured"}); device '
-          f'kernels a step '
-          f'{r["kernels"] if kernels else "not measured"}, their time '
-          f'{r["kernel_ms"] if kernels else "not measured"} ms a step'
-          f'{replay}; render kernel launches a step {r["launches"]}',
-          flush=True)
-    return r
-
-
-def chain_shape_path(smi):
+def chain_shape_path():
     """(j1): opt_shape at phase 3's width and setting, TRAIN_STEPS steps
     eager and with --chain CHAIN_SHAPE from the template, bitwise equal
     (the experiments' sums run in a fixed order; no deterministic
     algorithms are asked for); the first chained block is one step, whose
-    replay (j4) checks.  Then (j6) on new experiments, the eager one run
-    twice from the template: bitwise equal too."""
+    replay (j4) checks.  Then a new eager experiment run twice from the
+    template: bitwise equal too."""
     import torch
     runs = {}
     for chain in (1, CHAIN_SHAPE):
@@ -2856,16 +2394,13 @@ def chain_shape_path(smi):
                                       e['rec']['losses']))
     same_h = sum(a == b for a, b in zip(h_c, h_e))
     blocks = -(-TRAIN_STEPS // CHAIN_SHAPE)
-    # the timing experiments; the eager one runs twice from the template
-    # first, and the two must agree bitwise
-    timed = {}
-    for chain in (1, CHAIN_SHAPE):
-        exp, eyes, targets = _shape_experiment(
-            None, extra=['--chain', str(chain)])
-        timed[chain] = [exp.run(TRAIN_LR, TRAIN_SIGMA, eyes, targets,
-                                TRAIN_STEPS if chain == 1 else 1)
-                        for _ in range(2 if chain == 1 else 1)], exp
-    floor = _rel_list(timed[1][0][1]['losses'], timed[1][0][0]['losses'])
+    # an eager experiment run twice from the template: the two agree
+    # bitwise
+    exp, eyes, targets = _shape_experiment(None, extra=['--chain', '1'])
+    twice = [exp.run(TRAIN_LR, TRAIN_SIGMA, eyes, targets, TRAIN_STEPS)
+             for _ in range(2)]
+    del exp
+    floor = _rel_list(twice[1]['losses'], twice[0]['losses'])
     print(f'[chain] (j1) opt_shape --chain {CHAIN_SHAPE} against --chain 1, '
           f'{TRAIN_STEPS} steps, 24 views at 64x64, 642-vertex template: '
           f'relative differences: soft losses '
@@ -2891,10 +2426,7 @@ def chain_shape_path(smi):
     for r in (e, c):
         if min(r['launches'][k] for k in RENDER_KERNELS) < TRAIN_STEPS:
             raise AssertionError(f'(j1) launches {r["launches"]}')
-    timing = {chain: time_chain(
-        smi, f'opt_shape --chain {chain} (train step + hard eval)',
-        exp.steps, chain) for chain, (_, exp) in timed.items()}
-    return c['launches'], c['errs'], timing
+    return c['launches'], c['errs']
 
 
 def adam_vs_optax_rule():
@@ -2954,12 +2486,12 @@ def capture_must_fail():
     raise AssertionError('(j5) a capture with a host read-back did not raise')
 
 
-def chain_camera_path(smi):
+def chain_camera_path():
     """(j2): opt_camera --quick (16 poses, 50 steps at 64x64) eager and
     with --chain CHAIN_CAMERA (blocks of 20, 20 and 10) from the same
     start, bitwise equal; the chained experiment's first run is 1 step,
     whose replay (j4) checks.  The captured Adam against optax's rule;
-    (j6) on new experiments, after two eager runs, bitwise equal too."""
+    two eager runs of a new experiment bitwise equal too."""
     import torch
 
     def experiment(chain):
@@ -2973,13 +2505,10 @@ def chain_camera_path(smi):
     same = sum(a == b for a, b in zip(c['rec']['losses'],
                                       e['rec']['losses']))
     blocks = -(-n // CHAIN_CAMERA)
-    timed = {}
-    for chain in (1, CHAIN_CAMERA):
-        exp, init = experiment(chain)
-        timed[chain] = [exp.run(init, num_iterations=None if chain == 1
-                                else 1) for _ in range(2 if chain == 1
-                                                       else 1)], exp
-    floor = _rel_list(timed[1][0][1]['losses'], timed[1][0][0]['losses'])
+    exp, init = experiment(1)
+    twice = [exp.run(init) for _ in range(2)]
+    del exp
+    floor = _rel_list(twice[1]['losses'], twice[0]['losses'])
     print(f'[chain] (j2) opt_camera --quick --chain {CHAIN_CAMERA} against '
           f'--chain 1, {n} steps, 16 poses at 64x64: relative differences: '
           f'losses {rel["loss"]:.3g}, '
@@ -3000,19 +2529,15 @@ def chain_camera_path(smi):
         if render_counts(r['launches']) != render_launches(n, n, n):
             raise AssertionError(f'(j2) launches {r["launches"]}')
     adam_vs_optax_rule()
-    timing = {chain: time_chain(smi, f'opt_camera --quick --chain {chain}',
-                                exp.chain('iou'), chain)
-              for chain, (_, exp) in timed.items()}
-    return c['launches'], errs, timing
+    return c['launches'], errs
 
 
-def chain_reconstruction_path(smi, device='cuda'):
+def chain_reconstruction_path(device='cuda'):
     """(j3): train_reconstruction --synthetic at path (i)'s width through
     main, CHAIN_RECON_STEPS steps eager and with --chain CHAIN_RECON,
     --decay-at CHAIN_RECON_DECAY (blocks of 5, 8 and 3): losses, the
     parameters and BatchNorm's statistics of the checkpoint after the last
-    step bitwise equal; the last replay's kernels (j4).  (j6) on two more
-    runs of one block each."""
+    step bitwise equal; the last replay's kernels (j4)."""
     import tempfile
     import torch
     from gendr_tpu_torch.experiments import train_reconstruction as TR
@@ -3084,43 +2609,24 @@ def chain_reconstruction_path(smi, device='cuda'):
             != CHAIN_RECON_STEPS:
         raise AssertionError(f'(j3) launches {e["launches"]}, '
                              f'{c["launches"]}')
-    del runs
-    timing = {}
-    for chain in (1, CHAIN_RECON):
-        res = TR.main(argv + ['-ni', str(max(chain, 3)), '--chain',
-                              str(chain)])
-        timing[chain] = time_chain(
-            smi, f'train_reconstruction --synthetic --chain {chain}',
-            res['steps'], chain)
-        del res
-    return c['launches'], errs, timing
+    return c['launches'], errs
 
 
-def chain_phase(smi):
-    """Path (j): (j1)-(j3), the replays' kernels (j4), the capture's
-    checks (j5; capture_must_fail, run last of all, after it) and the step
-    times (j6).  Returns (launches by path, the replays' largest image and
-    gradient errors, the timings)."""
-    t0 = time.perf_counter()
-    by_path, timing = {}, {}
+def chain_phase():
+    """Path (j): (j1)-(j3), the replays' kernels (j4) and the capture's
+    checks (j5; capture_must_fail, run last of all, after it).  Returns
+    (launches by path, the replays' largest image and gradient errors)."""
+    by_path = {}
     img = grad = 0.0
     for name, fn in (('chain_shape', chain_shape_path),
                      ('chain_camera', chain_camera_path),
                      ('chain_reconstruction', chain_reconstruction_path)):
-        by_path[name], (i, g), timing[name] = fn(smi)
+        by_path[name], (i, g) = fn()
         img, grad = max(img, i), max(grad, g)
-    print(f'[chain] (j5) every capture in capture_error_mode=\'global\', '
-          f'every block\'s replays under torch.cuda.set_sync_debug_mode('
-          f'\'error\') (common.StepChain); path (j) took '
-          f'{time.perf_counter() - t0:.1f} s', flush=True)
-    summary = {name: {str(k): dict(step_ms=r['step_ms'], busy=r['busy'],
-                                   kernels=r['kernels'],
-                                   kernel_ms=r['kernel_ms'],
-                                   kernel_share=r['kernel_share'],
-                                   replay_ms=r['replay_ms'])
-                      for k, r in t.items()} for name, t in timing.items()}
-    print(f'[chain] (j6) {smi}: ' + json.dumps(summary), flush=True)
-    return by_path, (img, grad), summary
+    print('[chain] (j5) every capture in capture_error_mode=\'global\', '
+          'every block\'s replays under torch.cuda.set_sync_debug_mode('
+          '\'error\') (common.StepChain)', flush=True)
+    return by_path, (img, grad)
 
 
 # ---------------------------------------------------------------------------
@@ -3188,16 +2694,23 @@ def camera_inputs(exp, poses, tau):
             mesh.face_textures.contiguous())
 
 
-def camera_default_kernels(smi, exp, init, reps=50):
-    """(k1): both kernels against their plain versions (check_kernels'
-    gates) on the soft render of the experiment's first step, B=200, at
-    each tau of CAMERA_DEFAULT_TAUS (the anneal's first and last), with
-    the compacted lists' shape and K2's slices printed; then each timed
-    (time_kernels).  Returns (image error, gradient error, timings by
-    shape)."""
+def camera_default_path():
+    """Path (k): opt_camera at its defaults.  (k1) both kernels against
+    their plain versions (check_kernels' gates) on the soft render of the
+    experiment's first step, B=200, at each tau of CAMERA_DEFAULT_TAUS
+    (the anneal's first and last), with the compacted lists' shape and
+    K2's slices printed; (k2) CAMERA_DEFAULT_STEPS annealed steps from the
+    same poses with --chain CHAIN_CAMERA and with --chain 1 (blocks of 20
+    against 100 eager steps), the losses and the poses bitwise equal with
+    no deterministic algorithms asked for, and the first replay's kernels
+    against their plain versions on the graph's buffers (as (j4)); each
+    run's launches counted from 0, one of each kernel a step.  Returns
+    (launches by path, (image error, gradient error))."""
+    import torch
     from gendr_tpu_torch.raster import cuda_backend as CB
+    n = CAMERA_DEFAULT_STEPS
     img = grad = 0.0
-    kt = {}
+    exp, init = camera_experiment(CHAIN_CAMERA)
     for tau in CAMERA_DEFAULT_TAUS:
         cfg, params, fv, tex = camera_inputs(exp, init, tau)
         aux = CB.prepass(fv, tex, cfg, params)
@@ -3217,27 +2730,7 @@ def camera_default_kernels(smi, exp, init, reps=50):
             raise AssertionError('(k1) compaction did not fire at B=200')
         i, g = check_kernels(f'camera {tau:g}', cfg, params, fv, tex, aux)
         img, grad = max(img, i), max(grad, g)
-        shape = f'opt_camera B={B} tau {tau:g}'
-        kt[shape] = time_kernels(smi, shape, cfg, params, fv, tex, reps)
-    return img, grad, kt
-
-
-def camera_default_path(smi):
-    """Path (k): opt_camera at its defaults.  (k1) camera_default_kernels
-    on the first step's inputs; (k2) CAMERA_DEFAULT_STEPS annealed
-    steps from the same poses with --chain CHAIN_CAMERA and with --chain 1
-    (blocks of 20 against 100 eager steps), the losses and the poses
-    bitwise equal with no deterministic algorithms asked for, and the
-    first replay's kernels against their plain versions on the graph's
-    buffers (as (j4)); each run's launches counted from 0, one of each
-    kernel a step; (k3) each step timed (time_chain).  Returns (launches
-    by path, (image error, gradient error), timings by shape, the step
-    timings)."""
-    import torch
-    t0 = time.perf_counter()
-    n = CAMERA_DEFAULT_STEPS
-    img, grad, kt = camera_default_kernels(smi, *camera_experiment(
-        CHAIN_CAMERA))
+    del exp
     runs, (i, g) = camera_chained_vs_eager(
         camera_experiment, 'opt_camera defaults, B=200', n)
     img, grad = max(img, i), max(grad, g)
@@ -3263,22 +2756,11 @@ def camera_default_path(smi):
     for r in (c, e):
         if render_counts(r['launches']) != render_launches(n, n, n):
             raise AssertionError(f'(k2) launches {r["launches"]}')
-    timing = {str(chain): time_chain(
-        smi, f'opt_camera defaults (200 poses) --chain {chain}',
-        r['exp'].chain('iou'), chain) for chain, r in runs.items()}
+    launches = dict(camera_default=c['launches'],
+                    camera_default_eager=e['launches'])
     del runs
     torch.cuda.empty_cache()
-    print(f'[camera defaults] path (k) took {time.perf_counter() - t0:.1f} s',
-          flush=True)
-    summary = {k: dict(step_ms=r['step_ms'], busy=r['busy'],
-                       kernels=r['kernels'], kernel_ms=r['kernel_ms'],
-                       kernel_share=r['kernel_share'],
-                       replay_ms=r['replay_ms'], launches=r['launches'])
-               for k, r in timing.items()}
-    print(f'[camera defaults] (k3) {smi}: ' + json.dumps(summary), flush=True)
-    return (dict(camera_default=c['launches'],
-                 camera_default_eager=e['launches']),
-            (img, grad), kt, summary)
+    return launches, (img, grad)
 
 
 def face_halves(cfg, fv, tex):
@@ -3445,21 +2927,13 @@ def _sharded_render_rank(scenes, device):
     for name, cfg, params, fv, tex in scenes:
         fv, tex = fv.to(device), tex.to(device)
         render_fn = S.make_sharded_render(cfg, mesh, None, 'fp', 'sp')
-        runs = []
-        for _ in range(3):  # launches from the first, times from the others
-            for k in CB.LAUNCHES:
-                CB.LAUNCHES[k] = 0
-            c0 = S.collective_seconds()
-            fvg = fv.clone().requires_grad_(True)
-            texg = tex.clone().requires_grad_(True)
-            _sync(device)
-            t0 = time.perf_counter()
-            img = render_fn(fvg, texg, params)
-            _render_loss(img).backward()
-            _sync(device)
-            runs.append((1e3 * (time.perf_counter() - t0),
-                         1e3 * (S.collective_seconds() - c0),
-                         dict(CB.LAUNCHES)))
+        for k in CB.LAUNCHES:
+            CB.LAUNCHES[k] = 0
+        fvg = fv.clone().requires_grad_(True)
+        texg = tex.clone().requires_grad_(True)
+        img = render_fn(fvg, texg, params)
+        _render_loss(img).backward()
+        launches = dict(CB.LAUNCHES)
         fvr = fv.clone().requires_grad_(True)
         texr = tex.clone().requires_grad_(True)
         ref = _Render.apply(fvr, texr, cfg, params)
@@ -3472,9 +2946,7 @@ def _sharded_render_rank(scenes, device):
                         and torch.isfinite(fvg.grad).all()),
             grad_agree=agreement(fvg.grad, fvr.grad),
             texgrad_agree=agreement(texg.grad, texr.grad),
-            grad_scale=float(fvr.grad.abs().max()),
-            ms=[r[0] for r in runs[1:]], collective_ms=[r[1] for r in runs[1:]],
-            launches=runs[0][2])
+            grad_scale=float(fvr.grad.abs().max()), launches=launches)
     return out
 
 
@@ -3521,21 +2993,14 @@ def _sharded_train_rank(device):
     opt = torch.optim.Adam([displace], lr=SHARD_LR)
     for k in CB.LAUNCHES:
         CB.LAUNCHES[k] = 0
-    losses, step_ms, coll_ms = [], [], []
+    losses = []
     for i in range(SHARD_STEPS):
-        c0 = S.collective_seconds()
-        _sync(device)
-        t0 = time.perf_counter()
         losses.append(S.train_step(lambda: S.silhouette_loss(
             render_fn, params, base_v + displace, faces, eyes, target),
             opt, displace, mesh))
-        _sync(device)
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-        coll_ms.append(1e3 * (S.collective_seconds() - c0))
         if i == 0:
             g0 = displace.grad.clone()
-    return dict(losses=losses, step_ms=step_ms, collective_ms=coll_ms,
-                launches=dict(CB.LAUNCHES),
+    return dict(losses=losses, launches=dict(CB.LAUNCHES),
                 grad_agree=agreement(g0, d0.grad),
                 grad_rel=float((g0 - d0.grad).norm() / d0.grad.norm()),
                 grad_scale=float(d0.grad.abs().max()))
@@ -3557,16 +3022,16 @@ def _shard_rank(rank, world, init_file, out_dir, scenes, device):
         dist.destroy_process_group()
 
 
-def sharded_phase(opt_shape_steps, scenes=None, device='cuda'):
+def sharded_phase(scenes=None, device='cuda'):
     """Paths (h2) and (h3): SHARD_RANKS ranks on the one card, gloo.
     (h2): the flagship (256x256, 1280 faces, hard RGB) and the default
     GenDR's inputs (4 views at 512x512, softmax, 25 texels) through the
     sharded render and its gradient on fp=2 x sp=2, against the unsharded
     backend='cuda' render; every rank must launch both kernels.  (h3): the
     sharded training step; its loss must fall and its first gradient agree
-    with the unsharded step's (grad_agree and SHARD_GRAD_REL).  Returns the launches of each path summed
-    over the ranks and the timings.  scenes: (name, cfg, params, face
-    vertices, textures) of (h2) in place of those two."""
+    with the unsharded step's (grad_agree and SHARD_GRAD_REL).  Returns
+    the launches of each path summed over the ranks.  scenes: (name, cfg,
+    params, face vertices, textures) of (h2) in place of those two."""
     import tempfile
     import torch
     from gendr_tpu_torch import config as C
@@ -3578,14 +3043,12 @@ def sharded_phase(opt_shape_steps, scenes=None, device='cuda'):
             dist_scale=1e-2).as_dict(), fv.cpu(), tex.cpu())]
         _, cfg, params, gfv, gtex = next(iter(gendr_inputs()))
         scenes.append(('gendr', cfg, params, gfv.cpu(), gtex.cpu()))
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out_dir:
         S.spawn_ranks(_shard_rank, SHARD_RANKS,
                       (SHARD_RANKS, os.path.join(out_dir, 'init'), out_dir,
                        scenes, device), SHARD_TIMEOUT)
         ranks = [torch.load(os.path.join(out_dir, f'rank{r}.pt'),
                             weights_only=False) for r in range(SHARD_RANKS)]
-    seconds = time.perf_counter() - t0
     launches = {'sharded': {k: 0 for k in CB.LAUNCHES},
                 'sharded_training': {k: 0 for k in CB.LAUNCHES}}
     failed = []
@@ -3601,11 +3064,7 @@ def sharded_phase(opt_shape_steps, scenes=None, device='cuda'):
               f'{[round(r["grad_agree"], 6) for r in res]}, texgrad_agree '
               f'{[round(r["texgrad_agree"], 6) for r in res]}, grad_scale '
               f'{res[0]["grad_scale"]:.3g}; launches per rank '
-              f'{[r["launches"] for r in res]}; forward + backward ms per '
-              f'rank (host clock, synchronized; 2 runs after a warm-up) '
-              f'{[[round(x, 3) for x in r["ms"]] for r in res]}, of them '
-              f'collectives (CUDA events) {[[round(x, 3) for x in r["collective_ms"]] for r in res]}',
-              flush=True)
+              f'{[r["launches"] for r in res]}', flush=True)
         for r in res:
             if not (r['finite'] and r['img_err'] < IMG_TOL
                     and r['grad_agree'] > GRAD_AGREE
@@ -3618,9 +3077,6 @@ def sharded_phase(opt_shape_steps, scenes=None, device='cuda'):
         for k, n in r['launches'].items():
             launches['sharded_training'][k] += n
     t = train[0]
-    shard_med = float(np.median(t['step_ms'][1:]))
-    coll_med = float(np.median(t['collective_ms'][1:]))
-    opt_med = 1e3 * float(np.median(opt_shape_steps[1:]))
     print(f'[sharded training] dry run loss (1 - IoU), Adam lr {SHARD_LR}, '
           f'642-vertex template (1280 faces), {SHARD_VIEWS} views at '
           f'{SHARD_SIZE}x{SHARD_SIZE}, dp=2 x fp=2 on {SHARD_RANKS} ranks: '
@@ -3628,13 +3084,8 @@ def sharded_phase(opt_shape_steps, scenes=None, device='cuda'):
           f'step {SHARD_STEPS}; first gradient vs the unsharded step: '
           f'grad_agree {[round(r["grad_agree"], 6) for r in train]}, '
           f'norm-relative error {[r["grad_rel"] for r in train]}, scale '
-          f'{t["grad_scale"]:.3g}; median step {shard_med:.3f} ms (host '
-          f'clock, synchronized) of which collectives {coll_med:.3f} ms '
-          f'(CUDA events), '
-          f'beside opt_shape\'s {opt_med:.3f} ms (phase 3, one process); '
-          f'launches per rank {[r["launches"] for r in train]}; '
-          f'{seconds:.1f} s for (h2) + (h3) with the ranks\' start',
-          flush=True)
+          f'{t["grad_scale"]:.3g}; launches per rank '
+          f'{[r["launches"] for r in train]}', flush=True)
     if any(r['losses'] != t['losses'] for r in train):
         failed.append('ranks took different steps')
     if not t['losses'][-1] < t['losses'][0]:
@@ -3647,78 +3098,7 @@ def sharded_phase(opt_shape_steps, scenes=None, device='cuda'):
         failed.append('a training rank launched no kernel')
     if failed:
         raise AssertionError(f'sharded paths: {failed}')
-    return launches, dict(step_ms=shard_med, collective_ms=coll_med,
-                          render_ms={s[0]: ranks[0]['render'][s[0]]['ms']
-                                     for s in scenes})
-
-
-def _profiled_ms(fn, kernels, reps):
-    """{kernel: ms a launch} of the device kernels whose names hold each of
-    ``kernels``, over reps calls of fn after a warm-up (torch.profiler's
-    device time: each kernel alone, where fn launches several); None where
-    the profiler shows one no time."""
-    import torch
-    from torch import profiler
-    fn()
-    torch.cuda.synchronize()
-    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
-                                      profiler.ProfilerActivity.CUDA]) as pr:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in pr.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    res = {}
-    for kernel in kernels:
-        ev = [e for e in dev if kernel in e.key]
-        us = sum(getattr(e, 'self_device_time_total', None)
-                 or getattr(e, 'self_cuda_time_total', 0) for e in ev)
-        n = sum(e.count for e in ev)
-        res[kernel] = us * 1e-3 / n if n and us else None
-    return res
-
-
-def _median_ms(fn, reps, warmup=3):
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def gated_pairs(aux, cfg):
-    """(pixel, face) pairs inside each valid face's bbox + cull margin,
-    the pairs both kernels run the pair math on, counted from the packed
-    bbox rows: per face, the pixel centres in its x range times those in
-    its y range, over the rows of the aux's band."""
-    import torch
-    from gendr_tpu_torch.raster import cuda_backend as CB
-    from gendr_tpu_torch.raster import pack, pairmath as PM
-    # the sorted faces alone: compaction's slots repeat them, a tile each
-    pk = aux['packed'][:, :, :CB.sorted_face_count(aux)].double()
-    m = float(aux['par'][PM.P_MARGIN])
-    is_ = cfg.image_size
-    # row r has the y centre index is - 1 - r
-    ylo, yhi = is_ - aux['row0'] - aux['height'], is_ - 1 - aux['row0']
-
-    def centres(lo, hi, first=0, last=is_ - 1):
-        # centre indices c in [first, last] with (2c + 1 - is) / is in
-        # [lo - m, hi + m]
-        a = torch.ceil(((lo - m) * is_ + is_ - 1) / 2).clamp(first, last + 1)
-        b = torch.floor(((hi + m) * is_ + is_ - 1) / 2).clamp(first - 1, last)
-        return (b - a + 1).clamp(min=0)
-    nx = centres(pk[:, pack.R_BBOX + 0], pk[:, pack.R_BBOX + 1])
-    ny = centres(pk[:, pack.R_BBOX + 2], pk[:, pack.R_BBOX + 3], ylo, yhi)
-    return float((nx * ny * (pk[:, pack.R_FVALID] > 0)).sum())
+    return launches
 
 
 def visited_pairs(aux, cfg):
@@ -3799,310 +3179,313 @@ def slab_lanes(aux, cfg):
                 pairs=float(gate.sum()))
 
 
-def bound(nbytes, flops):
-    """(ms, 'bytes' or 'operations'): the least time the card could take,
-    the larger of the bytes over HBM bandwidth and the operations over
-    the float32 peak."""
-    t_bytes = nbytes / H100_HBM_BYTES * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
-    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+# ---------------------------------------------------------------------------
+# the kernel timer: python3 chip_smoke.py --times [--shapes NAME,NAME,...]
+# ---------------------------------------------------------------------------
+
+# calls of a wrapper back to back under the profiler, after one warm-up
+TIMES_CALLS = 50
 
 
-def _nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def _input_bytes(tensors, packed, cfg, pairs):
-    """Bytes a kernel must read of its inputs: each once, except that of a
-    surface texture's rows in packed no more than the one texel (12 bytes)
-    each gated pair can sample."""
+def times_shapes(obj_file):
+    """Every shape the timer times: (name, wrapper, inputs), the wrapper
+    'render' with (cfg, params, face vertices, textures, fvalid, row band,
+    whether the backward runs), 'prepass' with (cfg, params, face
+    vertices, textures) or 'probes' with the probe phase's cases.  The
+    flagship (hard RGB, compact 'auto' and 'off'; softmax with one texel),
+    its 128-row band, its first face half and the four ranks of the
+    sharded path's fp=2 x sp=2 split; the default GenDR on 4 views at
+    512x512 (25 texels, vertex colours); the shape optimizer's soft
+    renderer (24 views at 64x64, yager p=2 and probabilistic); path (i)'s
+    two renders (the experiment's first step, 256 silhouettes at 64x64;
+    its dataset's 24 views); path (k) (opt_camera at its defaults, 200
+    poses at 64x64, compacted) at tau 1e-1 and 1e-7; the default GenDR on
+    path (e)'s mesh at 25, 144, 256 and 1024 texels per face, softmax and
+    hard RGB; forward only, 1536x1536 sweep frames: panda_dist at uniform
+    tau 1e-2 and gaussian tau 1, panda_tcn probabilistic and yager p=2 at
+    tau 1e-2 and 1, and panda_dist through GENDR_PANDA_OBJ on that mesh at
+    256 and 1024 texels per face, softmax and hard RGB; the prepass at the
+    benchmark cells' shapes and at camera.sharp128's at tau 0.1; and the
+    probe phase."""
+    import dataclasses
     from gendr_tpu_torch import config as C
-    from gendr_tpu_torch.raster import pack
-    n = _nbytes(*tensors)
-    if cfg.channels != 'alpha' and cfg.texture_type == C.TEXTURE_SURFACE:
-        rows = packed[:, pack.R_TEX:]
-        n -= max(0, _nbytes(rows) - int(pairs) * 12)
-    return n
-
-
-def time_kernels(smi, name, cfg, params, fv, tex, reps, bwd=True,
-                 plain=(3, 1), fvalid=None, row_band=None):
-    """Medians of each kernel (CUDA events, reps launches) and of its plain
-    version (plain = (calls, warm-up calls)), beside its bound, on the
-    faces fvalid marks and the rows of row_band (K1e/K2e; None: all).
-    Prints one line; returns {kernel: dict}."""
-    import torch
-    from gendr_tpu_torch.raster import cuda_backend as CB
-    aux = CB.prepass(fv, tex, cfg, params, fvalid, row_band)
-    TS = tex.shape[2]
-    mode = CB.render_mode(cfg)
-    pairs = gated_pairs(aux, cfg)
-    band = (aux['row0'], aux['height'])
-    args = (aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
-            aux['perm'], cfg, TS, *band)
-    # the bound counts the bytes of the function, the sorted faces' columns
-    # and the sorted chunks' lists: compaction's slots repeat those faces
-    # (the same render with compact='off' gives the same bits), so their
-    # columns and the slabs' lists are the implementation's, not the work's
-    Fs = CB.sorted_face_count(aux)
-    k_sliced = Fs // cfg.face_chunk
-    packed_s, perm_s = aux['packed'][..., :Fs], aux['perm'][..., :Fs]
-    out = CB.rasterize_fwd(*args)
-    fwd_flops, bwd_flops = flops_per_pair(cfg, mode)
-    longest, walked, visited = visited_pairs(aux, cfg)
-    res = {'rasterize_fwd': dict(
-        ms=_median_ms(lambda: CB.rasterize_fwd(*args), reps),
-        plain_ms=_median_ms(lambda: CB.rasterize_fwd_plain(*args), *plain),
-        bound=bound(_input_bytes((*args[:3], packed_s, perm_s), packed_s,
-                                 cfg, pairs)
-                    + _nbytes(out), pairs * fwd_flops),
-        longest_list=longest, walked_pairs=walked, visited_pairs=visited)}
-    if bwd:
-        bargs = backward_args(aux, cfg, params, TS, out)
-        pix = bargs[5]
-        rows = CB.rasterize_bwd(*bargs)
-        # the kernel's slices: a block walks at most `longest` tiles of the
-        # longest list of a sliced chunk; the workspace holds S slots of
-        # the sliced chunks' columns where S > 1
-        B, NO, Fp = rows.shape
-        nslices = CB.bwd_slice_count(B, NO, Fs, aux['chunk_ids'].shape[2],
-                                     compacted=Fs < Fp)
-        n_max = int(aux['chunk_counts'][:, :k_sliced].max())
-        ws_mib = (nslices > 1) * nslices * B * NO * Fs * 4 / 2**20
-        lists = (aux['chunk_counts'][:, :k_sliced],
-                 aux['chunk_ids'][:, :k_sliced])
-        res['rasterize_bwd'] = dict(
-            ms=_median_ms(lambda: CB.rasterize_bwd(*bargs), reps),
-            plain_ms=_median_ms(lambda: CB.rasterize_bwd_plain(*bargs),
-                                *plain),
-            bound=bound(_input_bytes((*lists, aux['par'], packed_s, perm_s,
-                                      pix), packed_s, cfg, pairs)
-                        + _nbytes(rows[..., :Fs]), pairs * bwd_flops),
-            slices=nslices, longest_list=n_max, workspace_mib=ws_mib,
-            longest_slice=max(e - s for s, e in CB.bwd_slices(n_max,
-                                                              nslices)))
-        if slab_route(aux, cfg, TS):
-            # rasterize_bwd_slab alone: its device time within K2's calls
-            # (the profiler), its plain version on the appended chunks
-            # alone (the sorted chunks' counts zeroed), its bound from the
-            # slabs' own work: their lists, the pixel columns, the fvalid
-            # and bbox rows of every slot and every row of a live one (a
-            # dead slot's other rows are never needed), the result's
-            # columns, and the gated pairs
-            lanes = slab_lanes(aux, cfg)
-            counts = aux['chunk_counts'].clone()
-            counts[:, :k_sliced] = 0
-            sl = (slice(None), slice(k_sliced, None))
-            slab_rows = aux['packed'][:, :, Fs:]
-            # K2's launches one by one: the sorted chunks' slices, their
-            # reduce, the slabs
-            parts = _profiled_ms(lambda: CB.rasterize_bwd(*bargs),
-                                 ('rasterize_bwd_kernel',
-                                  'rasterize_bwd_reduce',
-                                  'rasterize_bwd_slab'), reps)
-            res['rasterize_bwd']['launch_ms'] = parts
-            res['rasterize_bwd_slab'] = dict(
-                ms=parts['rasterize_bwd_slab'],
-                plain_ms=_median_ms(lambda: CB.rasterize_bwd_plain(
-                    counts, *bargs[1:]), *plain),
-                bound=bound(_nbytes(aux['chunk_counts'][sl],
-                                    aux['chunk_ids'][sl], aux['par'], pix,
-                                    rows[..., Fs:])
-                            + 5 * 4 * slab_rows[:, 0].numel()
-                            + lanes['slot_lanes'] * (slab_rows.shape[1] + 1)
-                            * 4, lanes['pairs'] * bwd_flops),
-                blocks=lanes['blocks'])
-    torch.cuda.empty_cache()
-    parts = [f'{k} {r["ms"] if r["ms"] is None else round(r["ms"], 4)} ms,'
-             f' plain {r["plain_ms"]:.4f} ms, '
-             f'bound {r["bound"][0]:.4f} ms ({r["bound"][1]})'
-             + (f', longest tile list {r["longest_list"]} chunks, '
-                f'{r["visited_pairs"]:.6g} visited pairs (every face of '
-                f'the listed chunks: {r["walked_pairs"]:.6g})'
-                if 'visited_pairs' in r else '')
-             + (f', S={r["slices"]}, longest slice {r["longest_slice"]} '
-                f'of a {r["longest_list"]}-tile list, workspace '
-                f'{r["workspace_mib"]:.1f} MiB' if 'slices' in r else '')
-             + (', its launches (profiler, ms a launch) '
-                + json.dumps(r['launch_ms']) if 'launch_ms' in r else '')
-             for k, r in res.items()]
-    B = fv.shape[0]
-    rows = '' if row_band is None else f' rows {band[0]}+{band[1]}'
-    print(f'[timing] {smi}: {name} (B={B}, {cfg.image_size}x'
-          f'{cfg.image_size}{rows}, F={fv.shape[1]}, TS={TS}, {pairs:.6g} '
-          f'gated pairs, medians of {reps}): ' + '; '.join(parts), flush=True)
-    return res
-
-
-def prepass_cost(smi, obj_file, reps=20):
-    """The prepass (sort, pack, hit lists) on path (e)'s inputs at 25, 256
-    and 1024 texels per face: its host-clock median, synchronized, and the
-    device kernels it launches (torch.profiler; 'not measured' where the
-    profiler shows no device activity)."""
-    import torch
-    from torch import profiler
-    from gendr_tpu_torch.raster import cuda_backend as CB
-    parts = []
-    for res in (5, OBJ_TEXTURE_RES, 32):
-        cfg, params, fv, tex = obj_gendr_inputs(obj_file, res)
-        times = []
-        for i in range(reps + 3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            CB.prepass(fv, tex, cfg, params)
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-        with profiler.profile(activities=[
-                profiler.ProfilerActivity.CPU,
-                profiler.ProfilerActivity.CUDA]) as prof:
-            CB.prepass(fv, tex, cfg, params)
-            torch.cuda.synchronize()
-        kernels = sum(e.count for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
-        parts.append(f'TS={res * res} {float(np.median(times[3:])):.3f} ms, '
-                     f'{kernels or "not measured"} device kernels')
-    print(f'[timing] {smi}: prepass on path (e) (B=4, 1280 faces, 512x512), '
-          f'host clock, synchronized, median of {reps}: ' + '; '.join(parts),
-          flush=True)
-
-
-def timings(smi, cuda_steps, yager_steps, obj_file, reps=50):
-    """Phase 7: medians of CUDA-event timings after warm-up, and host-clock
-    frame and step times.  Returns time_kernels' results by shape."""
-    import torch
-    from gendr_tpu_torch import config as C, render
-    from gendr_tpu_torch.animations import panda_dist as PD
     from gendr_tpu_torch.parallel import sharding as S
-    fv, tex = flagship_scene('cuda')
-    kw = dict(image_size=256, dist_func='uniform', dist_scale=1e-2,
-              aggr_alpha_func='probabilistic', aggr_rgb_func='hard')
-    t = {}
-    for backend in ('cuda', 'torch', 'torch', 'cuda'):
-        ms = _median_ms(lambda: render(fv, tex, backend=backend, **kw), reps)
-        t.setdefault(backend, []).append(ms)
-    print(f'[timing] {smi}: forward render 256x256 1280 faces, median of '
-          f'{reps}: backend=cuda {t["cuda"]} ms, backend=torch '
-          f'{t["torch"]} ms (order cuda, torch, torch, cuda)', flush=True)
-
-    fvg = fv.clone().requires_grad_(True)
-
-    def fwd_bwd(backend):
-        img = render(fvg, tex, backend=backend, **kw)
-        loss = 0.5 * (img[:, 3] ** 2).sum() + 0.1 * img[:, :3].sum()
-        return torch.autograd.grad(loss, fvg)
-
-    tb = {}
-    for backend in ('cuda', 'torch', 'torch', 'cuda'):
-        n = reps if backend == 'cuda' else 10
-        ms = _median_ms(lambda: fwd_bwd(backend), n)
-        tb.setdefault(backend, []).append(ms)
-    print(f'[timing] {smi}: forward+backward 256x256 1280 faces: '
-          f'backend=cuda {tb["cuda"]} ms (median of {reps}), backend=torch '
-          f'{tb["torch"]} ms (median of 10) (order cuda, torch, torch, '
-          f'cuda)', flush=True)
-
-    args = PD.parse_args(PANDA_ARGS)
-    pfv, ptex = PD.scene(args.texture_res, 'cuda')
-    frames = PD.frames(args, pfv, ptex)
-    frame_ms = {}
-    while True:
-        t0 = time.perf_counter()
-        try:
-            dist_id, _, _ = next(frames)
-        except StopIteration:
-            break
-        torch.cuda.synchronize()
-        frame_ms.setdefault(dist_id, []).append(
-            1e3 * (time.perf_counter() - t0))
-    print(f'[timing] {smi}: panda_dist --quick frames, the render alone '
-          f'(host clock, synchronized; 1536x1536, TS=25, anti-aliased), ms '
-          f'by distribution in tau order: '
-          f'{[[round(x, 3) for x in v] for v in frame_ms.values()]}',
-          flush=True)
-
+    from gendr_tpu_torch.tools import _ulp
     params = C.RenderParams(dist_scale=1e-2).as_dict()
-    shapes = [('flagship', flagship_cfg(), params, fv, tex),
-              ('flagship softmax', flagship_cfg(aggr_rgb_func='softmax'),
-               params, fv, tex)]
-    # the main paths of the textured slice: a panda_dist frame at full
-    # width (forward only; uniform tau 1e-2 and the sweep's densest frame,
-    # gaussian tau 1, where every chunk hits every tile), and the default
-    # GenDR's forward and backward with surface and vertex textures
-    for dist_func, tau in (('uniform', 1e-2), ('gaussian', 1.0)):
-        shapes.append((f'panda {dist_func} tau {tau:g}',
-                       *panda_inputs('cuda', 1536, dist_func, tau)))
-    shapes += list(gendr_inputs())
-    # the parametric slice's main paths: a panda_tcn frame at full width,
-    # sparse (tau 1e-2) and dense (tau 1), folded by yager p=2 and, beside
-    # it, by the probabilistic product; and path (d)'s soft render (B=24,
-    # 64x64, alpha only), forward and backward, likewise
-    for tau in (1e-2, 1.0):
-        for t_conorm, p in (('yager', 2.0), ('probabilistic', 0.0)):
-            shapes.append((f'tcn {t_conorm} tau {tau:g}',
-                           *tcn_inputs('cuda', 1536, t_conorm, p, tau)))
-    for name, extra in (('opt yager', YAGER_ARGS), ('opt probabilistic', ())):
-        shapes.append((name, *next(iter(training_inputs(extra=extra)))[1:]))
-    # path (i)'s render: B=256 at 64x64, alpha only, forward and backward;
-    # and its dataset's (24 views, heaviside CDF, hard alpha, hard RGB)
-    shapes += list(reconstruction_inputs())
-    # the big-texture slice's main path: the default GenDR on the OBJ's
-    # mesh (4 views at 512x512, forward and backward) at 256 and 1024 texels
-    # per face and, on the same geometry, at 25; softmax RGB and hard RGB
-    # (the K1d question: does hard RGB at 256 texels cost more than at 25?);
-    # and a 1536x1536 panda_dist frame of that mesh (uniform tau 1e-2)
-    for res in (5, OBJ_TEXTURE_RES, 32):
-        for rgb in ('softmax', 'hard'):
-            shapes.append((f'obj gendr {rgb} TS={res * res}',
-                           *obj_gendr_inputs(obj_file, res,
-                                             aggr_rgb_func=rgb)))
-    os.environ['GENDR_PANDA_OBJ'] = obj_file
-    try:
-        for res in (OBJ_TEXTURE_RES, 32):
-            for rgb in ('softmax', 'hard'):
-                shapes.append((f'obj panda {rgb} TS={res * res}',
-                               *panda_inputs('cuda', 1536, 'uniform', 1e-2,
-                                             res, aggr_rgb_func=rgb)))
-    finally:
-        del os.environ['GENDR_PANDA_OBJ']
-    kt = {}
-    # the sharded slice (K1e/K2e): a 128-row band of the flagship over all
-    # faces, its first face half over all rows, and what each rank of path
-    # (h2)'s fp=2 x sp=2 split launches: a 128-row band of a 640-face shard
+    fv, tex = flagship_scene('cuda')
     cfg = flagship_cfg()
-    kt['flagship band 128'] = time_kernels(
-        smi, 'flagship band 128', cfg, params, fv, tex, reps,
-        row_band=(128, 128))
+
+    def render(name, cfg, params, fv, tex, fvalid=None, band=None, bwd=True):
+        return name, 'render', (cfg, params, fv, tex, fvalid, band, bwd)
+    yield render('flagship', cfg, params, fv, tex)
+    yield render('flagship compact=off',
+                 dataclasses.replace(cfg, compact='off'), params, fv, tex)
+    yield render('flagship softmax', flagship_cfg(aggr_rgb_func='softmax'),
+                 params, fv, tex)
+    yield render('flagship band 128', cfg, params, fv, tex, band=(128, 128))
     hfv, htex, _, _ = face_halves(cfg, fv, tex)[0]
-    kt['flagship fp half'] = time_kernels(
-        smi, 'flagship fp half', cfg, params, hfv, htex, reps)
+    yield render('flagship fp half', cfg, params, hfv, htex)
     for i in range(2):
         sfv, stex, valid, _ = S._face_shard(fv, tex, cfg, 2, i)
         for j in range(2):
-            name = f'flagship shard fp{i} sp{j}'
-            kt[name] = time_kernels(smi, name, cfg, params, sfv, stex, reps,
-                                    fvalid=valid, row_band=(128 * j, 128))
-    for name, cfg, params, sfv, stex in shapes:
-        panda = name.startswith(('panda', 'tcn', 'obj panda'))
-        kt[name] = time_kernels(smi, name, cfg, params, sfv, stex, reps,
-                                bwd=not panda,
-                                plain=(1, 0) if panda or name.startswith(
-                                    ('obj', 'recon'))
-                                else (3, 1))
-    prepass_cost(smi, obj_file)
-    exp, eyes, targets = _shape_experiment('torch')
-    torch_steps = exp.run(TRAIN_LR, TRAIN_SIGMA, eyes, targets, 6)['step_s'][1:]
-    cuda_med = 1e3 * float(np.median(cuda_steps[1:]))
-    torch_med = 1e3 * float(np.median(torch_steps))
-    yager_med = 1e3 * float(np.median(yager_steps[1:]))
-    print(f'[timing] {smi}: opt_shape step (forward+backward+Adam, 24 views '
-          f'64x64, 1280 faces), host clock, synchronized: backend=cuda '
-          f'median {cuda_med:.3f} ms of {len(cuda_steps) - 1} '
-          f'(probabilistic), {yager_med:.3f} ms of {len(yager_steps) - 1} '
-          f'(yager p=2), '
-          f'backend=torch median {torch_med:.3f} ms of {len(torch_steps)}',
-          flush=True)
-    kt['probes'] = time_probes(smi, reps)
-    return kt
+            yield render(f'flagship shard fp{i} sp{j}', cfg, params, sfv,
+                         stex, valid, (128 * j, 128))
+    for name, *inputs in gendr_inputs():
+        yield render(name, *inputs)
+    for name, extra in (('opt yager', YAGER_ARGS),
+                        ('opt probabilistic', ())):
+        yield render(name, *next(iter(training_inputs(extra=extra)))[1:])
+    for name, *inputs in reconstruction_inputs():
+        yield render(name.replace('recon', 'path (i)'), *inputs)
+    exp, init = camera_experiment(CHAIN_CAMERA)
+    for tau in CAMERA_DEFAULT_TAUS:
+        yield render(f'opt_camera B=200 tau {tau:g}',
+                     *camera_inputs(exp, init, tau))
+    del exp
+    for res in (5, 12, 16, 32):
+        for rgb in ('softmax', 'hard'):
+            yield render(f'obj gendr {rgb} TS={res * res}',
+                         *obj_gendr_inputs(obj_file, res, aggr_rgb_func=rgb))
+    for dist_func, tau in (('uniform', 1e-2), ('gaussian', 1.0)):
+        yield render(f'panda {dist_func} tau {tau:g}',
+                     *panda_inputs('cuda', 1536, dist_func, tau), bwd=False)
+    for tau in (1e-2, 1.0):
+        for t_conorm, p in (('probabilistic', 0.0), ('yager', 2.0)):
+            yield render(f'tcn {t_conorm} tau {tau:g}',
+                         *tcn_inputs('cuda', 1536, t_conorm, p, tau),
+                         bwd=False)
+    os.environ['GENDR_PANDA_OBJ'] = obj_file
+    try:
+        for res in (16, 32):
+            for rgb in ('softmax', 'hard'):
+                yield render(f'obj panda {rgb} TS={res * res}',
+                             *panda_inputs('cuda', 1536, 'uniform', 1e-2,
+                                           res, aggr_rgb_func=rgb),
+                             bwd=False)
+    finally:
+        del os.environ['GENDR_PANDA_OBJ']
+    for case in PREPASS_CASES:
+        if case[0] in ('camera.blur', 'camera.sharp', 'recon.train',
+                       'camera.sharp128', 'camera.sharp128 tau 0.1'):
+            name, cfg, params, fv, tex, _ = prepass_inputs(case, 'cuda')
+            yield f'prepass {name}', 'prepass', (cfg, params, fv, tex)
+    yield ('probes', 'probes',
+           _ulp.check_cases() + _ulp.bisect_cases() + _ulp.smem_cases())
+
+
+def _device_ms(fn, name):
+    """{kernel: device ms a call} of the device kernels whose names hold
+    name, over TIMES_CALLS calls of fn back to back under torch.profiler
+    after one warm-up call (empty where the profiler shows none)."""
+    import re
+    import torch
+    from torch import profiler
+    fn()
+    torch.cuda.synchronize()
+    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
+                                      profiler.ProfilerActivity.CUDA]) as pr:
+        for _ in range(TIMES_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in pr.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key:
+            kernel = re.search(r'\w*' + name + r'\w*(<[^()]*>)?',
+                               e.key).group(0)
+            ms[kernel] = (ms.get(kernel, 0.0)
+                          + e.self_device_time_total / 1e3 / TIMES_CALLS)
+    return ms
+
+
+def _nbytes(*xs):
+    """Bytes of the tensors among xs, inside tuples, lists and dicts too."""
+    import torch
+    n = 0
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            n += x.numel() * x.element_size()
+        elif isinstance(x, (tuple, list)):
+            n += _nbytes(*x)
+        elif isinstance(x, dict):
+            n += _nbytes(*x.values())
+    return n
+
+
+def _gated_pairs(aux, cfg):
+    """(pixel, face) pairs inside each valid face's bbox + cull margin,
+    the pairs both render kernels run the pair math on, counted from the
+    packed bbox rows: per face, the pixel centres in its x range times
+    those in its y range, over the rows of the aux's band."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    from gendr_tpu_torch.raster import pack, pairmath as PM
+    # the sorted faces alone: compaction's slots repeat them, a tile each
+    pk = aux['packed'][:, :, :CB.sorted_face_count(aux)].double()
+    m = float(aux['par'][PM.P_MARGIN])
+    is_ = cfg.image_size
+    # row r has the y centre index is - 1 - r
+    ylo, yhi = is_ - aux['row0'] - aux['height'], is_ - 1 - aux['row0']
+
+    def centres(lo, hi, first=0, last=is_ - 1):
+        # centre indices c in [first, last] with (2c + 1 - is) / is in
+        # [lo - m, hi + m]
+        a = torch.ceil(((lo - m) * is_ + is_ - 1) / 2).clamp(first, last + 1)
+        b = torch.floor(((hi + m) * is_ + is_ - 1) / 2).clamp(first - 1, last)
+        return (b - a + 1).clamp(min=0)
+    nx = centres(pk[:, pack.R_BBOX + 0], pk[:, pack.R_BBOX + 1])
+    ny = centres(pk[:, pack.R_BBOX + 2], pk[:, pack.R_BBOX + 3], ylo, yhi)
+    return float((nx * ny * (pk[:, pack.R_FVALID] > 0)).sum())
+
+
+def _timed(wrapper, fn, plain, nbytes, flops):
+    """One wrapper of a shape timed: the device ms a call of each of its
+    kernels and their sum (None where the profiler shows no device time),
+    one synchronized call of the plain version on the host clock, and the
+    bound: the larger of nbytes over HBM bandwidth and flops over the
+    float32 peak."""
+    import torch
+    kernels = _device_ms(fn, wrapper)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain()
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    t_bytes, t_ops = (1e3 * nbytes / H100_HBM_BYTES,
+                      1e3 * flops / H100_FP32_FLOPS)
+    return dict(ms=sum(kernels.values()) if kernels else None,
+                kernels=kernels, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by='bytes' if t_bytes >= t_ops else 'operations')
+
+
+def time_render(cfg, params, fv, tex, fvalid, band, bwd):
+    """(SHA-1 of the forward kernel's output, {wrapper: _timed}, gated
+    pairs) of one render shape: rasterize_fwd and, where bwd,
+    rasterize_bwd on the pixel columns of 0.5 sum(alpha^2) + 0.1 sum(rgb)
+    at the forward's output."""
+    import hashlib
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    aux = CB.prepass(fv, tex, cfg, params, fvalid, band)
+    TS = tex.shape[2]
+    args = (aux['tile_counts'], aux['tile_ids'], aux['par'], aux['packed'],
+            aux['perm'], cfg, TS, aux['row0'], aux['height'])
+    out = CB.rasterize_fwd(*args)
+    sha = hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()
+    pairs = _gated_pairs(aux, cfg)
+    fwd_flops, bwd_flops = flops_per_pair(cfg, CB.render_mode(cfg))
+    res = {'rasterize_fwd': _timed(
+        'rasterize_fwd', lambda: CB.rasterize_fwd(*args),
+        lambda: CB.rasterize_fwd_plain(*args), _nbytes(args, out),
+        pairs * fwd_flops)}
+    if bwd:
+        bargs = backward_args(aux, cfg, params, TS, out)
+        rows = CB.rasterize_bwd(*bargs)
+        res['rasterize_bwd'] = _timed(
+            'rasterize_bwd', lambda: CB.rasterize_bwd(*bargs),
+            lambda: CB.rasterize_bwd_plain(*bargs), _nbytes(bargs, rows),
+            pairs * bwd_flops)
+    return sha, res, pairs
+
+
+def time_prepass(cfg, params, fv, tex):
+    """{'prepass': _timed} of the prepass kernels at one shape (the
+    parameter vector on the card, as a chained step holds it); its bound
+    is the bytes of its inputs and outputs."""
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    from gendr_tpu_torch.raster import pairmath as PM
+    p = PM.vector_params(PM._params_vec(params, cfg, fv.device))
+    aux = CB.prepass(fv, tex, cfg, p)
+    return {'prepass': _timed(
+        'prepass', lambda: CB.prepass(fv, tex, cfg, p),
+        lambda: CB.prepass_plain(fv, tex, cfg, p), _nbytes(fv, tex, p, aux),
+        0.0)}
+
+
+def time_probes(cases):
+    """{kernel: _timed} of both probe kernels over the whole probe phase
+    in one launch, the inputs packed on the card beforehand; the plain
+    version is every case's torch expression on the card, an operation an
+    element."""
+    import torch
+    from gendr_tpu_torch.tools import _ulp
+    packed = _ulp.pack(cases)
+    inputs = _ulp._inputs(cases, packed, 'cuda')
+    out = torch.empty(packed.n_out, device='cuda')
+    elements = sum(c.x.size for c in cases)
+    args = [(c.op, torch.as_tensor(c.x).cuda(),
+             torch.as_tensor(c.x if c.y is None else c.y).cuda(),
+             _ulp._pad_params(c.q)) for c in cases]
+    res = {}
+    for kernel in _ulp.LAUNCHES:
+        qs = [q if kernel == 'ulp_elementwise' else
+              torch.tensor(q, device='cuda') for _, _, _, q in args]
+        res[kernel] = _timed(
+            kernel, lambda: _ulp.launch(kernel, packed, inputs, out),
+            lambda: [_ulp.OPS[op].torch(x, y, q)
+                     for (op, x, y, _), q in zip(args, qs)],
+            _nbytes(inputs, out), elements)
+    return res
+
+
+def times_phase(smi, wanted=None):
+    """The timer: every shape of times_shapes (wanted: those names alone)
+    timed, one line a wrapper and the forward's SHA-1 a render shape
+    printed; then the card's name and power limit and one JSON object."""
+    import tempfile
+    import torch
+    from gendr_tpu_torch import _build
+    _build.build(*_build.SIGNATURES)
+    for name in _build.SIGNATURES:
+        for line in ptxas_summary(_build.BUILD_LOG[name]):
+            print(f'[build] {name}: {line}')
+    times, hashes = {}, {}
+    with tempfile.TemporaryDirectory() as obj_dir:
+        obj_file = make_obj(obj_dir)
+        # the inputs are made with deterministic algorithms, so that every
+        # checkout gets the same bytes and the forward's outputs compare
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        shapes = [s for s in times_shapes(obj_file)
+                  if wanted is None or s[0] in wanted]
+        torch.use_deterministic_algorithms(False)
+    missing = (wanted or set()) - {s[0] for s in shapes}
+    if missing:
+        raise SystemExit(f'chip_smoke --times: no shape named '
+                         f'{sorted(missing)}')
+    # about a second of matrix products first, so that the first shape is
+    # not timed while the card's clocks ramp up
+    a = torch.randn(4096, 4096, device='cuda')
+    for _ in range(400):
+        a @ a
+    torch.cuda.synchronize()
+    del a
+    for name, wrapper, inputs in shapes:
+        what = ''
+        if wrapper == 'render':
+            cfg, _, fv, tex, _, band, _ = inputs
+            hashes[name], times[name], pairs = time_render(*inputs)
+            rows = '' if band is None else f' rows {band[0]}+{band[1]}'
+            what = (f' (B={fv.shape[0]}, {cfg.image_size}x{cfg.image_size}'
+                    f'{rows}, F={fv.shape[1]}, TS={tex.shape[2]}, '
+                    f'{pairs:.6g} gated pairs)')
+        elif wrapper == 'prepass':
+            times[name] = time_prepass(*inputs)
+        else:
+            times[name] = time_probes(inputs)
+        print(f'[times] {smi}: {name}{what}, device ms a call over '
+              f'{TIMES_CALLS} calls back to back (profiler): ' + '; '.join(
+                  f'{w} ' + ('not measured' if r['ms'] is None
+                             else f'{r["ms"]:.5f} ms')
+                  + ''.join(f', {k} {v:.5f}' for k, v in r['kernels'].items())
+                  + f'; plain {r["plain_ms"]:.4f} ms a call; bound '
+                  f'{r["bound_ms"]:.5f} ms ({r["bound_by"]})'
+                  for w, r in times[name].items()), flush=True)
+        if name in hashes:
+            print(f'[sha1] {name}: rasterize_fwd output {hashes[name]}',
+                  flush=True)
+        torch.cuda.empty_cache()
+    print(smi)
+    print(json.dumps({'ms': times, 'sha1': hashes}))
+    return 0
 
 
 def main():
@@ -4119,173 +3502,112 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f'[device] {smi} | torch {torch.__version__} cuda '
           f'{torch.version.cuda} | {kind}', flush=True)
-    if sys.argv[1:] == ['--chain-only']:
+    argv = sys.argv[1:]
+    if argv[:1] == ['--times']:
+        if argv[1:2] not in ([], ['--shapes']) or len(argv) not in (1, 3):
+            print('usage: chip_smoke.py --times [--shapes NAME,NAME,...]',
+                  file=sys.stderr)
+            return 2
+        return times_phase(smi, set(filter(None, argv[2].split(',')))
+                           if len(argv) == 3 else None)
+    if argv == ['--chain-only']:
         # a quick look at path (j) alone; the full run has no arguments
         _build.build(*_build.SIGNATURES)
-        chain_phase(smi)
+        chain_phase()
         capture_must_fail()
         return 0
-    if sys.argv[1:] == ['--compact-only']:
-        # a quick look at phase 12 alone
+    if argv == ['--compact-only']:
+        # a quick look at phase 11 alone
         _build.build(*_build.SIGNATURES)
-        compaction_phase(smi)
+        compaction_phase()
         return 0
-    if sys.argv[1:] == ['--torch-texel-only']:
+    if argv == ['--torch-texel-only']:
         # a quick look at path (l) alone: it builds no kernel
         torch_texel_phase()
         return 0
-    if sys.argv[1:] == ['--camera-only']:
+    if argv == ['--camera-only']:
         # a quick look at path (k) alone
         _build.build(*_build.SIGNATURES)
-        camera_default_path(smi)
+        camera_default_path()
         return 0
-    if sys.argv[1:] == ['--prepass-only']:
-        # a quick look at phase 14 alone
+    if argv == ['--prepass-only']:
+        # a quick look at phase 13 alone
         _build.build('prepass')
         for line in ptxas_summary(_build.BUILD_LOG['prepass']):
             print(f'[build] prepass: {line}')
-        prepass_phase(smi)
+        prepass_phase()
         return 0
 
-    t0 = time.perf_counter()
     names = tuple(_build.SIGNATURES)
     _build.build(*names)
     _build.build_native('objparse')
-    print(f'[build] {", ".join(names)} and the OBJ tokenizer ready in '
-          f'{time.perf_counter() - t0:.2f} s', flush=True)
+    print(f'[build] {", ".join(names)} and the OBJ tokenizer ready',
+          flush=True)
     for name in names:
         for line in ptxas_summary(_build.BUILD_LOG[name]):
             print(f'[build] {name}: {line}')
 
     import tempfile
     with tempfile.TemporaryDirectory() as obj_dir:
-        t0 = time.perf_counter()
         obj_file = make_obj(obj_dir)
-        save_ms = 1e3 * (time.perf_counter() - t0)
         img_err, grad_err = compare_kernels(obj_file)
         band_img_err, band_grad_err = band_phase()
         img_err = max(img_err, band_img_err)
         grad_err = max(grad_err, band_grad_err)
         by_path = dict(render=render_path())
-        by_path['training'], cuda_steps = training_path()
-        sharded, shard_times = sharded_phase(cuda_steps)
-        by_path.update(sharded)
-        by_path['panda'], _ = panda_path()
+        by_path['training'] = training_path()
+        by_path.update(sharded_phase())
+        by_path['panda'] = panda_path()
         panda_frame_vs_torch()
         for texture_type, launches in gendr_default_path().items():
             by_path[f'gendr_{texture_type}'] = launches
         torch_texel_phase()
         by_path['tcn'] = tcn_path()
         tcn_frame_vs_torch()
-        by_path['training_yager'], yager_steps = training_path(YAGER_ARGS)
-        by_path['obj_gendr'], by_path['obj_panda'], load_ms = \
-            obj_path(obj_file)
-        voxel_ms = voxel_path()
-        by_path['camera'], _ = camera_path()
+        by_path['training_yager'] = training_path(YAGER_ARGS)
+        by_path['obj_gendr'], by_path['obj_panda'] = obj_path(obj_file)
+        voxel_path()
+        by_path['camera'] = camera_path()
         by_path['reconstruction'], _ = reconstruction_path()
         by_path['reconstruction_dp'] = reconstruction_dp_phase()
-        recon_img, recon_grad, recon_ms = reconstruction_phase(cuda_steps)
+        recon_img, recon_grad = reconstruction_phase()
         img_err = max(img_err, recon_img)
         grad_err = max(grad_err, recon_grad)
-        chain_paths, (chain_img, chain_grad), chain_times = chain_phase(smi)
+        chain_paths, (chain_img, chain_grad) = chain_phase()
         by_path.update(chain_paths)
         img_err = max(img_err, chain_img)
         grad_err = max(grad_err, chain_grad)
-        by_path['compaction'], c_img, c_grad, compact_kt = \
-            compaction_phase(smi)
+        by_path['compaction'], c_img, c_grad = compaction_phase()
         img_err = max(img_err, c_img)
         grad_err = max(grad_err, c_grad)
-        camera_paths, (k_img, k_grad), camera_kt, camera_times = \
-            camera_default_path(smi)
+        camera_paths, (k_img, k_grad) = camera_default_path()
         by_path.update(camera_paths)
         img_err = max(img_err, k_img)
         grad_err = max(grad_err, k_grad)
         probe_launches, probe_err = probe_phase()
-        prepass_kt, by_path['prepass'] = prepass_phase(smi)
-        kt = timings(smi, cuda_steps, yager_steps, obj_file)
-        kt.update(compact_kt)
-        kt.update(camera_kt)
-        kt.update(prepass_kt)
-    print(f'[timing] {smi}: host clock: save_obj(texture_res='
-          f'{OBJ_TEXTURE_RES}) of 1280 faces x 256 texels {save_ms:.1f} ms; '
-          f'load_obj(load_texture=True, texture_res={OBJ_TEXTURE_RES}, '
-          f'device=cuda) {load_ms:.1f} ms; voxelization of 1280 faces on the '
-          f'card ' + ', '.join(f'{vs}^3 {ms:.2f} ms'
-                               for vs, ms in voxel_ms.items()), flush=True)
+        by_path['prepass'] = prepass_phase()
+    by_path['probes'] = probe_launches
 
     if not SLAB_CHECKS:
         raise AssertionError('rasterize_bwd_slab was held against its plain '
                              'version on no input')
-    # phase 14 raises on any bit that differs from the plain prepass
+    # phase 13 raises on any bit that differs from the plain prepass
     errs = dict(rasterize_fwd=img_err, rasterize_bwd=grad_err,
                 rasterize_bwd_slab=max(c['err'] for c in SLAB_CHECKS),
                 ulp_elementwise=probe_err, ulp_param_vector=probe_err,
                 prepass=0.0, prepass_compact=0.0)
-    sources = dict(rasterize_fwd='rasterize_fwd', rasterize_bwd='rasterize_bwd',
-                   rasterize_bwd_slab='rasterize_bwd',
-                   ulp_elementwise='ulp_probe', ulp_param_vector='ulp_probe',
-                   prepass='prepass', prepass_compact='prepass')
-    replaces = dict(rasterize_fwd='gendr_tpu/raster/pallas_backend.py:254',
-                    rasterize_bwd='gendr_tpu/raster/pallas_backend.py:1171',
-                    rasterize_bwd_slab='gendr_tpu/raster/pallas_backend.py:'
-                    '1171',
-                    ulp_elementwise='tools/ulp_check.py:47 and '
-                    'tools/ulp_bisect.py:36',
-                    ulp_param_vector='tools/ulp_smem.py:37',
-                    prepass='no Pallas kernel: the XLA prepass of '
-                    'gendr_tpu/raster/pallas_backend.py:1002 (_sorted_faces)'
-                    ' and gendr_tpu/raster/pack.py (pack_faces, '
-                    'tile_chunk_mask, compact_hits)',
-                    prepass_compact='no Pallas kernel: the XLA prepass of '
-                    'gendr_tpu/raster/pallas_backend.py:1002 (_sorted_faces)'
-                    ' and gendr_tpu/raster/pack.py (compact_plan, '
-                    'pack_faces)')
-    envelopes = dict(rasterize_fwd='K1a+K1b+K1c+K1d+K1e',
-                     rasterize_bwd='K2a+K2b+K2c+K2d+K2e',
-                     rasterize_bwd_slab='K2 of compaction\'s appended chunks:'
-                     ' alpha, hard RGB over vertex colours or one texel',
-                     ulp_elementwise='probe', ulp_param_vector='probe',
-                     prepass='the uncompacted prepass of up to '
-                     f'{CB.PREPASS_SORT_CAP} padded faces',
-                     prepass_compact='the compacted prepass of up to '
-                     f'{CB.PREPASS_SORT_CAP} padded faces in chunks of 128')
-    # each kernel's numbers at the shape of the sharded slice's main path:
-    # for both render kernels, the flagship's rank of path (h2) that the
-    # kernel takes longest on (a 128-row band of a 640-face shard; the
-    # step waits for the slowest rank), for the probes the whole probe
-    # phase in one launch (ms its device time); the other shapes are in
-    # by_shape
-    # rasterize_bwd_slab, which no sharded render launches: path (k)'s
-    # render at tau 1e-1, where the slab launch takes K2 longest
-    ranks = [k for k in kt if k.startswith('flagship shard ')]
-    main_shape = dict(ulp_elementwise='probes', ulp_param_vector='probes',
-                      rasterize_bwd_slab='opt_camera B=200 tau 0.1',
-                      prepass='prepass camera.sharp',
-                      prepass_compact='prepass camera.sharp128',
-                      **{name: max(ranks, key=lambda k: kt[k][name]['ms'])
-                         for name in ('rasterize_fwd', 'rasterize_bwd')})
-    by_path['probes'] = probe_launches
-
-    def numbers(r):
-        return dict(ms=r['ms'], plain_ms=r['plain_ms'], bound_ms=r['bound'][0],
-                    bound_by=r['bound'][1])
     # last: a capture that must fail leaves nothing after it to spoil
     capture_must_fail()
     print(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda',
-        'source': f'gendr_tpu_torch/csrc/{sources[name]}.cu',
-        'replaces': replaces[name], 'envelope': envelopes[name],
+        'source': f'gendr_tpu_torch/csrc/{k.source}.cu',
+        'replaces': k.replaces,
+        'envelope': k.envelope.format(sort_cap=CB.PREPASS_SORT_CAP),
         'launches': sum(p.get(name, 0) for p in by_path.values()),
-        'launches_by_path': {k: p[name] for k, p in by_path.items()
+        'launches_by_path': {path: p[name] for path, p in by_path.items()
                              if name in p},
-        'max_abs_err': errs[name], 'shape': main_shape[name],
-        **numbers(kt[main_shape[name]][name]), 'library_ms': None,
-        'by_shape': {shape: numbers(r[name]) for shape, r in kt.items()
-                     if name in r}} for name in sources],
-        'sharded_step_ms': shard_times['step_ms'],
-        'sharded_collective_ms': shard_times['collective_ms'],
-        'reconstruction_step_ms': recon_ms, 'chain': chain_times,
-        'camera_default': camera_times}))
+        'max_abs_err': errs[name], 'shape': k.shape}
+        for name, k in KERNELS.items()]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

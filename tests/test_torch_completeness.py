@@ -13,7 +13,8 @@ read with ``ast``, the port's modules imported; no render, no jit).
     site, or is listed in ``NO_SITE`` with its source and its reason (a
     hand-written kernel of the port where the JAX package had XLA).
 (c) Each of those kernels' launch counters is a key of its wrapper's
-    ``LAUNCHES`` and is reported and checked by ``chip_smoke.py``.
+    ``LAUNCHES``, a row of ``chip_smoke.KERNELS`` (which its kernels line
+    reports) and checked by ``chip_smoke.py``.
 
 A new Pallas kernel or a new public name in ``gendr_tpu`` fails here until
 it is ported or listed with a reason.
@@ -26,6 +27,8 @@ import re
 
 import pytest
 from torch_threads import one_torch_thread  # noqa: F401
+
+import chip_smoke
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / 'gendr_tpu_torch'
@@ -293,26 +296,12 @@ def test_every_cuda_kernel_answers_a_pallas_site():
         assert kernels[name] == cu and reason, name
 
 
-def _chip_smoke_kernel_line():
-    """The dicts of chip_smoke.main that make its kernels JSON line:
-    {'sources': {counter: .cu stem}, 'replaces': {counter: file:line}},
-    the names of the LAUNCHES dicts the script sets to 0, and the script's
-    source."""
+def _launch_resets():
+    """The names of the LAUNCHES dicts chip_smoke.py sets to 0, and the
+    script's source."""
     src = (ROOT / 'chip_smoke.py').read_text()
-    tree = ast.parse(src)
-    main, = [n for n in tree.body
-             if isinstance(n, ast.FunctionDef) and n.name == 'main']
-    tables = {}
-    for node in ast.walk(main):
-        if (isinstance(node, ast.Assign) and len(node.targets) == 1
-                and isinstance(node.targets[0], ast.Name)
-                and node.targets[0].id in ('sources', 'replaces')):
-            # dict(key=value, ...)
-            tables[node.targets[0].id] = {
-                kw.arg: ast.literal_eval(kw.value)
-                for kw in node.value.keywords}
     reset = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(src)):
         # for k in X.LAUNCHES: X.LAUNCHES[k] = 0
         if (isinstance(node, ast.For)
                 and isinstance(node.iter, ast.Attribute)
@@ -321,7 +310,7 @@ def _chip_smoke_kernel_line():
                         and isinstance(s.value, ast.Constant)
                         and s.value.value == 0 for s in node.body)):
             reset.add(ast.unparse(node.iter.value))
-    return tables, reset, src, tree
+    return reset, src
 
 
 @pytest.mark.parametrize('kernel', sorted(COUNTERS))
@@ -329,24 +318,23 @@ def test_chip_smoke_checks_each_kernels_launches(kernel):
     module, counter = COUNTERS[kernel]
     launches = importlib.import_module(module).LAUNCHES
     assert counter in launches, (module, counter)
-    tables, reset, src, tree = _chip_smoke_kernel_line()
+    reset, src = _launch_resets()
     # the script counts from 0 for both wrappers' counters (CB is
     # cuda_backend, _ulp the probes' module)
     assert {'CB', '_ulp'} <= reset, reset
-    # the kernels line reports the counter's launches, from the .cu that
-    # defines the kernel, beside the TPU kernel it replaces
-    assert tables['sources'][counter] + '.cu' == _cuda_kernels()[kernel]
+    # the kernels line reports the counter's launches (a row of KERNELS),
+    # from the .cu that defines the kernel, beside the TPU kernel it
+    # replaces
+    row = chip_smoke.KERNELS[counter]
+    assert row.source + '.cu' == _cuda_kernels()[kernel]
     sites = [site.split(':')[0] for site, (_, _, names)
              in PALLAS_SITES.items() if kernel in names]
-    assert all(s in tables['replaces'][counter] for s in sites), \
-        (counter, tables['replaces'][counter], sites)
+    assert all(s in row.replaces for s in sites), \
+        (counter, row.replaces, sites)
     # and fails a run that did not launch it: the render kernels every
     # path checks (RENDER_KERNELS), the slab launch its own count, the
     # probes' counts against _ulp.launches
-    render_kernels, = [ast.literal_eval(n.value) for n in tree.body
-                       if isinstance(n, ast.Assign)
-                       and ast.unparse(n.targets[0]) == 'RENDER_KERNELS']
-    assert (counter in render_kernels
+    assert (counter in chip_smoke.RENDER_KERNELS
             or f"CB.LAUNCHES['{counter}']" in src
             or (module.endswith('_ulp') and '_ulp.launches(' in src)), \
         f'chip_smoke.py does not check the launches of {counter}'
