@@ -136,16 +136,18 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    scene whose corner tile overflows its slabs, the gate fires and both
    kernels hold against their plain versions with phase 1's gates, the
    forward bitwise compact='off'; rasterize_bwd_slab (K2's launch over
-   the appended chunks, a thread per pixel of a chunk's tile, for alpha
-   and hard RGB over vertex colours or one texel) alone against its plain
-   version wherever it runs, with its blocks and lanes with work;
+   the appended chunks, a block per tile and a warp per surviving face,
+   for alpha and hard RGB over vertex colours or one texel) alone against
+   its plain version wherever it runs, with its blocks, survivors and
+   pairs;
 12. drives path (k), ``experiments.opt_camera`` at its command line's
    defaults (200 poses at 64x64, logistic x probabilistic, --chain 20, the
    cube stand-in, starting angles 15-35 degrees): (k1) both kernels
    against their plain versions with phase 1's gates on the soft render of
    the first step at B=200, at tau 1e-1 and 1e-7 (the anneal's ends;
-   compaction fires: one slab a tile, 3200 blocks of rasterize_bwd_slab,
-   held alone against its plain version); (k2) 100 annealed steps with
+   compaction fires: one slab a tile, a block of rasterize_bwd_slab per
+   tile and pose, held alone against its plain version); (k2) 100
+   annealed steps with
    --chain 20 against --chain 1 from the same poses, bitwise, the first
    replay's kernels against their plain versions, one launch of each
    kernel a step.  ``--camera-only`` runs it alone;
@@ -156,13 +158,16 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    keys, degenerate faces, a face shard's band, surface and vertex
    textures, the flagship at 256x256 with compaction off, the kernels'
    whole sort of 16384 faces; compacted: camera.sharp128's shape at tau
-   1e-7 and 0.1, the flagship's, the default GenDR's over 25 texels and
-   over vertex colours, a row band, padded and degenerate faces, tiles
+   1e-7, 0.1 and 1e-3, the flagship's, the default GenDR's over 25 texels
+   and over vertex colours, a row band, padded and degenerate faces, tiles
    that no octet hits), the compacted cases' census and phase marks
    against the plain prepass's, captured prepasses replayed against the
    eager ones, the plain path where the faces pass the kernels' sort
    (compacted or not), one kernel prepass a forward at the cells' shapes.
-   ``--prepass-only`` runs it alone, with ptxas's report of the kernels.
+   ``--prepass-only`` runs it alone, with ptxas's report of the kernels;
+14. holds rasterize_bwd_slab at two slabs a tile against its plain
+   version (SLAB_PHASE_CASES: camera.sharp128's render at tau 1e-7 and
+   1e-3, 1000 faces at 128x128), one launch a call.
 
 Every failure raises, and the script then exits non-zero.  It exits
 non-zero with no result where there is no CUDA device.  The last line of
@@ -396,12 +401,12 @@ KERNELS = {
     'rasterize_bwd': Kernel('rasterize_bwd',
                             'gendr_tpu/raster/pallas_backend.py:1171',
                             'K2a+K2b+K2c+K2d+K2e', _RANK),
-    # no sharded render launches it: path (k)'s render at tau 1e-1, where
-    # the slab launch takes K2 longest
+    # no sharded render launches it: camera.sharp128's render, the
+    # benchmark cell where the slab launch takes a third of the step
     'rasterize_bwd_slab': Kernel(
         'rasterize_bwd', 'gendr_tpu/raster/pallas_backend.py:1171',
         'K2 of compaction\'s appended chunks: alpha, hard RGB over vertex '
-        'colours or one texel', 'opt_camera B=200 tau 0.1'),
+        'colours or one texel', 'render camera.sharp128'),
     'ulp_elementwise': Kernel('ulp_probe', 'tools/ulp_check.py:47 and '
                               'tools/ulp_bisect.py:36', 'probe', 'probes'),
     'ulp_param_vector': Kernel('ulp_probe', 'tools/ulp_smem.py:37', 'probe',
@@ -684,17 +689,26 @@ def check_slab(name, cfg, params, aux, TS, out):
     """rasterize_bwd_slab alone against its plain version on one compacted
     input: the appended chunks' columns of K2's rows, from the same pixel
     columns (those of the forward kernel's output out), with phase 1's
-    gates on the xy and the texture rows.  Prints the launch's blocks and
-    its lanes with work (slab_lanes)."""
+    gates on the xy and the texture rows, and the survivors its blocks
+    count in a recorded call against cuda_backend.slab_survivors.  Prints
+    the launch's blocks, survivors and pairs (slab_lanes)."""
     import torch
     from gendr_tpu_torch.raster import cuda_backend as CB
+    from gendr_tpu_torch.utils import profiling
     Fs = CB.sorted_face_count(aux)
     bargs = backward_args(aux, cfg, params, TS, out)
     n0 = CB.LAUNCHES['rasterize_bwd_slab']
-    got = CB.rasterize_bwd(*bargs)[..., Fs:]
+    with profiling.recording(profiling.Recorder(out.device)) as rec:
+        got = CB.rasterize_bwd(*bargs)[..., Fs:]
     if CB.LAUNCHES['rasterize_bwd_slab'] != n0 + 1:
         raise AssertionError(f'{name}: rasterize_bwd_slab was not launched')
-    want = CB.rasterize_bwd_plain(*bargs)[..., Fs:]
+    # the plain version over the appended chunks alone (the sorted chunks'
+    # lists emptied): over every pixel of the image, as the plain version
+    # walks them, the sorted chunks of camera.sharp128's 200 views at
+    # 128x128 do not fit the card
+    counts = bargs[0].clone()
+    counts[:, :Fs // cfg.face_chunk] = 0
+    want = CB.rasterize_bwd_plain(counts, *bargs[1:])[..., Fs:]
     torch.cuda.synchronize()
     xy = agreement(got[:, :6], want[:, :6])
     tx = agreement(got[:, 6:], want[:, 6:]) if got.shape[1] > 6 else 1.0
@@ -702,16 +716,24 @@ def check_slab(name, cfg, params, aux, TS, out):
     lanes = slab_lanes(aux, cfg)
     nb = lanes['blocks']
     SLAB_CHECKS.append(dict(name=name, err=err, xy=xy, tex=tx, **lanes))
-    print(f'[slab] {name}: {nb} blocks; lanes with work, a thread per slot '
-          f'{lanes["slot_lanes"] / (nb * cfg.face_chunk):.4f}, a thread per '
-          f'pixel (rasterize_bwd_slab) {lanes["before_cull"] / (nb * 256):.4f}'
-          f' before the cull, {lanes["after_cull"] / (nb * 256):.4f} after; '
-          f'{lanes["pairs"]:.6g} gated pairs; the slab columns against the '
-          f'plain version: grad_agree={xy:.6f} texgrad_agree={tx:.6f} '
-          f'err={err:.3g} scale={float(want.abs().max()):.3g} nonzero '
+    print(f'[slab] {name}: {nb} blocks of {lanes["slots"] // nb} slots; '
+          f'live slots {lanes["slot_lanes"] / nb:.4f} a block, survivors '
+          f'of the cull {lanes["survivors"]} ({lanes["survivors"] / nb:.4f}'
+          f' a block, at most {lanes["most_survivors"]}; a warp walks '
+          f'{lanes["warp_depth"] / nb:.4f} on average, at most '
+          f'{-(-lanes["most_survivors"] // 8)}); {lanes["pairs"]:.6g} gated '
+          f'pairs ({lanes["pairs"] / nb:.4f} a block) on '
+          f'{lanes["pair_lanes"]} lanes of the warps\' walks; the slab '
+          f'columns against the plain version: grad_agree={xy:.6f} '
+          f'texgrad_agree={tx:.6f} err={err:.3g} '
+          f'scale={float(want.abs().max()):.3g} nonzero '
           f'{int((got != 0).sum())}/{int((want != 0).sum())}', flush=True)
     if not (xy > GRAD_AGREE and tx > GRAD_AGREE):
         raise AssertionError(f'{name}: slab columns agree {xy}, {tx}')
+    counted = rec.counts()['compact.slab_survivors']
+    if counted != lanes['survivors']:
+        raise AssertionError(f'{name}: the blocks counted {counted} '
+                             f'survivors, slab_survivors {lanes["survivors"]}')
 
 
 def t_conorm_inputs(kw, p, ts, device='cuda'):
@@ -985,7 +1007,9 @@ def overflow_scene(device='cuda'):
 # and 1e-7, and the reconstruction's 256 silhouettes (uniform, dist_eps
 # 300, tau 10^-1.5); from 'camera.sharp128' on, per-tile face compaction
 # fires: camera.sharp128's cell (2 slabs a tile), the same at tau 0.1
-# (every tile overflows its slabs), the flagship's shape (1 slab), the
+# (every tile overflows its slabs: the slab launch has no work) and at
+# tau 1e-3 (most hit tiles on their slabs, wide gate rectangles), the
+# flagship's shape (1 slab), the
 # default GenDR's (512^2) with softmax RGB over 25 texels and over vertex
 # colours, a row band, padded faces, degenerate faces, and a scene in one
 # corner (tiles that no octet hits, one that overflows)
@@ -1010,6 +1034,8 @@ PREPASS_CASES = [
      dict(dist_scale=1e-7, dist_eps=100.0)),
     ('camera.sharp128 tau 0.1', 200, 1280, 128, 'views', 1, _CAMERA_CFG,
      dict(dist_scale=1e-1, dist_eps=100.0)),
+    ('camera.sharp128 tau 1e-3', 200, 1280, 128, 'views', 1, _CAMERA_CFG,
+     dict(dist_scale=1e-3, dist_eps=100.0)),
     ('flagship', 1, 1280, 256, 'views', 1, {}, {}),
     ('gendr surface 25', 4, 1280, 512, 'views', 25,
      dict(aggr_rgb_func='softmax'), {}),
@@ -1022,8 +1048,17 @@ PREPASS_CASES = [
     ('compacted corner', 8, 1280, 128, 'corner', 1, _CAMERA_CFG,
      dict(dist_scale=1e-4)),
 ]
-# camera.sharp128's shape, the first compacted case
+# camera.sharp128's shape, the first compacted case, at both ends of the
+# anneal and between them
 COMPACT_CASE = [c[0] for c in PREPASS_CASES].index('camera.sharp128')
+SHARP128_CASES = ('camera.sharp128', 'camera.sharp128 tau 0.1',
+                  'camera.sharp128 tau 1e-3')
+# rasterize_bwd_slab's inputs of two slabs a tile that the full run holds
+# against its plain version (check_slab): camera.sharp128's, the same at
+# tau 1e-3 (the dense end) and 1000 faces at 128x128, where some tiles
+# list their first slab alone
+SLAB_PHASE_CASES = ('camera.sharp128', 'camera.sharp128 tau 1e-3',
+                    'compacted F=1000')
 # eager steps of camera.sharp128's experiment whose prepasses phase 13
 # counts
 SHARP128_STEPS = 5
@@ -1333,6 +1368,35 @@ def prepass_phase():
           f'{delta["prepass_compact"]} compacted kernel prepasses for '
           f'{delta["rasterize_fwd"]} renders, plain prepasses '
           f'{CB.PREPASS_PLAIN}; launches {launches}', flush=True)
+    return launches
+
+
+def slab_phase():
+    """Phase 14: rasterize_bwd_slab at two slabs a tile: on
+    SLAB_PHASE_CASES, the prepass, K1 and check_slab, which holds the slab
+    columns against the plain version and counts one slab launch.  Returns
+    the launches of the phase."""
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    for k in CB.LAUNCHES:
+        CB.LAUNCHES[k] = 0
+    for case in PREPASS_CASES:
+        if case[0] not in SLAB_PHASE_CASES:
+            continue
+        name, cfg, params, fv, tex, _ = prepass_inputs(case, 'cuda')
+        aux = CB.prepass(fv, tex, cfg, params)
+        K = CB.sorted_face_count(aux) // cfg.face_chunk
+        if (aux['packed'].shape[2] // cfg.face_chunk - K
+                != 2 * aux['chunk_ids'].shape[2]):
+            raise AssertionError(f'{name}: not two slabs a tile')
+        TS = tex.shape[2]
+        out = CB.rasterize_fwd(aux['tile_counts'], aux['tile_ids'],
+                               aux['par'], aux['packed'], aux['perm'], cfg,
+                               TS)
+        check_slab(name, cfg, params, aux, TS, out)
+    launches = dict(CB.LAUNCHES)
+    n = len(SLAB_PHASE_CASES)
+    if render_counts(launches) != render_launches(n, n, n):
+        raise AssertionError(f'[slab] launches {launches}')
     return launches
 
 
@@ -2723,7 +2787,7 @@ def camera_default_path():
         print(f'[camera defaults] (k1) tau {tau:g}: B={B}, {T} tiles, '
               f'compaction {"on" if "oct_ids" in aux else "off"}: {Fs} '
               f'sorted face columns and {Fp - Fs} slot columns, '
-              f'{(Fp - Fs) // FC * B} slab blocks in K2\'s launch of the '
+              f'{T * B} tile blocks in K2\'s launch of the '
               f'appended chunks; K2 S={S} over the sorted chunks, workspace '
               f'{ws_mib:.2f} MiB', flush=True)
         if 'oct_ids' not in aux:
@@ -3125,58 +3189,59 @@ def visited_pairs(aux, cfg):
 
 def slab_route(aux, cfg, TS):
     """Whether K2 runs compaction's appended chunks through
-    rasterize_bwd_slab on this prepass (the C entry's rule: alpha, or hard
-    RGB whose texture sums live in registers: vertex colours or one
-    texel)."""
-    from gendr_tpu_torch import config as C
+    rasterize_bwd_slab on this prepass (cuda_backend.slab_route)."""
     from gendr_tpu_torch.raster import cuda_backend as CB
-    mode = CB.render_mode(cfg)
-    return ('oct_ids' in aux and mode != CB.MODE_SOFTMAX
-            and (mode == CB.MODE_ALPHA or TS == 1
-                 or cfg.texture_type == C.TEXTURE_VERTEX))
+    return 'oct_ids' in aux and CB.slab_route(cfg, TS)
 
 
 def slab_lanes(aux, cfg):
-    """What the launch over compaction's appended chunks (slabs) gives its
-    lanes, from the prepass alone: 'blocks' (a block per slab and batch
-    element); 'slot_lanes', the lanes with work of a thread per slot (a
-    live slot of a slab that lists a tile), of blocks x FC; of a thread per
-    pixel of the slab's tile (rasterize_bwd_slab), of blocks x 256:
-    'before_cull', the pixels inside the image and the band of blocks with
-    a live slot, and 'after_cull', those inside the gate of at least one
-    slot (a survivor's); and 'pairs', the slabs' gated (pixel, slot)
-    pairs."""
+    """What rasterize_bwd_slab, the launch over compaction's appended
+    chunks (slabs), gives its blocks and warps, from the prepass alone:
+    'blocks' (a block per band tile and batch element) of 'slots' (all
+    the tile's slabs' slots); 'slot_lanes', the live slots of the slabs
+    that list a tile; 'survivors', the slots the block's cull keeps
+    (cuda_backend.slab_survivors), 'most_survivors' the most of one
+    block, 'warp_depth' the survivors the busiest of a block's 8 warps
+    walks, summed over the blocks, were they dealt in turn; 'pairs', the
+    gated (pixel, slot) pairs, the pixels of the survivors' gate
+    rectangles in the tile; 'pair_lanes', the lanes of the warps' walks
+    over those rectangles (32 a step)."""
     import torch
     from gendr_tpu_torch.raster import cuda_backend as CB
     from gendr_tpu_torch.raster import pack, pairmath as PM
     FC, is_, height = cfg.face_chunk, cfg.image_size, aux['height']
-    Fs, Fp = CB.sorted_face_count(aux), aux['packed'].shape[2]
-    B, nslab = aux['packed'].shape[0], (Fp - Fs) // FC
-    pk = aux['packed'][:, :, Fs:].reshape(B, -1, nslab, FC)
-    listed = aux['chunk_counts'][:, Fs // FC:] > 0           # [B, nslab]
-    tile = aux['chunk_ids'][:, Fs // FC:, 0].long()
-    valid = (pk[:, pack.R_FVALID] > 0) & listed[..., None]   # [B, nslab, FC]
+    K = CB.sorted_face_count(aux) // FC
+    B, T = aux['packed'].shape[0], aux['chunk_ids'].shape[2]
+    pk = aux['packed'][:, :, K * FC:]
+    pk = pk.reshape(B, pk.shape[1], T, -1)              # [B, NI, T, slots]
+    listed = (aux['chunk_counts'][:, K:] > 0).reshape(B, T, -1) \
+        .repeat_interleave(FC, dim=2)                        # [B, T, slots]
+    valid = (pk[:, pack.R_FVALID] > 0) & listed
     tx = -(-is_ // CB.TILE)
-    i = torch.arange(CB.TILE, device=tile.device)
-    cols = (tile % tx * CB.TILE)[..., None] + i              # [B, nslab, 16]
-    rows = (tile // tx * CB.TILE)[..., None] + i             # band-local
+    t = torch.arange(T, device=pk.device)
+    i = torch.arange(CB.TILE, device=pk.device)
+    cols = (t % tx * CB.TILE)[:, None] + i                   # [T, 16]
+    rows = (t // tx * CB.TILE)[:, None] + i                  # band-local
     xp = (2.0 * cols.float() + 1.0 - is_) / is_
     yp = (2.0 * (is_ - 1 - (aux['row0'] + rows)).float() + 1.0 - is_) / is_
     m = aux['par'][PM.P_MARGIN]
 
     def bb(r):
-        return pk[:, pack.R_BBOX + r, ..., None]             # [B, nslab, FC, 1]
-    gx = ((xp[:, :, None] >= bb(0) - m) & (xp[:, :, None] <= bb(1) + m)
-          & (cols < is_)[:, :, None])
-    gy = ((yp[:, :, None] >= bb(2) - m) & (yp[:, :, None] <= bb(3) + m)
-          & (rows < height)[:, :, None])
-    gate = gy[..., :, None] & gx[..., None, :] & valid[..., None, None]
-    inside = (rows < height)[..., :, None] & (cols < is_)[..., None, :]
-    return dict(blocks=B * nslab, slot_lanes=int(valid.sum()),
-                before_cull=int((inside & valid.any(2)[..., None, None])
-                                .sum()),
-                after_cull=int(gate.any(2).sum()),
-                pairs=float(gate.sum()))
+        return pk[:, pack.R_BBOX + r, ..., None]             # [B, T, slots, 1]
+    nx = ((xp[:, None] >= bb(0) - m) & (xp[:, None] <= bb(1) + m)
+          & (cols < is_)[:, None]).sum(-1)
+    ny = ((yp[:, None] >= bb(2) - m) & (yp[:, None] <= bb(3) + m)
+          & (rows < height)[:, None]).sum(-1)
+    rect = nx * ny * valid                                   # [B, T, slots]
+    surv = CB.slab_survivors(aux['packed'], aux['chunk_counts'],
+                             aux['chunk_ids'], K, cfg, m, aux['row0'],
+                             height)                         # [B, T]
+    return dict(blocks=B * T, slots=valid.numel(),
+                slot_lanes=int(valid.sum()), survivors=int(surv.sum()),
+                most_survivors=int(surv.max()),
+                warp_depth=int((-(-surv // 8)).sum()),
+                pairs=float(rect.sum()),
+                pair_lanes=int(32 * (-(-rect // 32)).sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -3199,7 +3264,9 @@ def times_shapes(obj_file):
     renderer (24 views at 64x64, yager p=2 and probabilistic); path (i)'s
     two renders (the experiment's first step, 256 silhouettes at 64x64;
     its dataset's 24 views); path (k) (opt_camera at its defaults, 200
-    poses at 64x64, compacted) at tau 1e-1 and 1e-7; the default GenDR on
+    poses at 64x64, compacted) at tau 1e-1 and 1e-7; camera.sharp128's
+    render (200 views of 1 280 faces at 128x128, 2 slabs a tile) at tau
+    1e-7 and 0.1; the default GenDR on
     path (e)'s mesh at 25, 144, 256 and 1024 texels per face, softmax and
     hard RGB; forward only, 1536x1536 sweep frames: panda_dist at uniform
     tau 1e-2 and gaussian tau 1, panda_tcn probabilistic and yager p=2 at
@@ -3242,6 +3309,10 @@ def times_shapes(obj_file):
         yield render(f'opt_camera B=200 tau {tau:g}',
                      *camera_inputs(exp, init, tau))
     del exp
+    for case in PREPASS_CASES:
+        if case[0] in SHARP128_CASES:
+            name, cfg, params, fv, tex, _ = prepass_inputs(case, 'cuda')
+            yield render(f'render {name}', cfg, params, fv, tex)
     for res in (5, 12, 16, 32):
         for rgb in ('softmax', 'hard'):
             yield render(f'obj gendr {rgb} TS={res * res}',
@@ -3266,7 +3337,7 @@ def times_shapes(obj_file):
         del os.environ['GENDR_PANDA_OBJ']
     for case in PREPASS_CASES:
         if case[0] in ('camera.blur', 'camera.sharp', 'recon.train',
-                       'camera.sharp128', 'camera.sharp128 tau 0.1'):
+                       *SHARP128_CASES):
             name, cfg, params, fv, tex, _ = prepass_inputs(case, 'cuda')
             yield f'prepass {name}', 'prepass', (cfg, params, fv, tex)
     yield ('probes', 'probes',
@@ -3340,16 +3411,21 @@ def _gated_pairs(aux, cfg):
 def _timed(wrapper, fn, plain, nbytes, flops):
     """One wrapper of a shape timed: the device ms a call of each of its
     kernels and their sum (None where the profiler shows no device time),
-    one synchronized call of the plain version on the host clock, and the
-    bound: the larger of nbytes over HBM bandwidth and flops over the
-    float32 peak."""
+    one synchronized call of the plain version on the host clock (None
+    where it runs out of the card's memory), and the bound: the larger of
+    nbytes over HBM bandwidth and flops over the float32 peak."""
     import torch
     kernels = _device_ms(fn, wrapper)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain()
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
+    try:
+        plain()
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+    except torch.OutOfMemoryError:
+        # camera.sharp128's backward: the plain version walks every pixel
+        # of the image for each sorted chunk
+        plain_ms = None
     t_bytes, t_ops = (1e3 * nbytes / H100_HBM_BYTES,
                       1e3 * flops / H100_FP32_FLOPS)
     return dict(ms=sum(kernels.values()) if kernels else None,
@@ -3476,7 +3552,10 @@ def times_phase(smi, wanted=None):
                   f'{w} ' + ('not measured' if r['ms'] is None
                              else f'{r["ms"]:.5f} ms')
                   + ''.join(f', {k} {v:.5f}' for k, v in r['kernels'].items())
-                  + f'; plain {r["plain_ms"]:.4f} ms a call; bound '
+                  + ('; plain not measured (out of memory)'
+                     if r['plain_ms'] is None
+                     else f'; plain {r["plain_ms"]:.4f} ms a call')
+                  + '; bound '
                   f'{r["bound_ms"]:.5f} ms ({r["bound_by"]})'
                   for w, r in times[name].items()), flush=True)
         if name in hashes:
@@ -3586,6 +3665,7 @@ def main():
         grad_err = max(grad_err, k_grad)
         probe_launches, probe_err = probe_phase()
         by_path['prepass'] = prepass_phase()
+        by_path['slab'] = slab_phase()
     by_path['probes'] = probe_launches
 
     if not SLAB_CHECKS:

@@ -66,9 +66,10 @@ SIGNATURES = {
         # chunk_counts chunk_ids T par packed perm pix ws out, then B NI NO
         # Fp FC S k_sliced image_size row0 height dist_func dist_squared
         # alpha_func mode double_side texture_type texture_res device, then
-        # stream and the host int that says whether rasterize_bwd_slab ran
+        # stream, the host int that says whether rasterize_bwd_slab ran and
+        # the device ints of its blocks' survivors (or null)
         'gendr_rasterize_bwd': ((_P, _P, _I, _P, _P, _P, _P, _P, _P)
-                                + (_I,) * 18 + (_P, _P), _I),
+                                + (_I,) * 18 + (_P, _P, _P), _I),
         'gendr_error_string': ((_I,), ctypes.c_char_p),
     },
     'prepass': {

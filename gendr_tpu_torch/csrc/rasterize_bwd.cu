@@ -57,18 +57,17 @@
 // overflowed their slabs.  Slicing the appended chunks would only add
 // empty blocks and workspace (at the flagship 34 048 columns, 157 MB of
 // zeros for S = 128), so the C entry slices the first k_sliced chunks
-// alone, into a workspace of their columns, and launches one block per
-// appended chunk and batch element that writes its columns of the result
-// directly: a third launch, with its own fixed order, still no atomics.
-// A slab's work is the transpose of a sorted chunk's: a few live slots (a
-// slab holds the octets, 8 Morton-consecutive faces, that hit its tile:
-// at most 16 slots of 128 on a 12-face mesh) times a whole tile of pixels.
-// One thread per slot left most lanes idle and each live lane walking up
-// to 256 dependent pairs, so where a slab's texture sums fit registers
-// (alpha, and hard RGB over vertex colours or one texel) the third launch
-// is rasterize_bwd_slab below, one thread per pixel of the tile; softmax
-// RGB and bigger surface textures keep rasterize_bwd_kernel, one block
-// per appended chunk.
+// alone, into a workspace of their columns, and a third launch writes
+// the appended chunks' columns of the result directly, with its own fixed
+// order, still no atomics.  A slab's work is the transpose of a sorted
+// chunk's: a few live slots (a slab holds the octets, 8 Morton-consecutive
+// faces, that hit its tile) times a tile of pixels.  One thread per slot
+// left most lanes idle and each live lane walking up to 256 dependent
+// pairs, so where a slab's texture sums fit registers (alpha, and hard RGB
+// over vertex colours or one texel) the third launch is
+// rasterize_bwd_slab below, a block per tile holding all its slabs and a
+// warp per surviving slot; softmax RGB and bigger surface textures keep
+// rasterize_bwd_kernel, one block per appended chunk and batch element.
 //
 // Within a block: each thread holds its face's geometry rows and its
 // gradient sums in registers.  The tile's NPIX x 256 pixel columns (2, 6
@@ -449,111 +448,138 @@ __global__ void __maxnreg__(168) rasterize_bwd_kernel(
   }
 }
 
-// The appended chunks' launch where the texture sums live in registers:
-// one block per appended chunk k0 + blockIdx.x and batch element
-// blockIdx.y, one thread per pixel of the chunk's listed tile (a slab
-// lists one).  What bounds it is the same pair math as the kernel above;
-// what it fixes is the share of lanes with work.
+// The appended chunks' launch where the texture sums live in registers
+// (alpha, and hard RGB over vertex colours or one texel).  Per-tile face
+// compaction gives each band tile t `slabs` consecutive appended chunks,
+// k0 + t slabs + j (j < slabs, pack.compact_plan's layout), each listing
+// tile t or nothing.  One block per (tile, batch element) holds all of
+// them: slabs x FC slots, at most one per thread (FC 128, at most 2 slabs
+// a tile; the C entry sends other layouts to the chunk launch).
 //
-// Once per tile the block culls the chunk's slots against the tile, with
-// the forward kernel's rule (cuda_backend.tile_face_survivors): thread f
-// tests slot f's fvalid and bbox + margin against the tile's rectangle of
-// pixel centres, a ballot per warp and a prefix over the warps compact the
-// survivors in ascending slot order, and their geometry rows (the bbox as
-// the gate's bounds) are staged in shared memory.  A culled slot's gate
-// admits no pixel of the tile, so its column stays zero.  Each warp then
-// walks the survivors for its 32 pixels through the same gate, culls and
-// pair expressions as the kernel above (pairmath.cuh, so max's
-// exact-equality gradient and the hard-RGB winner test stay exact): a
-// survivor's 6 xy values and, for hard RGB, its 3 or 9 texture values,
-// one pair's each, summed over the warp's pixels by a __shfl_down_sync
-// tree (skipped by a warp none of whose pairs passed the culls) into the
-// warp's partial row of the survivor.  The warps walk SLAB_GROUP survivors
-// each without waiting on one another; then, after one barrier, the 8
-// warps' partials of each (survivor, value) are added in warp order to
-// the survivor's column, kept in shared memory until the block writes its
-// columns of out once, dead slots' zeros included.  No atomics: two runs
-// are bitwise equal.
+// Once per block: thread f stages pixel f's columns (NPIX floats) in
+// shared memory and culls slot f against the tile with the forward
+// kernel's rule (cuda_backend.tile_face_survivors): its slab lists the
+// tile, its fvalid is set and its bbox + margin meets the tile's
+// rectangle of pixel centres.  A ballot per warp and a prefix over the
+// warps compact the survivors in ascending slot order and stage their
+// geometry rows; a culled or dead slot's thread writes its column's
+// zeros.  One barrier, and the warps walk the survivors: a warp owns a
+// survivor (warp w takes survivor w first, then the next one a shared
+// counter hands out), finds its gate rectangle in the tile with gate_x
+// and gate_y (lane i tests column i, lane 16 + i row i, one ballot), and
+// its 32 lanes walk the rectangle's pixels in row-major order, lane l
+// pixels l, l + 32, ..., through the same culls and pair expressions as
+// the kernel above (pairmath.cuh, so max's exact-equality gradient and
+// the hard-RGB winner test stay exact), each summing its NO values (6
+// xy, then NT texture values) in registers.  Then one __shfl_down_sync
+// tree for all NO values, their levels interleaved, and lane 0 writes the
+// survivor's column of out.  Each sum has one owner and a fixed order
+// (lane order, then the tree), whichever warp takes the survivor, so two
+// runs are bitwise equal; no atomics in global memory.
 //
 // The launch overlaps the sorted chunks' one before it (programmatic
 // dependent launch): their outputs are disjoint, and where overflow tiles
-// are listed (the flagship) that launch is a few dozen blocks each
-// walking one tile a face a thread, 0.146 ms alone, which left the card
-// idle while this launch waited its turn.  It waits for that launch only
-// at its end, so the reduce after it still finds the workspace complete.
+// are listed that launch is a few dozen blocks each walking one tile a
+// face a thread, which left the card idle while this launch waited its
+// turn.  It waits for that launch only at its end, so the reduce after
+// it still finds the workspace complete.
 //
-// Registers: two blocks of 256 threads an SM (16 warps, every lane with a
-// pixel) by __launch_bounds__, which caps a thread at 128; chip_smoke.py
-// prints ptxas's report.  A first version kept G survivors' sums in
-// registers and met at a barrier after each group (G = 4 for alpha, 127
-// registers; at G = 2 hard RGB spilled 16-20 bytes): the block's warps
-// waited for its slowest pair at every group and for one warp's
-// read-modify-write of out, 0.108 ms at the flagship's 256 blocks against
-// 0.086 now (PERF.md).
+// What bounds it: the chain each warp walks a survivor at a time (gate
+// ballot, pair math, tree, store), with few of its lanes holding a pixel.
+// At camera.sharp128's shape (200 views of 1 280 faces at 128x128, 2 slabs
+// a tile, tau 1e-7) a block keeps 26.7 survivors on average (73 where its
+// tile is served, at most 139), so a warp walks 3.3, and a survivor's
+// rectangle holds 8 pixels at the median (18 at the 90th percentile): a
+// quarter of the lanes work, on 3.37 million gated pairs whose operations
+// would take 5.5 us at the fp32 peak.  Measured on an NVIDIA H100 80GB
+// HBM3 at 700 W (chip_smoke.py --times, PERF.md): 0.499 ms there, 0.30 ms
+// a step in the benchmark's camera.sharp128 cell; 0.283 ms at opt_camera's
+// defaults at tau 1e-1 (200 views of the cube at 64x64: 12 survivors a
+// block, each rectangle the whole tile, every lane busy); 0.145 ms at the
+// flagship, most of it the wait for the sorted chunks' launch.
+// Registers: two blocks of 256 threads an SM by __launch_bounds__, which
+// caps a thread at 128 (117-127 used, no spills); chip_smoke.py prints
+// ptxas's report.
+//
+// History, each measured against its successor on an NVIDIA H100 80GB
+// HBM3 at 700 W: a block per appended chunk with a thread per slot (the
+// chunk launch) left most lanes idle and each live lane walking up to
+// 256 dependent pairs (1.26 ms at opt_camera's defaults, 200 views at
+// 64x64, against 0.30); a block per slab with a thread per pixel, which
+// kept G survivors' sums in registers and met at a barrier after each
+// group, waited for its slowest pair at every group (0.108 ms at the
+// flagship against 0.086); a block per slab with a thread per pixel in
+// which every warp walked every survivor for its 32 pixels, six shuffle
+// trees one after another for each, then added the 8 warps' partials
+// after a barrier, had a serial depth of the slab's survivors, not its
+// pairs, and each tile's two slabs staged its pixel columns twice: 1.726
+// ms at camera.sharp128's shape, 0.865 ms a step in its cell, 0.288 ms at
+// opt_camera's defaults at tau 1e-1.
 constexpr int SLAB_WARPS = THREADS / 32;
 constexpr int SLAB_MIN_BLOCKS = 2;
-constexpr int SLAB_GROUP = 16;  // survivors the warps walk between barriers
-// values one pair adds: 6 xy, and 9 texture values for hard RGB (vertex
-// colours; one texel uses 3 of them)
-__host__ __device__ constexpr int slab_values(int mode) {
-  return mode == MODE_HARD ? 15 : 6;
-}
-// staged rows of a survivor: the rows [0, R_FRONT) (the bbox as the
-// gate's bounds, then the barycentric, edge and distance rows) and, for
-// hard RGB, the depth-key rows R_DZ at R_FRONT
+// staged rows of a survivor: the rows [0, R_FRONT) (the bbox, then the
+// barycentric, edge and distance rows) and, for hard RGB, the depth-key
+// rows R_DZ at R_FRONT
 __host__ __device__ constexpr int slab_rows(int mode) {
   return R_FRONT + (mode == MODE_HARD ? 3 : 0);
 }
 __device__ __forceinline__ constexpr int slab_row(int r) {
   return r < R_FRONT ? r : R_FRONT + r - R_DZ;
 }
-// dynamic shared memory of a slab block for chunks of FC slots: the
-// survivors' rows [slab_rows, FC], their input ids and slots [FC] each,
-// the columns' sums [values, FC], two groups' warp partials [2, SLAB_WARPS,
-// SLAB_GROUP, values] and the ballot masks
-__host__ __device__ constexpr size_t slab_smem(int mode, int FC) {
-  return ((size_t)(slab_rows(mode) + 2 + slab_values(mode)) * FC +
-          2 * SLAB_WARPS * SLAB_GROUP * slab_values(mode) + MAX_FC / 32) *
+// dynamic shared memory of a slab block: the tile's pixel columns [NPIX,
+// THREADS], the survivors' rows [slab_rows, THREADS], their input ids and
+// slots [THREADS] each, the ballot masks and the work counter
+__host__ __device__ constexpr size_t slab_smem(int mode) {
+  return ((size_t)(npix(mode) + slab_rows(mode) + 2) * THREADS + SLAB_WARPS +
+          1) *
          4;
 }
 
-template <int ALPHA, int MODE>
+// NT: texture values a pair adds (0 for alpha; hard RGB: 9 for vertex
+// colours, 3 for one texel); out has NO = 6 + NT rows
+template <int ALPHA, int MODE, int NT>
 __global__ void __launch_bounds__(THREADS, SLAB_MIN_BLOCKS)
     rasterize_bwd_slab(
         const int* __restrict__ chunk_counts,  // [B, K]
-        const int* __restrict__ chunk_ids,     // [B, K, T]
         const float* __restrict__ par,         // [16]
         const float* __restrict__ packed,      // [B, NI, Fp]
         const int* __restrict__ perm,          // [B, Fp]
         const float* __restrict__ pix,         // [B, NPIX, P]
         float* __restrict__ out,               // [B, NO, Fp]
-        int K, int k0, int NI, int NO, int Fp, int FC, int image_size,
-        int tiles_x, int row0, int height, int dist_func, int dist_squared,
-        int texture_type) {
+        int* __restrict__ survivors,           // [B, T] or null
+        int K, int k0, int slabs, int NI, int Fp, int FC, int image_size,
+        int tiles_x, int row0, int height, int dist_func, int dist_squared) {
   static_assert(MODE != MODE_SOFTMAX && ALPHA != ALPHA_PARAMETRIC,
                 "softmax and the parametric folds keep the chunk launch");
+  static_assert((MODE == MODE_ALPHA) == (NT == 0) && (NT == 0 || NT == 3 ||
+                                                      NT == 9),
+                "alpha adds no texture values, hard RGB 3 or 9");
   constexpr int NPIX = npix(MODE);
-  constexpr int NV = slab_values(MODE);
+  constexpr int NO = 6 + NT;
   constexpr int NR = slab_rows(MODE);
-  constexpr int PART = SLAB_WARPS * SLAB_GROUP * NV;  // floats of a group
   extern __shared__ float smem[];
-  float* rows = smem;                                    // [NR, FC]
-  int* ids = reinterpret_cast<int*>(rows + NR * FC);     // [FC]
-  int* slots = ids + FC;                                 // [FC]
-  float* csum = reinterpret_cast<float*>(slots + FC);    // [NV, FC]
-  float* part = csum + NV * FC;                          // [2, 8, GROUP, NV]
-  unsigned* masks = reinterpret_cast<unsigned*>(part + 2 * PART);  // [8]
+  float* cols = smem;                                     // [NPIX, THREADS]
+  float* rows = cols + NPIX * THREADS;                    // [NR, THREADS]
+  int* ids = reinterpret_cast<int*>(rows + NR * THREADS);  // [THREADS]
+  int* slots = ids + THREADS;                             // [THREADS]
+  unsigned* masks = reinterpret_cast<unsigned*>(slots + THREADS);
+  int* next = reinterpret_cast<int*>(masks + SLAB_WARPS);
 
-  const int k = k0 + blockIdx.x;
+  const int t = blockIdx.x;  // band tile
   const int b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int is = image_size;
-  const int T = tiles_x * ((height + TILE - 1) / TILE);  // the band's tiles
   const size_t P = (size_t)height * is;
-  const bool vertex = texture_type == TEXTURE_VERTEX;
-  // row r of slot f of this chunk: oc[r * Fp + f], pk likewise
-  float* oc = out + (size_t)b * NO * Fp + (size_t)k * FC;
-  const float* pk = packed + (size_t)b * NI * Fp + (size_t)k * FC;
+  const int r0 = (t / tiles_x) * TILE;  // band-local; row0 + r0 in the image
+  const int c0 = (t % tiles_x) * TILE;
+  // the tile's slabs are consecutive chunks, so its slots are the columns
+  // kt FC .. (kt + slabs) FC - 1 of packed and of out; slot tid is this
+  // thread's
+  const int kt = k0 + t * slabs;
+  const bool has_slot = tid < slabs * FC;
+  const int gc = kt * FC + tid;
+  const float* pk = packed + (size_t)b * NI * Fp;
+  float* ob = out + (size_t)b * NO * Fp;
 
   const float scale = par[P_SCALE], shape = par[P_SHAPE];
   const float shift = par[P_SHIFT], thr = par[P_THR];
@@ -562,181 +588,178 @@ __global__ void __launch_bounds__(THREADS, SLAB_MIN_BLOCKS)
   const float znear = par[P_NEAR], zfar = par[P_FAR];
   const float inv_far = 1.0f / zfar, inv_near = 1.0f / znear;
 
-  for (int i = tid; i < NO * FC; i += THREADS) csum[i] = 0.0f;
-
-  const int n = chunk_counts[b * K + k];
-  const int* my_tiles = chunk_ids + ((size_t)b * K + k) * T;
-  for (int j = 0; j < n; ++j) {
-    const int t = my_tiles[j];
-    const int r0 = (t / tiles_x) * TILE;  // band-local; row0 + r0 in the image
-    const int c0 = (t % tiles_x) * TILE;
-    // this thread's pixel; the ragged edge tile's missing pixels pass no
-    // gate
+  // pixel tid's columns; the ragged edge tile's missing pixels lie outside
+  // every gate rectangle below
+  {
     const int py = r0 + tid / TILE, px = c0 + tid % TILE;
     const bool in_image = py < height && px < is;
-    const float xp = pixel_x(px, is), yp = pixel_y(row0 + py, is);
-    float col[NPIX];
 #pragma unroll
     for (int c = 0; c < NPIX; ++c)
-      col[c] = in_image
-                   ? pix[((size_t)b * NPIX + c) * P + (size_t)py * is + px]
+      cols[c * THREADS + tid] =
+          in_image ? pix[((size_t)b * NPIX + c) * P + (size_t)py * is + px]
                    : 0.0f;
-
-    // the cull: slot tid against the tile's extreme pixel centres inside
-    // the image and the band (y falls as the row rises)
+  }
+  // the cull: slot tid against the tile's extreme pixel centres inside the
+  // image and the band (y falls as the row rises)
+  bool keep = false;
+  if (has_slot) {
     const float xlo = pixel_x(c0, is);
     const float xhi = pixel_x(min(c0 + TILE - 1, is - 1), is);
     const float ylo = pixel_y(row0 + min(r0 + TILE - 1, height - 1), is);
     const float yhi = pixel_y(row0 + r0, is);
-    float bd[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    bool keep = false;
-    if (tid < FC) {
-      bd[0] = pk[(size_t)(R_BBOX + 0) * Fp + tid] - margin;
-      bd[1] = pk[(size_t)(R_BBOX + 1) * Fp + tid] + margin;
-      bd[2] = pk[(size_t)(R_BBOX + 2) * Fp + tid] - margin;
-      bd[3] = pk[(size_t)(R_BBOX + 3) * Fp + tid] + margin;
-      keep = pk[(size_t)R_FVALID * Fp + tid] > 0.0f && xhi >= bd[0] &&
-             xlo <= bd[1] && yhi >= bd[2] && ylo <= bd[3];
-    }
-    __syncthreads();  // the last tile's sums are done with the stage
-    const unsigned vote = __ballot_sync(0xffffffffu, keep);
-    if (lane == 0) masks[warp] = vote;
-    __syncthreads();
-    int nsurv = 0;
-    for (int w = 0; w < SLAB_WARPS; ++w) nsurv += __popc(masks[w]);
-    if (keep) {
-      int pos = __popc(vote & ((1u << lane) - 1u));
-      for (int w = 0; w < warp; ++w) pos += __popc(masks[w]);
+    keep = chunk_counts[(size_t)b * K + kt + tid / FC] > 0 &&
+           pk[(size_t)R_FVALID * Fp + gc] > 0.0f &&
+           xhi >= pk[(size_t)(R_BBOX + 0) * Fp + gc] - margin &&
+           xlo <= pk[(size_t)(R_BBOX + 1) * Fp + gc] + margin &&
+           yhi >= pk[(size_t)(R_BBOX + 2) * Fp + gc] - margin &&
+           ylo <= pk[(size_t)(R_BBOX + 3) * Fp + gc] + margin;
+  }
+  const unsigned vote = __ballot_sync(0xffffffffu, keep);
+  if (lane == 0) masks[warp] = vote;
+  if (tid == 0) *next = SLAB_WARPS;
+  __syncthreads();
+  int nsurv = 0, pos = __popc(vote & ((1u << lane) - 1u));
+  for (int w = 0; w < SLAB_WARPS; ++w) {
+    const int n = __popc(masks[w]);
+    pos += w < warp ? n : 0;
+    nsurv += n;
+  }
+  if (survivors != nullptr && tid == 0)
+    survivors[(size_t)b * gridDim.x + t] = nsurv;
+  if (keep) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) rows[(R_BBOX + r) * FC + pos] = bd[r];
+    for (int r = 0; r < NR; ++r)
+      rows[r * THREADS + pos] =
+          pk[(size_t)(r < R_FRONT ? r : R_DZ + r - R_FRONT) * Fp + gc];
+    if (MODE == MODE_HARD) ids[pos] = perm[(size_t)b * Fp + gc];
+    slots[pos] = tid;
+  } else if (has_slot) {
 #pragma unroll
-      for (int r = R_INV; r < NR; ++r)
-        rows[r * FC + pos] =
-            pk[(size_t)(r < R_FRONT ? r : R_DZ + r - R_FRONT) * Fp + tid];
-      if (MODE == MODE_HARD) ids[pos] = perm[(size_t)b * Fp + k * FC + tid];
-      slots[pos] = tid;
-    }
-    __syncthreads();
-
-    // survivor s's pair with this thread's pixel: the values it adds, in
-    // v[NV], zeros at entry (false, and v untouched, where the gate or a
-    // cull drops it)
-    const auto pair = [&](int s, float v[NV]) -> bool {
-      const auto row = [&](int i) { return rows[slab_row(i) * FC + s]; };
-      if (!(in_image && xp >= row(R_BBOX + 0) && xp <= row(R_BBOX + 1) &&
-            yp >= row(R_BBOX + 2) && yp <= row(R_BBOX + 3)))
-        return false;
-      const float w[3] = {affine(row, R_INV + 0, xp, yp),
-                          affine(row, R_INV + 3, xp, yp),
-                          affine(row, R_INV + 6, xp, yp)};
-      const float wmin = fminf(fminf(w[0], w[1]), w[2]);
-      const bool inside = wmin > 0.0f;
-      const float sign = inside ? 1.0f : -1.0f;
-
-      float frag, dis = 0.0f, rdis = 0.0f;
-      Closest cf{0, 0.0f, 0.0f, 0.0f, 0.0f};
-      if (dist_func == HEAVISIDE) {
-        frag = wmin >= 0.0f ? 1.0f : 0.0f;
-      } else {
-        cf = closest_feature(row, w, inside, xp, yp);
-        if (!inside && cf.dis2 >= thr) return false;  // distance cull
-        if (dist_squared) {
-          dis = cf.dis2;
-        } else {
-          const float r = rsqrtf(fmaxf(cf.dis2, 1e-30f));
-          dis = cf.dis2 * r;
-          rdis = fminf(r, 1e6f);
-        }
-        frag = cdf(dist_func, sign, dis, scale, shape, shift, ginv1);
-      }
-      if (!(frag > 1e-6f)) return false;  // probability cull
-
-      const float ga = col[PIX_GA];
-      float c;
-      if (ALPHA == ALPHA_HARD) {
-        c = ga;
-      } else if (ALPHA == MAX_TCN) {
-        c = ga * (col[PIX_FA] == frag ? 1.0f : 0.0f);
-      } else if (ALPHA == PROBABILISTIC_TCN) {
-        c = ga * ((1.0f - col[PIX_FA]) / fmaxf(1.0f - frag, 1e-6f));
-      } else {
-        const float fa = col[PIX_FA];
-        c = ga * ((1.0f - fa * fa) / fmaxf(1.0f - frag * frag, 1e-6f));
-      }
-      if constexpr (MODE == MODE_HARD) {
-        // the texture gradient flows only to the pixel's winner, routed
-        // by the raw barycentrics
-        const float denom = affine(row, R_DZ, xp, yp);
-        const bool zvalid = denom >= inv_far && denom <= inv_near;
-        if (zvalid && (int)col[PIX_WID] == ids[s]) {
-          if (vertex) {
-#pragma unroll
-            for (int q = 0; q < 3; ++q)
-#pragma unroll
-              for (int ch = 0; ch < 3; ++ch)
-                v[6 + 3 * q + ch] = w[q] * col[PIX_GR + ch];
-          } else {
-#pragma unroll
-            for (int ch = 0; ch < 3; ++ch) v[6 + ch] = col[PIX_GR + ch];
-          }
-        }
-      }
-      if (dist_func == HEAVISIDE) return true;  // its PDF is 0
-
-      c = c * pdf(dist_func, sign, dis, scale, shape, shift, ginv);
-      const float coef = dist_squared ? 2.0f * sign * c : sign * c * rdis;
-      const float cx = coef * cf.dis_x;
-      const float cy = coef * cf.dis_y;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        const float tw = cf.ksel == q ? cf.tv
-                         : cf.ksel == (q + 2) % 3 ? 1.0f - cf.tv
-                                                  : 0.0f;
-        v[2 * q] = cx * tw;
-        v[2 * q + 1] = cy * tw;
-      }
-      return true;
-    };
-
-    for (int s0 = 0, grp = 0; s0 < nsurv; s0 += SLAB_GROUP, ++grp) {
-      const int ns = min(SLAB_GROUP, nsurv - s0);
-      float* pg = part + (grp % 2) * PART;  // [8, GROUP, NV]
-      for (int q = 0; q < ns; ++q) {
-        float v[NV];
-#pragma unroll
-        for (int i = 0; i < NV; ++i) v[i] = 0.0f;
-        const bool live = pair(s0 + q, v);
-        float* pw = pg + (warp * SLAB_GROUP + q) * NV;
-        if (!__any_sync(0xffffffffu, live)) {
-          if (lane < NO) pw[lane] = 0.0f;
-          continue;
-        }
-#pragma unroll
-        for (int i = 0; i < NV; ++i) {
-          if (i >= NO) break;  // NO: 6, then 3 or 9 texture rows
-          float x = v[i];
-#pragma unroll
-          for (int off = 16; off > 0; off /= 2)
-            x += __shfl_down_sync(0xffffffffu, x, off);
-          if (lane == 0) pw[i] = x;
-        }
-      }
-      __syncthreads();
-      // (survivor, value) e of the group: its 8 partials in warp order,
-      // added to the survivor's column
-      for (int e = tid; e < ns * NO; e += THREADS) {
-        const int q = e / NO, i = e - q * NO;
-        const float* pe = pg + q * NV + i;
-        float sum = pe[0];
-        for (int w = 1; w < SLAB_WARPS; ++w) sum += pe[w * SLAB_GROUP * NV];
-        float* cs = csum + i * FC + slots[s0 + q];
-        *cs = *cs + sum;
-      }
-    }
+    for (int i = 0; i < NO; ++i) ob[(size_t)i * Fp + gc] = 0.0f;
   }
   __syncthreads();
-  for (int i = tid; i < NO * FC; i += THREADS)
-    oc[(size_t)(i / FC) * Fp + i % FC] = csum[i];
+
+  for (int q = warp; q < nsurv;) {
+    const auto row = [&](int i) { return rows[slab_row(i) * THREADS + q]; };
+    // the gate (in_gate) is a rectangle in NDC and pixel_x, pixel_y are
+    // monotone, so the tile's pixels it admits are the columns [x0, x1]
+    // times the rows [y0, y1] that its halves admit; the ragged edge
+    // tile's missing pixels are outside
+    const int i = lane % TILE;
+    const bool g =
+        lane < TILE
+            ? c0 + i < is && gate_x(row, pixel_x(c0 + i, is), margin)
+            : r0 + i < height &&
+                  gate_y(row, pixel_y(row0 + r0 + i, is), margin);
+    const unsigned gm = __ballot_sync(0xffffffffu, g);
+    const unsigned mx = gm & 0xffffu, my = gm >> TILE;
+    float v[NO];
+#pragma unroll
+    for (int c = 0; c < NO; ++c) v[c] = 0.0f;
+    bool live = false;
+    if (mx != 0u && my != 0u) {
+      const int x0 = __ffs(mx) - 1, wd = 32 - __clz(mx) - x0;
+      const int y0 = __ffs(my) - 1, ht = 32 - __clz(my) - y0;
+      for (int p = lane; p < wd * ht; p += 32) {
+        const int ty = y0 + p / wd, tx = x0 + p % wd;
+        const int l = ty * TILE + tx;
+        const float xp = pixel_x(c0 + tx, is);
+        const float yp = pixel_y(row0 + r0 + ty, is);
+        const float w[3] = {affine(row, R_INV + 0, xp, yp),
+                            affine(row, R_INV + 3, xp, yp),
+                            affine(row, R_INV + 6, xp, yp)};
+        const float wmin = fminf(fminf(w[0], w[1]), w[2]);
+        const bool inside = wmin > 0.0f;
+        const float sign = inside ? 1.0f : -1.0f;
+
+        float frag, dis = 0.0f, rdis = 0.0f;
+        Closest cf{0, 0.0f, 0.0f, 0.0f, 0.0f};
+        if (dist_func == HEAVISIDE) {
+          frag = wmin >= 0.0f ? 1.0f : 0.0f;
+        } else {
+          cf = closest_feature(row, w, inside, xp, yp);
+          if (!inside && cf.dis2 >= thr) continue;  // distance cull
+          if (dist_squared) {
+            dis = cf.dis2;
+          } else {
+            const float r = rsqrtf(fmaxf(cf.dis2, 1e-30f));
+            dis = cf.dis2 * r;
+            rdis = fminf(r, 1e6f);
+          }
+          frag = cdf(dist_func, sign, dis, scale, shape, shift, ginv1);
+        }
+        if (!(frag > 1e-6f)) continue;  // probability cull
+        live = true;
+
+        const float ga = cols[PIX_GA * THREADS + l];
+        float c;
+        if (ALPHA == ALPHA_HARD) {
+          c = ga;
+        } else if (ALPHA == MAX_TCN) {
+          c = ga * (cols[PIX_FA * THREADS + l] == frag ? 1.0f : 0.0f);
+        } else if (ALPHA == PROBABILISTIC_TCN) {
+          c = ga * ((1.0f - cols[PIX_FA * THREADS + l]) /
+                    fmaxf(1.0f - frag, 1e-6f));
+        } else {
+          const float fa = cols[PIX_FA * THREADS + l];
+          c = ga * ((1.0f - fa * fa) / fmaxf(1.0f - frag * frag, 1e-6f));
+        }
+        if constexpr (MODE == MODE_HARD) {
+          // the texture gradient flows only to the pixel's winner, routed
+          // by the raw barycentrics
+          const float denom = affine(row, R_DZ, xp, yp);
+          const bool zvalid = denom >= inv_far && denom <= inv_near;
+          if (zvalid && (int)cols[PIX_WID * THREADS + l] == ids[q]) {
+            float gr[3];
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch)
+              gr[ch] = cols[(PIX_GR + ch) * THREADS + l];
+            if constexpr (NT == 9) {
+#pragma unroll
+              for (int k = 0; k < 3; ++k)
+#pragma unroll
+                for (int ch = 0; ch < 3; ++ch)
+                  v[6 + 3 * k + ch] += w[k] * gr[ch];
+            } else {
+#pragma unroll
+              for (int ch = 0; ch < 3; ++ch) v[6 + ch] += gr[ch];
+            }
+          }
+        }
+        if (dist_func == HEAVISIDE) continue;  // its PDF is 0
+
+        c = c * pdf(dist_func, sign, dis, scale, shape, shift, ginv);
+        const float coef = dist_squared ? 2.0f * sign * c : sign * c * rdis;
+        const float cx = coef * cf.dis_x;
+        const float cy = coef * cf.dis_y;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float tw = cf.ksel == k ? cf.tv
+                           : cf.ksel == (k + 2) % 3 ? 1.0f - cf.tv
+                                                    : 0.0f;
+          v[2 * k] += cx * tw;
+          v[2 * k + 1] += cy * tw;
+        }
+      }
+    }
+    // the survivor's sums over the lanes: one tree, its levels interleaved
+    // over the NO values (skipped where no pair passed the culls)
+    if (__any_sync(0xffffffffu, live)) {
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+#pragma unroll
+        for (int c = 0; c < NO; ++c)
+          v[c] += __shfl_down_sync(0xffffffffu, v[c], off);
+    }
+    int qn = 0;
+    if (lane == 0) {
+      const int gq = kt * FC + slots[q];
+#pragma unroll
+      for (int c = 0; c < NO; ++c) ob[(size_t)c * Fp + gq] = v[c];
+      qn = atomicAdd(next, 1);
+    }
+    q = __shfl_sync(0xffffffffu, qn, 0);
+  }
   // launched to overlap the sorted chunks' kernel: end only after it has,
   // so that what follows in the stream (the reduce of its workspace) finds
   // its sums
@@ -819,11 +842,14 @@ cudaError_t launch_mode(int mode, dim3 grid, size_t smem, cudaStream_t s,
   return cudaErrorInvalidValue;
 }
 
-// rasterize_bwd_slab over the appended chunks k0 .. K - 1 (a.ws is out)
-template <int ALPHA, int MODE>
-cudaError_t launch_slab(dim3 grid, cudaStream_t stream, const Args& a) {
-  const auto kernel = rasterize_bwd_slab<ALPHA, MODE>;
-  const size_t smem = slab_smem(MODE, a.FC);
+// rasterize_bwd_slab over the appended chunks k0 .. K - 1, slabs a tile:
+// a block per (band tile, batch element), straight into out (a.ws); each
+// block's survivors into survivors unless it is null
+template <int ALPHA, int MODE, int NT>
+cudaError_t launch_slab(dim3 grid, int slabs, int* survivors,
+                        cudaStream_t stream, const Args& a) {
+  const auto kernel = rasterize_bwd_slab<ALPHA, MODE, NT>;
+  const size_t smem = slab_smem(MODE);
   if (smem > STATIC_SMEM) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -844,25 +870,30 @@ cudaError_t launch_slab(dim3 grid, cudaStream_t stream, const Args& a) {
   config.attrs = overlap;
   config.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &config, kernel, a.chunk_counts, a.chunk_ids, a.par, a.packed, a.perm,
-      a.pix, a.ws, a.K, a.k0, a.NI, a.NO, a.Fp, a.FC, a.image_size,
-      a.tiles_x, a.row0, a.height, a.dist_func, a.dist_squared,
-      a.texture_type);
+      &config, kernel, a.chunk_counts, a.par, a.packed, a.perm, a.pix, a.ws,
+      survivors, a.K, a.k0, slabs, a.NI, a.Fp, a.FC, a.image_size,
+      a.tiles_x, a.row0, a.height, a.dist_func, a.dist_squared);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // the four alpha families compaction admits (cuda_backend.COMPACT_ALPHA);
 // the parametric folds never reach the appended chunks
-template <int MODE>
-cudaError_t launch_slab_family(dim3 grid, cudaStream_t stream,
-                               const Args& a) {
+template <int MODE, int NT>
+cudaError_t launch_slab_family(dim3 grid, int slabs, int* survivors,
+                               cudaStream_t stream, const Args& a) {
   switch (a.alpha_func) {
-    case ALPHA_HARD: return launch_slab<ALPHA_HARD, MODE>(grid, stream, a);
-    case MAX_TCN: return launch_slab<MAX_TCN, MODE>(grid, stream, a);
+    case ALPHA_HARD:
+      return launch_slab<ALPHA_HARD, MODE, NT>(grid, slabs, survivors,
+                                               stream, a);
+    case MAX_TCN:
+      return launch_slab<MAX_TCN, MODE, NT>(grid, slabs, survivors, stream,
+                                            a);
     case PROBABILISTIC_TCN:
-      return launch_slab<PROBABILISTIC_TCN, MODE>(grid, stream, a);
+      return launch_slab<PROBABILISTIC_TCN, MODE, NT>(grid, slabs, survivors,
+                                                      stream, a);
     case EINSTEIN_TCN:
-      return launch_slab<EINSTEIN_TCN, MODE>(grid, stream, a);
+      return launch_slab<EINSTEIN_TCN, MODE, NT>(grid, slabs, survivors,
+                                                 stream, a);
   }
   return cudaErrorInvalidValue;
 }
@@ -878,11 +909,17 @@ cudaError_t launch_slab_family(dim3 grid, cudaStream_t stream,
 // out [B, NO, Fp]; with S = 1 ws must be out, the one slice writes the
 // result and the second pass is not launched (with S > 1 ws must not be
 // out).  The chunks after them (per-tile face compaction's appended slabs,
-// each listing at most one tile) get one block each, which writes its
-// columns of out directly: rasterize_bwd_slab for alpha and hard RGB over
-// vertex colours or one texel (the alpha families of COMPACT_ALPHA alone),
-// rasterize_bwd_kernel otherwise; *slab_launched (a host int) is set to 1
-// where rasterize_bwd_slab was launched, else 0.  texture_res is R of an R x R surface texture
+// each listing at most one tile) write their columns of out directly: for
+// alpha and hard RGB over vertex colours or one texel (the alpha families
+// of COMPACT_ALPHA alone), rasterize_bwd_slab, a block per tile: they
+// must be slabs = (K - k_sliced) / T chunks a band tile with slabs x FC
+// <= 256 (else cudaErrorInvalidValue), tile t's the chunks k_sliced +
+// t slabs + j, each listing tile t or nothing (the kernel reads only
+// their counts); otherwise rasterize_bwd_kernel, a block per chunk;
+// *slab_launched (a host int) is set to 1 where rasterize_bwd_slab was
+// launched, else 0; survivors, unless null, is a device [B, T] that it
+// fills with each block's survivors of the cull (left alone where it was
+// not launched).  texture_res is R of an R x R surface texture
 // (1 for one texel); NO, the rows of out, must be the layout's: 6, the 3 z
 // rows for softmax, and for RGB the 9 vertex-colour or 3 R^2 texel rows.
 // A surface texture of R > 1 sums its texel gradients in the shared block
@@ -896,7 +933,8 @@ extern "C" int gendr_rasterize_bwd(
     float* out, int B, int NI, int NO, int Fp, int FC, int S, int k_sliced,
     int image_size, int row0, int height, int dist_func, int dist_squared,
     int alpha_func, int mode, int double_side, int texture_type,
-    int texture_res, int device, void* stream, int* slab_launched) {
+    int texture_res, int device, void* stream, int* slab_launched,
+    int* survivors) {
   *slab_launched = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -915,6 +953,12 @@ extern "C" int gendr_rasterize_bwd(
     return (int)cudaErrorInvalidValue;
   const bool big = ntex > 0 && texture_type == TEXTURE_SURFACE &&
                    texture_res > 1;
+  // the appended chunks of alpha and register texture sums must be slabs
+  // a tile, at most one slot a thread
+  const int appended = K - k_sliced, slabs = appended / T;
+  const bool slab = appended > 0 && mode != MODE_SOFTMAX && !big;
+  if (slab && (appended != slabs * T || slabs * FC > THREADS))
+    return (int)cudaErrorInvalidValue;
   const size_t ring_smem =
       (size_t)STAGES * npix(mode) * THREADS * sizeof(float);
   const size_t tex_smem = (size_t)ntex * FC * sizeof(float);
@@ -932,20 +976,22 @@ extern "C" int gendr_rasterize_bwd(
   err = launch_mode(mode, dim3(k_sliced, B, S), smem, s, a);
   if (err != cudaSuccess) return (int)err;
   if (k_sliced < K) {
-    // the appended chunks: one block each, straight into out; a thread per
-    // pixel where the texture sums live in registers
+    // the appended chunks, straight into out: a block per tile where the
+    // texture sums live in registers, else a block per chunk
     a.ws = out;
     a.k0 = k_sliced;
     a.W = Fp;
-    const dim3 grid(K - k_sliced, B, 1);
-    if (mode == MODE_ALPHA && tex_store == TEX_REGS)
-      err = launch_slab_family<MODE_ALPHA>(grid, s, a);
-    else if (mode == MODE_HARD && tex_store == TEX_REGS)
-      err = launch_slab_family<MODE_HARD>(grid, s, a);
+    const dim3 tiles(T, B, 1);
+    if (slab && mode == MODE_ALPHA)
+      err = launch_slab_family<MODE_ALPHA, 0>(tiles, slabs, survivors, s, a);
+    else if (slab && ntex == 9)
+      err = launch_slab_family<MODE_HARD, 9>(tiles, slabs, survivors, s, a);
+    else if (slab)
+      err = launch_slab_family<MODE_HARD, 3>(tiles, slabs, survivors, s, a);
     else
-      err = launch_mode(mode, grid, smem, s, a);
+      err = launch_mode(mode, dim3(appended, B, 1), smem, s, a);
     if (err != cudaSuccess) return (int)err;
-    *slab_launched = mode != MODE_SOFTMAX && tex_store == TEX_REGS;
+    *slab_launched = slab;
   }
   if (S == 1) return (int)cudaSuccess;
   const size_t per_b = (size_t)NO * W, total = (size_t)B * per_b;

@@ -45,9 +45,10 @@ face in shared memory while a chunk's fit there (``_bwd_smem``) and in its
 own columns of its slice's workspace rows in global memory above that.
 Compaction's appended chunks, one tile each, go to a third kernel for
 alpha and hard RGB over vertex colours or one texel,
-``rasterize_bwd_slab``: a thread per pixel of the tile, the chunk's faces
-culled against it by :func:`tile_face_survivors`' rule, each face's sums
-reduced over the pixels in a fixed order.
+``rasterize_bwd_slab``: a block per tile holding all its slabs, their
+faces culled against it by :func:`tile_face_survivors`' rule
+(:func:`slab_survivors` counts the faces kept), and a warp per surviving
+face that sums it over its gate rectangle's pixels in a fixed order.
 
 :func:`rasterize_fwd_plain` and :func:`rasterize_bwd_plain` are the
 kernels' functions in plain PyTorch: same inputs, same outputs.  The
@@ -504,11 +505,26 @@ def _count_compaction(tile_counts, chunk_counts, slots_used, slots, K,
     batch: 'compact.tiles_hit', the tiles that any octet hits (each lists
     a chunk); 'compact.tiles_slab', those served by slabs (the first slab
     of tile t, chunk K + t slabs, lists it); 'compact.slots_used', the
-    slab slots that hold a valid face, of 'compact.slots'."""
+    slab slots that hold a valid face, of 'compact.slots'.  The backward
+    counts 'compact.slab_survivors' (:func:`rasterize_bwd`)."""
     profiling.count('compact.tiles_hit', (tile_counts > 0).sum())
     profiling.count('compact.tiles_slab', chunk_counts[:, K::slabs].sum())
     profiling.count('compact.slots_used', slots_used)
     profiling.count('compact.slots', slots)
+
+
+def slab_survivors(packed, chunk_counts, chunk_ids, K,
+                   cfg: C.RenderConfig, margin, row0=0, height=None):
+    """Of compaction's appended slabs (the chunks after the K sorted ones,
+    each listing one band tile or nothing: chunk_counts, chunk_ids, the
+    prepass's), the slots that ``rasterize_bwd_slab``'s block of each
+    tile keeps: [B, T] int32, :func:`tile_face_survivors`' cull on the
+    slab columns.  What the kernel's blocks count on the card, and what a
+    recorded backward counts on the CPU."""
+    FC, T = cfg.face_chunk, chunk_ids.shape[2]
+    listed = _hit(chunk_counts[:, K:], chunk_ids[:, K:], T)  # [B, slabs, T]
+    return _tile_keep(packed[:, :, K * FC:], cfg, margin, row0, height,
+                      listed.transpose(1, 2)).sum(2, dtype=torch.int32)
 
 
 def sorted_face_count(aux):
@@ -647,41 +663,15 @@ def tile_face_survivors(packed, cfg: C.RenderConfig, margin, row0=0,
     """
     B, _, Fp = packed.shape
     FC = cfg.face_chunk
-    is_ = cfg.image_size
-    height = is_ if height is None else height
     dev = packed.device
     margin = torch.as_tensor(margin, dtype=torch.float32, device=dev)
     if lists is None:
-        listed = pack.tile_chunk_mask(packed, is_, TILE, TILE, FC, margin,
-                                      height, row0)
+        height = cfg.image_size if height is None else height
+        listed = pack.tile_chunk_mask(packed, cfg.image_size, TILE, TILE,
+                                      FC, margin, height, row0)
     else:
         listed = _hit(*lists, Fp // FC)
-    listed = listed.repeat_interleave(FC, dim=2) > 0        # [B, T, Fp]
-
-    tx = -(-is_ // TILE)
-    t = torch.arange(_num_tiles(cfg, height), device=dev)
-    c0, r0 = t % tx * TILE, t // tx * TILE
-
-    def ndc(i):
-        # csrc/pairmath.cuh pixel_x of column i; pixel_y of image row r is
-        # ndc(is - 1 - r)
-        return (2.0 * i.to(torch.float32) + 1.0 - is_) / is_
-    # the tile's extreme centres in the image and the band (y falls as the
-    # row rises)
-    xlo = ndc(c0)
-    xhi = ndc(torch.clamp(c0 + TILE - 1, max=is_ - 1))
-    yhi = ndc(is_ - 1 - (row0 + r0))
-    ylo = ndc(is_ - 1 - (row0 + torch.clamp(r0 + TILE - 1,
-                                            max=height - 1)))
-
-    def bb(i):
-        return packed[:, pack.R_BBOX + i, None, :]           # [B, 1, Fp]
-    keep = ((packed[:, pack.R_FVALID, None, :] > 0)
-            & (xhi[None, :, None] >= bb(0) - margin)
-            & (xlo[None, :, None] <= bb(1) + margin)
-            & (yhi[None, :, None] >= bb(2) - margin)
-            & (ylo[None, :, None] <= bb(3) + margin)
-            & listed)
+    keep = _tile_keep(packed, cfg, margin, row0, height, listed)
     counts = keep.sum(2, dtype=torch.int32)
     pos = torch.where(keep, torch.cumsum(keep, 2) - 1, Fp)
     ids = torch.full((B, keep.shape[1], Fp + 1), -1, dtype=torch.int32,
@@ -689,6 +679,36 @@ def tile_face_survivors(packed, cfg: C.RenderConfig, margin, row0=0,
     slots = torch.arange(Fp, dtype=torch.int32, device=dev)
     ids.scatter_(2, pos, slots.expand_as(keep).contiguous())
     return counts, ids[..., :Fp]
+
+
+def _tile_keep(packed, cfg: C.RenderConfig, margin, row0, height, listed):
+    """[B, T, F] bool: the forward kernel's cull of the columns of packed
+    [B, NI, F] against each band tile, listed [B, T, F / FC] (not 0: the
+    tile lists the columns' chunk), as :func:`tile_face_survivors` says."""
+    is_ = cfg.image_size
+    height = is_ if height is None else height
+    dev = packed.device
+    margin = torch.as_tensor(margin, dtype=torch.float32, device=dev)
+    listed = listed.repeat_interleave(cfg.face_chunk, dim=2) > 0
+    tx = -(-is_ // TILE)
+    t = torch.arange(_num_tiles(cfg, height), device=dev)
+    c0, r0 = t % tx * TILE, t // tx * TILE
+    i = torch.stack([c0, torch.clamp(c0 + TILE - 1, max=is_ - 1),
+                     is_ - 1 - row0 - torch.clamp(r0 + TILE - 1,
+                                                  max=height - 1),
+                     is_ - 1 - row0 - r0])
+    # each tile's least and greatest pixel centre in the image and the
+    # band (csrc/pairmath.cuh pixel_x of column i; pixel_y of image row r
+    # is that of column is - 1 - r; y falls as the row rises)
+    xlo, xhi, ylo, yhi = ((2.0 * i.to(torch.float32) + 1.0 - is_)
+                          / is_)[:, None, :, None]          # [1, T, 1]
+
+    def bb(r):
+        return packed[:, pack.R_BBOX + r, None, :]           # [B, 1, F]
+    return ((packed[:, pack.R_FVALID, None, :] > 0)
+            & (xhi >= bb(0) - margin) & (xlo <= bb(1) + margin)
+            & (yhi >= bb(2) - margin) & (ylo <= bb(3) + margin)
+            & listed)
 
 
 def _chunk_textures(pk, cfg: C.RenderConfig, TS):
@@ -1122,6 +1142,12 @@ def _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
         raise ValueError(f'appended chunks (n_sliced={n_sliced} < {K}) need '
                          f'an alpha mode that compaction admits, not '
                          f'{cfg.aggr_alpha_func}')
+    slabs = (K - n_sliced) // T
+    if n_sliced < K and slab_route(cfg, TS) and not (
+            K - n_sliced == slabs * T and slabs * FC <= TILE * TILE):
+        raise ValueError(f'{K - n_sliced} appended chunks of {FC} faces do '
+                         f'not fit the slab layout: slabs a tile for the '
+                         f'{T} tiles, at most {TILE * TILE} faces a tile')
     if tuple(perm.shape) != (B, Fp) or tuple(par.shape) != (PM.NPAR,):
         raise ValueError(f'perm must be [{B}, {Fp}] and par [{PM.NPAR}]')
     _check_rows(NI, cfg, TS)
@@ -1131,6 +1157,15 @@ def _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
         raise ValueError(f'pix must be [{B}, {npix}, {P}] for '
                          f'channels={cfg.channels!r}, got '
                          f'{tuple(pix.shape)}')
+
+
+def slab_route(cfg: C.RenderConfig, TS):
+    """Whether compaction's appended chunks go to ``rasterize_bwd_slab``
+    (the C entry's rule: alpha, or hard RGB whose texture sums live in
+    registers, over vertex colours or one texel)."""
+    mode = render_mode(cfg)
+    return mode == MODE_ALPHA or (mode == MODE_HARD and (
+        TS == 1 or cfg.texture_type == C.TEXTURE_VERTEX))
 
 
 def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
@@ -1151,13 +1186,18 @@ def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
     :func:`bwd_slice_count` of those columns, ``compacted`` where chunks
     follow them), then the slices summed in
     a fixed order; where S = 1, that pass straight into the result; and
-    one block per (appended chunk, batch element) straight into the
-    result: ``rasterize_bwd_slab``, a thread per pixel of the chunk's
-    tile, for alpha and hard RGB over vertex colours or one texel, else
-    the first kernel, a thread per face.  ``LAUNCHES['rasterize_bwd']``
+    the appended chunks straight into the result: ``rasterize_bwd_slab``,
+    a block per (tile, batch element) holding the tile's slabs and a
+    warp per surviving face, for alpha and hard RGB over vertex colours
+    or one texel, else the first kernel, a block per (appended chunk,
+    batch element) and a thread per face.  ``LAUNCHES['rasterize_bwd']``
     counts one per call, for all its passes, and
     ``LAUNCHES['rasterize_bwd_slab']`` one per call that launched
     ``rasterize_bwd_slab``.  CPU tensors run :func:`rasterize_bwd_plain`.
+    A recorded step (``profiling.recorder()``) counts
+    'compact.slab_survivors', the slots that ``rasterize_bwd_slab``'s
+    blocks keep ([B, T], summed when the counts are read, so the step
+    launches nothing for it; on the CPU :func:`slab_survivors`).
     """
     height = cfg.image_size if height is None else height
     check_envelope(cfg, TS)
@@ -1165,7 +1205,13 @@ def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
     n_sliced = K if n_sliced is None else n_sliced
     _check_bwd_inputs(chunk_counts, chunk_ids, par, packed, perm, pix, cfg,
                       TS, row0, height, n_sliced)
+    record = (profiling.recorder() is not None and n_sliced < K
+              and slab_route(cfg, TS))
     if packed.device.type == 'cpu':
+        if record:
+            profiling.count('compact.slab_survivors', slab_survivors(
+                packed, chunk_counts, chunk_ids, n_sliced, cfg,
+                par[PM.P_MARGIN], row0, height))
         return rasterize_bwd_plain(chunk_counts, chunk_ids, par, packed,
                                    perm, pix, cfg, TS, row0, height,
                                    n_sliced)
@@ -1183,6 +1229,9 @@ def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
     ws = _bwd_workspace(out, S, Fs)
     stream = torch.cuda.current_stream(packed.device)
     slab = ctypes.c_int(0)
+    # each slab block's survivors of its cull, where a step is recorded
+    survivors = torch.empty((B, T), dtype=torch.int32,
+                            device=packed.device) if record else None
     err = lib.gendr_rasterize_bwd(
         chunk_counts.data_ptr(), chunk_ids.data_ptr(), T,
         par.data_ptr(), packed.data_ptr(), perm.data_ptr(), pix.data_ptr(),
@@ -1192,12 +1241,15 @@ def rasterize_bwd(chunk_counts, chunk_ids, par, packed, perm, pix,
         cfg.aggr_alpha_func,
         render_mode(cfg), int(cfg.double_side), cfg.texture_type,
         texture_res(TS), packed.device.index or 0,
-        stream.cuda_stream, ctypes.addressof(slab))
+        stream.cuda_stream, ctypes.addressof(slab),
+        0 if survivors is None else survivors.data_ptr())
     if err != 0:
         raise RuntimeError('rasterize_bwd launch failed: '
                            + lib.gendr_error_string(err).decode())
     LAUNCHES['rasterize_bwd'] += 1
     LAUNCHES['rasterize_bwd_slab'] += slab.value
+    if record and slab.value:
+        profiling.count('compact.slab_survivors', survivors)
     return out
 
 

@@ -126,7 +126,9 @@ class Recorder:
         finished (a name counted twice summed)."""
         out = {}
         for name, value in self.counters:
-            out[name] = out.get(name, 0.0) + float(value)
+            # a tensor is copied and summed on the host: no device kernel
+            out[name] = out.get(name, 0.0) + float(
+                value.cpu().sum() if torch.is_tensor(value) else value)
         return out
 
 
@@ -153,8 +155,8 @@ def mark(name):
 
 
 def count(name, value):
-    """Add ``value`` (a device scalar or a number) to count ``name`` of the
-    step being recorded."""
+    """Add ``value`` (a number, or a device tensor summed on the host when
+    the counts are read) to count ``name`` of the step being recorded."""
     if _recorder is not None:
         _recorder.count(name, value)
 

@@ -3,12 +3,12 @@
 Per-tile face compaction appends one 128-slot chunk (a slab) per tile and
 slab after the sorted faces.  ``csrc/rasterize_bwd.cu`` walks them with
 ``rasterize_bwd_slab`` (alpha, and hard RGB over vertex colours or one
-texel): one block per (slab, batch element), one thread per pixel of the
-slab's tile, the slab's slots culled against the tile once per block by
-``cuda_backend.tile_face_survivors``' rule and each survivor's sums reduced
-over the pixels in a fixed order.  The kernel runs only on the card
-(``tests/test_torch_kernels.py``); here the rule it implements is held
-against the plain version and against ``gendr_tpu``:
+texel): one block per (tile, batch element) holding the tile's slabs, their
+slots culled against the tile once per block by
+``cuda_backend.tile_face_survivors``' rule, and a warp per survivor that
+sums it over its gate rectangle's pixels in a fixed order.  The kernel runs
+only on the card (``tests/test_torch_kernels.py``); here the rule it
+implements is held against the plain version and against ``gendr_tpu``:
 
 * on compacted prepasses (the flagship's icosphere, cut to 320 faces so
   that the gate fires at 64x64, whole and in a row band, probabilistic and
@@ -16,7 +16,9 @@ against the plain version and against ``gendr_tpu``:
   its defaults, B=8 at 64x64, logistic, tau 1e-1 and 1e-7) every slab
   column to which ``rasterize_bwd_plain`` gives a gradient that is not
   zero is among its tile's survivors, so the block's cull loses no pair;
-  ``chip_smoke.slab_lanes`` counts the lanes with work as the gate does;
+  ``chip_smoke.slab_lanes`` counts the blocks, survivors and pairs as the
+  gate does, and a recorded backward's ``compact.slab_survivors``
+  (``cuda_backend.slab_survivors``) is the count of those survivors;
 * the compacted render's gradient through the plain versions (the slots'
   rows folded by ``pack.scatter_slots``) against ``gendr_tpu``'s compacted
   Pallas path in interpret mode at ``opt_camera``'s configuration, B=4:
@@ -24,8 +26,9 @@ against the plain version and against ``gendr_tpu``:
   5e-4, rtol 5e-3) on more than 99 % of them, as
   ``tests/test_torch_compact.py`` holds the other compacted renders;
 * the wrapper refuses appended chunks under a parametric fold, which
-  compaction never admits and the kernel has no instantiation for, on
-  every device.
+  compaction never admits and the kernel has no instantiation for, and
+  appended chunks that are not slabs a tile of at most 256 slots (the C
+  entry refuses them too), on every device.
 """
 
 import dataclasses
@@ -44,6 +47,7 @@ from gendr_tpu_torch.geometry import core, transforms as T
 from gendr_tpu_torch.raster import cuda_backend as CB
 from gendr_tpu_torch.raster import pairmath as PM
 from gendr_tpu_torch.raster.render import render
+from gendr_tpu_torch.utils import profiling
 from torch_threads import one_torch_thread  # noqa: F401
 
 IMG_TOL = 2e-3
@@ -94,9 +98,10 @@ CASES = {
 }
 
 
-def _plain_rows(cfg, params, fv, tex, aux):
-    """The backward's rows [B, NO, Fp] through the plain versions, from
-    the gradient of 0.5 sum(alpha^2) + 0.1 sum(rgb)."""
+def _plain_rows(cfg, params, fv, tex, aux, bwd=CB.rasterize_bwd_plain):
+    """The backward's rows [B, NO, Fp] through the plain versions (the
+    backward: bwd), from the gradient of 0.5 sum(alpha^2) + 0.1
+    sum(rgb)."""
     TS = tex.shape[2]
     band = (aux['row0'], aux['height'])
     out = CB.rasterize_fwd_plain(aux['tile_counts'], aux['tile_ids'],
@@ -105,7 +110,7 @@ def _plain_rows(cfg, params, fv, tex, aux):
     soft, aggrs = CB._finalize_soa(out, cfg, params)
     g = torch.cat([torch.full_like(soft[:, :3], 0.1), soft[:, 3:]], dim=1)
     pix = CB.pixel_columns(soft, aggrs, g, cfg)
-    return CB.rasterize_bwd_plain(
+    return bwd(
         aux['chunk_counts'], aux['chunk_ids'], aux['par'], aux['packed'],
         aux['perm'], pix, cfg, TS, *band,
         CB.sorted_face_count(aux) // cfg.face_chunk)
@@ -123,6 +128,7 @@ def test_slab_gradients_lie_on_the_tile_survivors(name):
         aux['packed'], cfg, aux['par'][PM.P_MARGIN], aux['row0'],
         aux['height'], (aux['tile_counts'], aux['tile_ids']))
     live = rows.abs().sum(1) != 0                           # [B, Fp]
+    slabs = (Fp - Fs) // FC // counts.shape[1]
     n_live = n_surv = 0
     for b in range(fv.shape[0]):
         for k in range(Fs // FC, Fp // FC):
@@ -131,6 +137,9 @@ def test_slab_gradients_lie_on_the_tile_survivors(name):
             assert n <= 1, 'a slab lists one tile'
             if n:
                 t = int(aux['chunk_ids'][b, k, 0])
+                # the slab kernel reads no ids: slab j of tile t is chunk
+                # Fs / FC + t slabs + j
+                assert t == (k - Fs // FC) // slabs, (b, k, t)
                 surv = set(ids[b, t, :int(counts[b, t])].tolist()) & cols
             else:
                 surv = set()
@@ -143,14 +152,49 @@ def test_slab_gradients_lie_on_the_tile_survivors(name):
     # the cull is what is checked
     assert n_live > 0 or name == 'cube tau 1e-7'
     assert n_surv > 0
-    # the lanes: every lane that the cull leaves with work holds a pixel
-    # of its tile inside a survivor's gate, and none is counted twice
+    # the launch: a block per tile, its survivors the cull's, each gated
+    # pair a pixel of a survivor's rectangle walked by one lane
     lanes = slab_lanes(aux, cfg)
-    assert lanes['blocks'] == fv.shape[0] * (Fp - Fs) // FC
-    assert 0 < lanes['after_cull'] <= lanes['before_cull'] \
-        <= lanes['blocks'] * CB.TILE ** 2
-    assert lanes['slot_lanes'] <= lanes['blocks'] * FC
-    assert n_surv <= lanes['slot_lanes']
+    T = aux['chunk_ids'].shape[2]
+    assert lanes['blocks'] == fv.shape[0] * T
+    assert lanes['slots'] == fv.shape[0] * (Fp - Fs)
+    assert lanes['survivors'] == n_surv <= lanes['slot_lanes'] \
+        <= lanes['slots']
+    assert lanes['most_survivors'] <= (Fp - Fs) // T
+    assert 0 < lanes['pairs'] <= lanes['pair_lanes'] \
+        <= n_surv * CB.TILE ** 2
+
+
+@pytest.mark.parametrize('name', CASES)
+def test_slab_survivors_are_counted(name):
+    """A recorded backward counts compact.slab_survivors: the slab slots
+    that rasterize_bwd_slab's blocks keep, equal to a brute-force count of
+    tile_face_survivors on the slab columns of the tiles that slabs
+    serve."""
+    cfg, params, fv, tex, band = CASES[name]()
+    aux = CB.prepass(fv, tex, cfg, params, row_band=band)
+    assert 'oct_ids' in aux
+    with profiling.recording(profiling.Recorder('cpu')) as rec:
+        _plain_rows(cfg, params, fv, tex, aux, CB.rasterize_bwd)
+    FC, Fs = cfg.face_chunk, CB.sorted_face_count(aux)
+    counts, ids = CB.tile_face_survivors(
+        aux['packed'], cfg, aux['par'][PM.P_MARGIN], aux['row0'],
+        aux['height'], (aux['tile_counts'], aux['tile_ids']))
+    want = 0
+    for b in range(fv.shape[0]):
+        for t in range(counts.shape[1]):
+            kept = ids[b, t, :int(counts[b, t])].tolist()
+            # a tile that overflows its slabs walks sorted chunks instead
+            want += sum(c >= Fs for c in kept)
+    got = rec.counts()['compact.slab_survivors']
+    assert got == want > 0
+    slabs = (aux['packed'].shape[2] - Fs) // FC // counts.shape[1]
+    per_tile = CB.slab_survivors(aux['packed'], aux['chunk_counts'],
+                                 aux['chunk_ids'], Fs // FC, cfg,
+                                 aux['par'][PM.P_MARGIN], aux['row0'],
+                                 aux['height'])
+    assert per_tile.shape == counts.shape and int(per_tile.sum()) == want
+    assert int(per_tile.max()) <= slabs * FC
 
 
 def _jax_grad(fv, kw):
@@ -203,3 +247,22 @@ def test_appended_chunks_need_an_alpha_mode_compaction_admits():
                          aux['packed'], aux['perm'], pix, yager, 1, 0,
                          cfg.image_size,
                          CB.sorted_face_count(aux) // cfg.face_chunk)
+
+
+def test_appended_chunks_must_be_slabs_a_tile():
+    """Appended chunks that are not the same number of slabs for every
+    band tile are refused, not sent to another launch."""
+    cfg, params, fv, tex = _icosphere_inputs()
+    aux = CB.prepass(fv, tex, cfg, params)
+    assert 'oct_ids' in aux
+    FC = cfg.face_chunk
+    npix, _ = CB._bwd_layout(cfg)
+    pix = torch.zeros((1, npix, cfg.image_size ** 2))
+    # the last tile's last slab dropped
+    with pytest.raises(ValueError, match='slab layout'):
+        CB.rasterize_bwd(aux['chunk_counts'][:, :-1].contiguous(),
+                         aux['chunk_ids'][:, :-1].contiguous(), aux['par'],
+                         aux['packed'][..., :-FC].contiguous(),
+                         aux['perm'][:, :-FC].contiguous(), pix, cfg, 1, 0,
+                         cfg.image_size,
+                         CB.sorted_face_count(aux) // FC)

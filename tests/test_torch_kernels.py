@@ -23,13 +23,14 @@ import torch
 
 from chip_smoke import (BAND_CASES, BANDS, BIG_TEXTURE_CASES,
                         CAMERA_DEFAULT_TAUS, CASES, GRAD_AGREE, GRAD_ATOL,
+                        PREPASS_CASES, SHARP128_CASES,
                         T_CONORM_CASES, TEXTURE_CASES, agreement,
                         backward_args, band_parts, camera_experiment,
                         camera_inputs,
                         check_kernels, check_slab, face_halves,
                         flagship_cfg, flagship_scene, gendr_inputs,
-                        grads_through, panda_inputs, render_counts,
-                        render_launches,
+                        grads_through, panda_inputs, prepass_inputs,
+                        render_counts, render_launches,
                         t_conorm_inputs, training_inputs)
 from gendr_tpu_torch import config as C, render
 from gendr_tpu_torch.raster import cuda_backend as CB
@@ -586,21 +587,32 @@ def test_training_is_reproducible_without_deterministic_algorithms(cuda):
 
 
 # rasterize_bwd_slab's inputs: path (k)'s render at both ends of its anneal
-# and the compacted flagship, hard RGB over one texel and vertex colours
-SLAB_CASES = ['camera 0.1', 'camera 1e-07', 'flagship', 'flagship vertex']
+# (one slab a tile), the compacted flagship, hard RGB over one texel and
+# vertex colours, camera.sharp128's render at both ends and at tau 1e-3
+# (200 views at 128x128, 2 slabs a tile; at tau 0.1 every tile overflows
+# its slabs and the launch only writes zeros; at 1e-3 most hit tiles are
+# on their slabs, with wide gate rectangles), and 1000 faces at 128x128,
+# 2 slabs a tile, where some tiles list their first slab alone
+SLAB_CASES = ['camera 0.1', 'camera 1e-07', 'flagship', 'flagship vertex',
+              *SHARP128_CASES, 'compacted F=1000']
+# the case whose slabs list no tile
+NO_SLAB_CASE = 'camera.sharp128 tau 0.1'
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('name', SLAB_CASES)
 def test_slab_kernel_matches_plain(cuda, name):
-    """rasterize_bwd_slab (compaction's appended chunks, a thread per pixel
-    of the chunk's tile) against rasterize_bwd_plain on the same pixel
-    columns, with phase 1's gates (chip_smoke.check_slab), and two runs of
-    K2 bitwise equal."""
-    if name.startswith('camera'):
+    """rasterize_bwd_slab (compaction's appended chunks, a block per tile
+    and a warp per surviving face) against rasterize_bwd_plain on the same
+    pixel columns, with phase 1's gates (chip_smoke.check_slab), and two
+    runs of K2 bitwise equal."""
+    if name.startswith('camera '):
         exp, init = camera_experiment(20, device=cuda)
         cfg, params, fv, tex = camera_inputs(exp, init, float(name[7:]))
         assert fv.shape[0] == 200
+    elif name in [c[0] for c in PREPASS_CASES]:
+        _, cfg, params, fv, tex, _ = prepass_inputs(
+            next(c for c in PREPASS_CASES if c[0] == name), cuda)
     else:
         vertex = name.endswith('vertex')
         cfg = flagship_cfg(texture_type='vertex' if vertex else 'surface')
@@ -609,6 +621,14 @@ def test_slab_kernel_matches_plain(cuda, name):
                                  else 'surface')
     aux = CB.prepass(fv, tex, cfg, params)
     assert 'oct_ids' in aux
+    K = CB.sorted_face_count(aux) // cfg.face_chunk
+    listed = aux['chunk_counts'][:, K:] > 0
+    assert bool(listed.any()) == (name != NO_SLAB_CASE)
+    if name in ('camera.sharp128', 'compacted F=1000'):
+        # tiles whose second slab lists nothing beside tiles that list both
+        listed = listed.reshape(fv.shape[0], -1, 2)
+        assert (listed[..., 0] & ~listed[..., 1]).any()
+        assert listed[..., 1].any()
     TS = tex.shape[2]
     out = CB.rasterize_fwd(aux['tile_counts'], aux['tile_ids'], aux['par'],
                            aux['packed'], aux['perm'], cfg, TS)

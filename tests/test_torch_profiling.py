@@ -229,7 +229,9 @@ def test_counts_are_kept_by_a_recorder_and_read_as_a_share():
     with profiling.recording(rec):
         profiling.count('a', torch.tensor(3))
         profiling.count('a', 2)
-        profiling.count('b', torch.tensor(10))
+        # a tensor of counts is summed when read
+        profiling.count('b', torch.tensor([[4, 1], [5, 0]],
+                                          dtype=torch.int32))
     assert rec.counts() == {'a': 5.0, 'b': 10.0}
     share = _module('benchmark/metrics/counter_share.py').counter_share
     assert share('a', 'b')(None) is None    # an empty table
