@@ -1,0 +1,9 @@
+"""fwd_roofline in the textured fit's cell (softmax RGB over 25-texel
+surface textures, whose flops a pair the driver counts): the reading of
+fwd_roofline.py."""
+
+import os
+import runpy
+
+read = runpy.run_path(os.path.join(os.path.dirname(__file__),
+                                   'fwd_roofline.py'))['read']

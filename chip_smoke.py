@@ -150,7 +150,15 @@ source, started together, into ``gendr_tpu_torch/_build_cache/``), then
    annealed steps with
    --chain 20 against --chain 1 from the same poses, bitwise, the first
    replay's kernels against their plain versions, one launch of each
-   kernel a step.  ``--camera-only`` runs it alone;
+   kernel a step.  ``--camera-only`` runs it alone; then path (m),
+   ``experiments.fit_textured`` at its defaults (24 views at 256x256
+   rendered at 512x512, softmax RGB over 25 texels a face, lit, compacted,
+   --chain 20): (m1) both kernels against their plain versions with phase
+   1's gates on the first step's render, one view at a time (TEXTURED_VIEWS);
+   (m2) 40 steps with --chain 20 against --chain 1 from the same start,
+   the losses and every parameter bitwise, the first replay's kernels
+   against their plain versions on those views, one launch of each kernel
+   a step.  ``--textured-only`` runs it alone;
 13. holds the prepass kernels (``csrc/prepass.cu``) against the plain
    prepass on the card, every output bit for bit (PREPASS_CASES: the
    benchmark cells' shapes, B=200 and B=256 at 64x64 and camera.sharp128's
@@ -337,6 +345,10 @@ CHAIN_RECON_STEPS, CHAIN_RECON_DECAY = 16, 6
 CAMERA_RANGE = (15, 35)
 CAMERA_DEFAULT_TAUS = (1e-1, 1e-7)
 CAMERA_DEFAULT_STEPS = 100
+# path (m): the textured fit's chained steps against eager ones, and the
+# views its kernels are held on against their plain versions
+TEXTURED_STEPS = 40
+TEXTURED_VIEWS = (0, 7)
 # (j2)'s Adam against optax's rule: test_torch_camera.py's tolerance
 ADAM_RTOL, ADAM_ATOL = 1e-5, 1e-6
 # the backend='torch' frame of phase 4b peaked at 52.6 GiB before its
@@ -2348,15 +2360,22 @@ def record_captured_kernels():
     return calls, restore
 
 
-def replay_vs_plain(label, calls):
+def replay_vs_plain(label, calls, views=None):
     """(j4): each kernel launch of a captured step, its output as the last
     replay left it against the plain version on the same buffers, with
-    phase 1's gates.  Returns (image error, gradient error)."""
+    phase 1's gates; with ``views``, on those batch elements alone (a
+    kernel's output for one batch element reads that element's inputs
+    alone).  Returns (image error, gradient error)."""
     import torch
     from gendr_tpu_torch.raster import cuda_backend as CB
     torch.cuda.synchronize()
     parts, img_err, grad_err = [], 0.0, 0.0
     for name, args, kw, out in calls:
+        if views is not None:
+            B = out.shape[0]
+            args = [a[list(views)] if isinstance(a, torch.Tensor)
+                    and a.ndim > 1 and a.shape[0] == B else a for a in args]
+            out = out[list(views)]
         plain = getattr(CB, name + '_plain')(*args, **kw)
         torch.cuda.synchronize()
         err = float((out - plain).abs().max())
@@ -2558,9 +2577,7 @@ def chain_camera_path():
     two eager runs of a new experiment bitwise equal too."""
     import torch
 
-    def experiment(chain):
-        return camera_experiment(chain, ['--quick'])
-    runs, errs = camera_chained_vs_eager(experiment, 'opt_camera')
+    runs, errs = chained_vs_eager(camera_run(['--quick']), 'opt_camera')
     e, c = runs[1], runs[CHAIN_CAMERA]
     n = e['rec']['iterations']
     rel = dict(loss=_rel_list(c['rec']['losses'], e['rec']['losses']),
@@ -2569,7 +2586,7 @@ def chain_camera_path():
     same = sum(a == b for a, b in zip(c['rec']['losses'],
                                       e['rec']['losses']))
     blocks = -(-n // CHAIN_CAMERA)
-    exp, init = experiment(1)
+    exp, init = camera_experiment(1, ['--quick'])
     twice = [exp.run(init) for _ in range(2)]
     del exp
     floor = _rel_list(twice[1]['losses'], twice[0]['losses'])
@@ -2707,33 +2724,45 @@ def camera_experiment(chain, extra=(), device='cuda'):
     return exp, OC.initial_poses(args.batch_size, *CAMERA_RANGE)
 
 
-def camera_chained_vs_eager(experiment, label, n=None):
-    """Camera runs from the same poses with --chain CHAIN_CAMERA and with
-    --chain 1 (experiment(chain) gives (the experiment, its starting
-    poses)): the chained experiment's first run is 1 step, whose replay's
-    kernels (j4) checks against their plain versions; then each runs n
-    steps (None: its -ni) through chained_run, the kernels' counts set to
-    0 just before.  Returns ({chain: dict(rec, launches, fetches, steps,
-    exp)}, the replay's (image error, gradient error))."""
+def camera_run(extra=()):
+    """experiment(chain) for chained_vs_eager: the camera experiment of
+    camera_experiment(chain, extra), run from its starting poses."""
+    def experiment(chain):
+        exp, init = camera_experiment(chain, extra)
+        return (exp, lambda n: exp.run(init, num_iterations=n),
+                lambda: exp.chain('iou'))
+    return experiment
+
+
+def chained_vs_eager(experiment, label, n=None, views=None):
+    """Runs from the same start with --chain CHAIN_CAMERA and with --chain
+    1 (experiment(chain) gives (the experiment, run, steps): run(n) runs
+    n steps from the start, n None its -ni, and steps() is its StepChain):
+    the chained experiment's first run is 1 step, whose replay's kernels
+    (j4) checks against their plain versions, on the batch elements
+    ``views`` alone where given; then each runs n steps through
+    chained_run, the kernels' counts set to 0 just before.  Returns
+    ({chain: dict(rec, launches, fetches, steps, exp)}, the replay's
+    (image error, gradient error))."""
     from gendr_tpu_torch.raster import cuda_backend as CB
     runs = {}
     for chain in (1, CHAIN_CAMERA):
-        exp, init = experiment(chain)
+        exp, run, steps = experiment(chain)
         if chain > 1:
             calls, restore = record_captured_kernels()
             try:
-                exp.run(init, num_iterations=1)
+                run(1)
             finally:
                 restore()
-            errs = replay_vs_plain(f'{label} (the first replay)', calls)
+            errs = replay_vs_plain(f'{label} (the first replay)', calls,
+                                   views)
             del calls
         else:
-            exp.run(init, num_iterations=1)
-        steps = exp.chain('iou')
+            run(1)
+        steps = steps()
         for k in CB.LAUNCHES:
             CB.LAUNCHES[k] = 0
-        rec, launches, fetches = chained_run(
-            steps, lambda: exp.run(init, num_iterations=n))
+        rec, launches, fetches = chained_run(steps, lambda: run(n))
         runs[chain] = dict(rec=rec, launches=launches, fetches=fetches,
                            steps=steps, exp=exp)
     return runs, errs
@@ -2795,8 +2824,8 @@ def camera_default_path():
         i, g = check_kernels(f'camera {tau:g}', cfg, params, fv, tex, aux)
         img, grad = max(img, i), max(grad, g)
     del exp
-    runs, (i, g) = camera_chained_vs_eager(
-        camera_experiment, 'opt_camera defaults, B=200', n)
+    runs, (i, g) = chained_vs_eager(
+        camera_run(), 'opt_camera defaults, B=200', n)
     img, grad = max(img, i), max(grad, g)
     c, e = runs[CHAIN_CAMERA], runs[1]
     same = sum(a == b for a, b in zip(c['rec']['losses'],
@@ -2822,6 +2851,111 @@ def camera_default_path():
             raise AssertionError(f'(k2) launches {r["launches"]}')
     launches = dict(camera_default=c['launches'],
                     camera_default_eager=e['launches'])
+    del runs
+    torch.cuda.empty_cache()
+    return launches, (img, grad)
+
+
+def textured_experiment(chain):
+    """The textured fit of fit_textured's command line at its defaults (24
+    views at 256x256 rendered at 512x512, 25 texels a face) with --chain
+    chain, begun on its default goal (the pinched icosphere, texel colours
+    of seed 0)."""
+    from gendr_tpu_torch.experiments import fit_textured as FT
+    fit = FT.TexturedFit(FT.parse_args(['--chain', str(chain)]), 'cuda')
+    v, f = FT.pinched_sphere()
+    eyes = FT.view_eyes(fit.args.views)
+    fit.begin(eyes, fit.goal_images(v, f, FT.goal_textures(
+        f.shape[0], fit.args.texture_res, 0), eyes))
+    return fit
+
+
+def textured_run(chain):
+    """experiment(chain) for chained_vs_eager: textured_experiment(chain),
+    each run begun anew on its goal."""
+    fit = textured_experiment(chain)
+
+    def run(n):
+        fit.begin(fit.eyes, fit.targets)
+        return fit.run(n)
+    return fit, run, lambda: fit.steps
+
+
+def textured_inputs():
+    """(cfg, params, face vertices, textures) of the textured fit's first
+    step's render: the template at its start, 24 views, 512x512."""
+    import torch
+    from gendr_tpu_torch.raster.render import render_config
+    fit = textured_experiment(1)
+    cfg, params = render_config(**fit.renderer.render_kwargs())
+    with torch.no_grad():
+        mesh, _, _ = fit.model_mesh(fit.eyes)
+        fv = mesh.face_vertices
+    return (cfg, params, fv.reshape(fv.shape[0], fv.shape[1], 9).contiguous(),
+            mesh.face_textures.contiguous())
+
+
+def textured_path():
+    """Path (m): the textured fit at its defaults.  (m1) both kernels
+    against their plain versions (check_kernels' gates) on the first
+    step's render, one view at a time for TEXTURED_VIEWS (the plain
+    version of all 24 views at 512x512 would not fit), compaction on, and
+    the census of its compaction plan over all 24;
+    (m2) TEXTURED_STEPS steps with --chain CHAIN_CAMERA and with --chain
+    1 from the same start (chained_vs_eager), the losses and every
+    parameter bitwise equal, the first replay's kernels against their
+    plain versions on the graph's buffers at TEXTURED_VIEWS, and each
+    run's launches counted from 0: one of each render kernel and one
+    compacted prepass a step.  Returns (launches by path, (image error,
+    gradient error))."""
+    import torch
+    from gendr_tpu_torch.raster import cuda_backend as CB
+    from gendr_tpu_torch.utils import profiling
+    cfg, params, fv, tex = textured_inputs()
+    rec = profiling.Recorder(fv.device)
+    with profiling.recording(rec):
+        aux = CB.prepass(fv, tex, cfg, params)
+    print(f'[textured] (m1) the first step\'s render, B={fv.shape[0]}: '
+          f'{CB.sorted_face_count(aux)} sorted face columns and '
+          f'{aux["packed"].shape[2] - CB.sorted_face_count(aux)} slot '
+          f'columns of {aux["packed"].shape[1]} rows; census {rec.counts()}',
+          flush=True)
+    del aux
+    img = grad = 0.0
+    for b in TEXTURED_VIEWS:
+        aux = CB.prepass(fv[b:b + 1], tex[b:b + 1], cfg, params)
+        if 'oct_ids' not in aux:
+            raise AssertionError('(m1) compaction did not fire')
+        i, g = check_kernels(f'textured view {b}', cfg, params,
+                             fv[b:b + 1], tex[b:b + 1], aux)
+        img, grad = max(img, i), max(grad, g)
+    del fv, tex
+    n = TEXTURED_STEPS
+    runs, (i, g) = chained_vs_eager(textured_run, 'textured fit', n,
+                                    TEXTURED_VIEWS)
+    img, grad = max(img, i), max(grad, g)
+    c, e = runs[CHAIN_CAMERA], runs[1]
+    same = sum(a == b for a, b in zip(c['rec']['losses'],
+                                      e['rec']['losses']))
+    equal = all(torch.equal(a, b) for a, b in zip(c['exp'].parameters(),
+                                                  e['exp'].parameters()))
+    print(f'[textured] (m2) the textured fit at its defaults, {n} steps, '
+          f'--chain {CHAIN_CAMERA} against --chain 1: bitwise equal losses '
+          f'{same} of {n}, parameters bitwise equal {equal}; loss '
+          f'{e["rec"]["losses"][0]:.5f} -> {e["rec"]["losses"][-1]:.5f}; '
+          f'fetches {c["fetches"]} (eager {e["fetches"]}); kernels the '
+          f'graph captured {c["steps"].captured}; launches chained '
+          f'{c["launches"]}, eager {e["launches"]}', flush=True)
+    if not (same == n and equal and c['rec']['grads_finite']):
+        raise AssertionError(f'(m2) chained vs eager not bitwise: {same} of '
+                             f'{n} losses, parameters equal {equal}')
+    if c['fetches'] != -(-n // CHAIN_CAMERA) or e['fetches'] != n:
+        raise AssertionError(f'(m2) fetches {c["fetches"]}, {e["fetches"]}')
+    for r in (c, e):
+        if render_counts(r['launches']) != render_launches(n, n) \
+                or r['launches']['prepass_compact'] != n:
+            raise AssertionError(f'(m2) launches {r["launches"]}')
+    launches = dict(textured=c['launches'], textured_eager=e['launches'])
     del runs
     torch.cuda.empty_cache()
     return launches, (img, grad)
@@ -3266,7 +3400,9 @@ def times_shapes(obj_file):
     its dataset's 24 views); path (k) (opt_camera at its defaults, 200
     poses at 64x64, compacted) at tau 1e-1 and 1e-7; camera.sharp128's
     render (200 views of 1 280 faces at 128x128, 2 slabs a tile) at tau
-    1e-7 and 0.1; the default GenDR on
+    1e-7 and 0.1; gendr.textured's (the textured fit's first step: 24
+    views of 1 280 faces at 512x512, softmax RGB over 25 texels a face,
+    compacted, tau 1e-2); the default GenDR on
     path (e)'s mesh at 25, 144, 256 and 1024 texels per face, softmax and
     hard RGB; forward only, 1536x1536 sweep frames: panda_dist at uniform
     tau 1e-2 and gaussian tau 1, panda_tcn probabilistic and yager p=2 at
@@ -3313,6 +3449,7 @@ def times_shapes(obj_file):
         if case[0] in SHARP128_CASES:
             name, cfg, params, fv, tex, _ = prepass_inputs(case, 'cuda')
             yield render(f'render {name}', cfg, params, fv, tex)
+    yield render('gendr.textured', *textured_inputs())
     for res in (5, 12, 16, 32):
         for rgb in ('softmax', 'hard'):
             yield render(f'obj gendr {rgb} TS={res * res}',
@@ -3609,6 +3746,11 @@ def main():
         _build.build(*_build.SIGNATURES)
         camera_default_path()
         return 0
+    if argv == ['--textured-only']:
+        # a quick look at path (m) alone
+        _build.build(*_build.SIGNATURES)
+        textured_path()
+        return 0
     if argv == ['--prepass-only']:
         # a quick look at phase 13 alone
         _build.build('prepass')
@@ -3663,6 +3805,10 @@ def main():
         by_path.update(camera_paths)
         img_err = max(img_err, k_img)
         grad_err = max(grad_err, k_grad)
+        textured_paths, (m_img, m_grad) = textured_path()
+        by_path.update(textured_paths)
+        img_err = max(img_err, m_img)
+        grad_err = max(grad_err, m_grad)
         probe_launches, probe_err = probe_phase()
         by_path['prepass'] = prepass_phase()
         by_path['slab'] = slab_phase()

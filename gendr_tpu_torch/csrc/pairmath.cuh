@@ -509,12 +509,16 @@ __device__ __forceinline__ SoftDepth softmax_depth(const Row& row,
 }
 
 // the texel of an R x R folded-triangle grid a pair samples
-// (raster/geometry.py:surface_texel_index, cu:178-185), clamped to the grid
-__device__ __forceinline__ int surface_texel_index(float w0, float w1, int R) {
+// (raster/geometry.py:surface_texel_index, cu:178-185), clamped to the grid;
+// beyond the edge opposite vertex 2 (w2 clipped to 0) the fold's test reads
+// exactly 1: the lower triangle
+__device__ __forceinline__ int surface_texel_index(float w0, float w1,
+                                                   float w2, int R) {
   const float fr = (float)R;
   const int wx = (int)floorf(w0 * fr);
   const int wy = (int)floorf(w1 * fr);
-  const bool lower = (w0 + w1) * fr - (float)wx - (float)wy <= 1.0f;
+  const bool lower =
+      w2 == 0.0f || (w0 + w1) * fr - (float)wx - (float)wy <= 1.0f;
   const int idx = lower ? wy * R + wx : (R - 1 - wy) * R + (R - 1 - wx);
   return min(max(idx, 0), R * R - 1);
 }
@@ -533,7 +537,7 @@ __device__ __forceinline__ void sample_color(const Tex& tex, int texture_type,
     for (int c = 0; c < 3; ++c)
       col[c] = wcn[0] * tex(c) + wcn[1] * tex(3 + c) + wcn[2] * tex(6 + c);
   } else {
-    const int t = R == 1 ? 0 : surface_texel_index(wcn[0], wcn[1], R);
+    const int t = R == 1 ? 0 : surface_texel_index(wcn[0], wcn[1], wcn[2], R);
 #pragma unroll
     for (int c = 0; c < 3; ++c) col[c] = tex(3 * t + c);
   }

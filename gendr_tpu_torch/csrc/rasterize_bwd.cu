@@ -254,11 +254,11 @@ __global__ void __maxnreg__(168) rasterize_bwd_kernel(
 #pragma unroll
       for (int c = 0; c < 3; ++c) tacc[c] += coef[c];
     } else if (tex_store == TEX_SHARED) {
-      const int t = surface_texel_index(wcn[0], wcn[1], R);
+      const int t = surface_texel_index(wcn[0], wcn[1], wcn[2], R);
 #pragma unroll
       for (int c = 0; c < 3; ++c) tsum[(3 * t + c) * FC + f] += coef[c];
     } else {
-      const int t = surface_texel_index(wcn[0], wcn[1], R);
+      const int t = surface_texel_index(wcn[0], wcn[1], wcn[2], R);
 #pragma unroll
       for (int c = 0; c < 3; ++c) otex[(size_t)(3 * t + c) * W] += coef[c];
     }

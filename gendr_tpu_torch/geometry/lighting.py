@@ -27,10 +27,13 @@ def ambient_lighting(light, light_intensity=0.5, light_color=(1, 1, 1)):
 
 def directional_lighting(light, normals, light_intensity=0.5,
                          light_color=(1, 1, 1), light_direction=(0, 1, 0)):
-    """Lambert term relu(n . l) (functional/lighting.py:26-47)."""
+    """Lambert term relu(n . l) (functional/lighting.py:26-47).  A face
+    edge-on to the light (n . l exactly 0, as a symmetric sphere's equator
+    is to a light along an axis) passes no gradient, as upstream's
+    F.relu; a clamp would pass all of it."""
     color = _vec(light_color, light.device)
     direction = _vec(light_direction, light.device)
-    cosine = torch.clamp((normals * direction[:, None, :]).sum(2), min=0.0)
+    cosine = torch.relu((normals * direction[:, None, :]).sum(2))
     return light + light_intensity * (color[:, None, :] * cosine[:, :, None])
 
 

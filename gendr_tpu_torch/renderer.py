@@ -21,6 +21,7 @@ from torch import nn
 from gendr_tpu_torch.device import to_device
 from gendr_tpu_torch.raster import pairmath
 from gendr_tpu_torch.raster.render import render, render_config
+from gendr_tpu_torch.utils import profiling
 
 
 def _avg_pool2(images):
@@ -108,7 +109,10 @@ class GenDR(nn.Module):
         images = render(face_vertices, face_textures, **self.render_kwargs(),
                         par=par)
         if self.anti_aliasing:
-            images = _avg_pool2(images)
+            # a recorded step's phases: the pool, and its backward from the
+            # pooled image's gradient
+            profiling.mark('aa')
+            images = profiling.grad_mark(_avg_pool2(images), 'aa.bwd')
         return images
 
     def params_vector(self, **overrides):

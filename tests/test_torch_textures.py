@@ -161,10 +161,30 @@ def test_soft_cdf_surface_texture_matches_xla_off_the_fold(scene):
     assert float(got_g[1].abs().max()) > 100 * GRAD_ATOL
 
 
-def test_cuda_backend_plain_matches_pallas_interpret():
+def float_fold(w_clip, R):
+    """gendr_tpu's surface_texel_index (gendr_tpu/raster/geometry.py): the
+    fold's test on the float sum w0 + w1 everywhere, where the port reads
+    exactly 1 beyond the edge opposite vertex 2 (w2 clipped to 0)."""
+    w_x = torch.floor(w_clip[0] * R).to(torch.int32)
+    w_y = torch.floor(w_clip[1] * R).to(torch.int32)
+    lower = (w_clip[0] + w_clip[1]) * R - w_x.to(torch.float32) \
+        - w_y.to(torch.float32) <= 1.0
+    idx = torch.where(lower, w_y * R + w_x,
+                      (R - 1 - w_y) * R + (R - 1 - w_x))
+    return torch.clamp(idx, 0, R * R - 1)
+
+
+def test_cuda_backend_plain_matches_pallas_interpret(monkeypatch):
     """A softmax surface-texture render and its gradient against the TPU
     kernels themselves, run in interpret mode as tests/test_pallas.py runs
-    them (16x16, face_chunk 8, pixel_tile 64)."""
+    them (16x16, face_chunk 8, pixel_tile 64), the port's texel lookup
+    under gendr_tpu's rule of the fold (float_fold), which picks the same
+    texel in every pair; under the port's own rule the alpha and the
+    softmax aggregates stay bitwise the same, and its RGB and gradients
+    are held to the Pallas kernels off the pixels where the two rules
+    pick different texels (at most FOLD_BUDGET of them), the upstream
+    gradient of those pixels set to 0 on both sides."""
+    from gendr_tpu_torch.raster import geometry as RG
     rng = np.random.RandomState(2)
     fv = random_scene(rng, B=2, F=13).reshape(2, 13, 9)
     tex = rng.rand(2, 13, 4, 3).astype(np.float32)
@@ -182,13 +202,32 @@ def test_cuda_backend_plain_matches_pallas_interpret():
     want = jax.jit(PB.backward_from_aux, static_argnums=6)(
         jfv, jtex, aux, soft, aggrs, jnp.asarray(g), jcfg, jp)
     cfg = C.RenderConfig.create(backend='cuda', **kw)
+    own_soft, own_ag = CB.forward(torch.from_numpy(fv),
+                                  torch.from_numpy(tex), cfg, tp)
+    monkeypatch.setattr(RG, 'surface_texel_index', float_fold)
     got_soft, got_ag = CB.forward(torch.from_numpy(fv), torch.from_numpy(tex),
                                   cfg, tp)
+    assert torch.equal(own_soft[:, 3], got_soft[:, 3])
+    assert torch.equal(own_ag, got_ag)
     _assert_images(got_soft, got_ag, soft, aggrs, 'softmax')
     got = _port_grads(CB, fv, tex, {**kw, 'backend': 'cuda'}, tp, g)
     assert agreement(got[0], want[0]) > GRAD_AGREE
     assert agreement(got[1], want[1]) > GRAD_AGREE
     assert float(got[1].abs().max()) > 100 * GRAD_ATOL
+
+    # the port's own rule: off its fold pixels, the Pallas kernels'
+    monkeypatch.undo()
+    fold = (own_soft != got_soft).any(1).numpy()           # [B, H, W]
+    assert fold.mean() <= FOLD_BUDGET, (fold.sum(), fold.size)
+    err = np.abs(own_soft.numpy() - np.asarray(soft)).max(axis=1)
+    assert err[~fold].max() < IMG_TOL
+    g_off = g * ~fold[:, None]
+    want_off = jax.jit(PB.backward_from_aux, static_argnums=6)(
+        jfv, jtex, aux, soft, aggrs, jnp.asarray(g_off), jcfg, jp)
+    own = _port_grads(CB, fv, tex, {**kw, 'backend': 'cuda'}, tp, g_off)
+    assert agreement(own[0], want_off[0]) > GRAD_AGREE
+    assert agreement(own[1], want_off[1]) > GRAD_AGREE
+    assert float(own[1].abs().max()) > 100 * GRAD_ATOL
 
 
 @pytest.mark.parametrize('texture_type', ['surface', 'vertex'])
